@@ -1,0 +1,40 @@
+"""pyfasst_tpu_torch -- the PyTorch/CUDA port of pyfasst_tpu.
+
+The JAX package (pyfasst_tpu) is the reference; this package keeps its
+module layout and public names, so each module's counterpart is found under
+the same path. It imports torch, numpy and scipy, never jax. The E-step of
+the main path runs in a hand-written CUDA kernel on an NVIDIA GPU
+(csrc/estep.cu, built with nvcc at first use); on the CPU every operation
+runs in plain PyTorch.
+
+    import pyfasst_tpu_torch
+
+    model = pyfasst_tpu_torch.MultiChanNMFInst_FASST(
+        "mixture.wav", nbComps=2, nbNMFComps=8, iter_num=500, device="cuda")
+    model.estim_param_a_posteriori()
+    model.separate_spat_comps("out_dir")
+"""
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AudioObject",
+    "FASST",
+    "MultiChanNMFInst_FASST",
+]
+
+_LAZY = {
+    "AudioObject": "pyfasst_tpu_torch.audio",
+    "FASST": "pyfasst_tpu_torch.models",
+    "MultiChanNMFInst_FASST": "pyfasst_tpu_torch.models",
+}
+
+
+def __getattr__(name):
+    # Lazy top-level API: importing the package stays light (no torch import
+    # until a model is touched).
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(
+        f"module 'pyfasst_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,237 @@
+"""The FASST host API class.
+
+Port of pyfasst_tpu/models/fasst.py. Same user-facing flow:
+
+    model = MultiChanNMFInst_FASST("mix.wav", nbComps=2, nbNMFComps=8,
+                                   device="cuda")
+    model.estim_param_a_posteriori()          # run the GEM loop
+    model.separate_spat_comps("out_dir/")     # per-source WAVs on disk
+
+Audio I/O and WAV writing stay on the host; the transform, the GEM loop and
+the separation run on `device`. A model on "cuda" runs there or raises: it
+never moves to the CPU. Parameters carry a clip axis of size 1 and are
+replaced wholesale after each estimation call.
+
+Not ported yet: the blind estimators (estim_param_blind_*), checkpoint
+save/load (ROADMAP item 8), and front-ends other than the STFT (item 11).
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from pyfasst_tpu_torch.audio import AudioObject
+from pyfasst_tpu_torch.models.components import FasstParams
+from pyfasst_tpu_torch.ops import wiener
+from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
+from pyfasst_tpu_torch.tf.stft import STFT
+from pyfasst_tpu_torch.utils.config import GEMConfig
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for a 'cpu' or 'cuda' request; raises when CUDA is asked
+    for and no card is present (never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={str(device)!r} was requested but no CUDA device "
+                "is available")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(device)!r}")
+    return dev
+
+
+class FASST:
+    """Base class: holds the mixture transform and the parameters.
+
+    Subclasses (variants.py) construct `self.params`. kwargs mirror the
+    reference's constructor knobs: `wlen`, `hop`, `iter_num`, annealing
+    mode, `verbose`; `device` says where the tensors live.
+    """
+
+    def __init__(self,
+                 audio: Union[str, AudioObject, np.ndarray],
+                 fs: int = 44100,
+                 wlen: int = 1024,
+                 hop: Optional[int] = None,
+                 iter_num: int = 200,
+                 annealing: str = "ann",
+                 sigma_start_frac: float = 1e-2,
+                 sigma_end_frac: float = 3e-6,
+                 verbose: int = 0,
+                 tf_method: str = "fft",
+                 dtype: str = "float32",
+                 seed: int = 0,
+                 spatial_hold_frac: Optional[float] = None,
+                 transform: Optional[object] = None,
+                 device="cpu"):
+        self.device = resolve_device(device)
+        if isinstance(audio, AudioObject):
+            self.audio = audio
+        elif isinstance(audio, (str, os.PathLike)):
+            self.audio = AudioObject(audio)
+        else:
+            self.audio = AudioObject(data=np.asarray(audio), samplerate=fs)
+        self.fs = self.audio.samplerate
+        self.verbose = verbose
+        self.seed = int(seed)
+        # CPU generator: the same draws whatever the device (they are not
+        # the JAX package's jax.random draws)
+        self.generator = torch.Generator().manual_seed(self.seed)
+        if dtype not in ("float32", "float64"):
+            raise ValueError(f"dtype must be float32/float64, got {dtype!r}")
+        self.dtype = torch.float64 if dtype == "float64" else torch.float32
+        self.np_dtype = np.float64 if dtype == "float64" else np.float32
+
+        if transform is not None or tf_method != "fft":
+            raise NotImplementedError(
+                "only the STFT front-end (tf_method='fft') is ported yet "
+                "(ROADMAP item 11)")
+        self.tft = STFT(wlen=wlen, hop=hop, fs=self.fs, method=tf_method,
+                        device=self.device)
+        self.Xs = None       # (1, F, N, I) complex tensor on self.device
+        self.comp_transf_Cx()
+
+        hold = {} if spatial_hold_frac is None else \
+            {"spatial_hold_frac": float(spatial_hold_frac)}
+        self.cfg = GEMConfig(niter=iter_num, annealing=annealing,
+                             sigma_start_frac=sigma_start_frac,
+                             sigma_end_frac=sigma_end_frac, **hold)
+        self.params: Optional[FasstParams] = None
+        self.logliks: Optional[np.ndarray] = None
+
+    # -- transform ----------------------------------------------------------
+    @property
+    def F(self) -> int:
+        return int(self.Xs.shape[1])
+
+    @property
+    def N(self) -> int:
+        return int(self.Xs.shape[2])
+
+    @property
+    def nchannels(self) -> int:
+        return self.audio.channels
+
+    def comp_transf_Cx(self) -> None:
+        """Analysis transform of the mixture.
+
+        The spectra are normalized to unit mean power (scale restored at
+        separation time): O(1)-centered statistics keep every float32
+        intermediate in range regardless of the recording level.
+        """
+        data = self.audio.data.astype(self.np_dtype)
+        if data.shape[1] < 1:
+            raise ValueError("mixture has no channels")
+        X = self.tft.computeTransform(data)            # (F, N, I) complex
+        mean_pow = float(torch.mean(X.abs() ** 2))
+        self._scale = np.sqrt(max(mean_pow, 1e-30))
+        self.Xs = (X / self._scale)[None]
+
+    # -- estimation ----------------------------------------------------------
+    def estim_param_a_posteriori(self, niter: Optional[int] = None,
+                                 start_iter: int = 0,
+                                 checkpoint_path: Optional[str] = None,
+                                 checkpoint_every: Optional[int] = None
+                                 ) -> np.ndarray:
+        """Run the GEM loop; returns the per-iteration log-likelihoods.
+
+        checkpoint_every=K runs the loop in chunks of K iterations and
+        checks the log-likelihood after each chunk (one host wait per
+        chunk); the chunked trajectory is exactly the uninterrupted one.
+        Non-finite log-likelihood in a chunk rolls the parameters back to
+        the chunk's start and raises RuntimeError naming the iteration.
+        Saving checkpoints (checkpoint_path) is not ported yet.
+        """
+        if self.params is None:
+            raise RuntimeError("model parameters not initialized "
+                               "(use a concrete FASST variant)")
+        if checkpoint_path is not None:
+            raise NotImplementedError(
+                "checkpoint save/load is not ported yet (ROADMAP item 8)")
+        cfg = self.cfg if niter is None else \
+            GEMConfig(**{**self.cfg.__dict__, "niter": int(niter)})
+        every = int(checkpoint_every or 0)
+        t0 = time.perf_counter()
+        logliks = torch.zeros((1, cfg.niter), dtype=torch.float32,
+                              device=self.device)
+        s = int(start_iter)
+        params = self.params
+        while s < cfg.niter:
+            e = min(s + every, cfg.niter) if every else cfg.niter
+            new_params, logliks = run_gem(params, self.Xs, cfg,
+                                          start_iter=s, end_iter=e,
+                                          logliks=logliks)
+            finite = torch.isfinite(logliks[0, s:e])
+            if not bool(finite.all()):
+                bad = s + int(torch.argmin(finite.to(torch.int8)))
+                self.params = params
+                raise RuntimeError(
+                    f"GEM diverged (non-finite log-likelihood) at iteration "
+                    f"{bad}; parameters rolled back to iteration {s}")
+            params = new_params
+            s = e
+        self._gem_seconds = time.perf_counter() - t0
+        self.params = params
+        self.logliks = logliks[0].cpu().numpy().astype(np.float64)
+        if self.verbose:
+            print(f"GEM {cfg.niter} iters in {self._gem_seconds:.3f}s, "
+                  f"final loglik {self.logliks[-1]:.6g}")
+        return self.logliks
+
+    # -- separation ----------------------------------------------------------
+    def _final_sigma(self) -> torch.Tensor:
+        _, sigma1 = annealing_endpoints(self.Xs, self.cfg)
+        return sigma1
+
+    def _to_time(self, Y) -> np.ndarray:
+        """(J, F, N, I) spectra -> (J, nsamples, I) host signals, rescaled."""
+        ys = self.tft.invertTransform(Y, nsamples=self.audio.nsamples)
+        return ys.cpu().numpy() * self._scale
+
+    def separated_images(self) -> np.ndarray:
+        """Posterior-mean source images, time domain: (J, nsamples, I)."""
+        Y = wiener.separate_sources(self.params, self.Xs, self._final_sigma())
+        return self._to_time(Y[0])
+
+    def separate_spat_comps(self, dir_results: Optional[str] = None,
+                            suffix: str = "est") -> List[str]:
+        """Wiener-separate every spatial component and write WAVs.
+
+        Returns the written file paths (or in-memory arrays via
+        `separated_images`).
+        """
+        return self._write_sources(self.separated_images(), dir_results,
+                                   suffix)
+
+    def separate_spatial_filter_comp(self, dir_results: Optional[str] = None,
+                                     suffix: str = "sf") -> List[str]:
+        """Spatial-filter (PSD-independent) separation variant."""
+        Y = wiener.separate_spatial_filter(self.params, self.Xs,
+                                           self._final_sigma())
+        return self._write_sources(self._to_time(Y[0]), dir_results, suffix)
+
+    def retrieveSubsrcSignals(self) -> np.ndarray:
+        """Alias kept for reference API parity: the separated source images."""
+        return self.separated_images()
+
+    def _write_sources(self, ys: np.ndarray, dir_results: Optional[str],
+                       suffix: str) -> List[str]:
+        if dir_results is None:
+            return []
+        os.makedirs(dir_results, exist_ok=True)
+        stem = os.path.splitext(os.path.basename(
+            self.audio.filename or "mixture"))[0]
+        paths = []
+        for j in range(ys.shape[0]):
+            path = os.path.join(dir_results, f"{stem}_{suffix}_{j}.wav")
+            peak = np.max(np.abs(ys[j]))
+            data = ys[j] / peak if peak > 1.0 else ys[j]
+            AudioObject(data=data, samplerate=self.fs)._write(path)
+            paths.append(path)
+        return paths

@@ -1,0 +1,113 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Compiles every ``csrc/*.cu`` of the package into one shared library with a
+plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -o _build/libpyfasst_kernels.so csrc/*.cu
+
+on first CUDA use, into ``pyfasst_tpu_torch/_build/``. A stamp beside the
+library holds a hash of the sources and flags, so an unchanged tree is not
+rebuilt. Only the sources in the package and the CUDA toolkit's headers go
+into the build. A failed build raises with nvcc's output; nothing falls back
+to the plain PyTorch versions. No --use_fast_math: the kernels rely on exact
+IEEE divides and logf; and --fmad=false keeps every product rounded as the
+plain versions round it (see csrc/estep.cu).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_NAME = "libpyfasst_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler",
+         "-fPIC"]
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+class NvccError(RuntimeError):
+    """nvcc failed or was not found."""
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME, the PATH, or /usr/local/cuda."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise NvccError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def sources():
+    return sorted(SRC_DIR.glob("*.cu")), sorted(SRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + FLAGS).encode())
+    cu, cuh = sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def build(verbose: bool = False) -> dict:
+    """Compile the kernels if the sources changed since the last build.
+
+    Returns {"path", "built", "seconds", "log"}: built is False when the
+    stamped library was reused; log holds nvcc's output (with
+    -Xptxas -v's register and spill report when verbose).
+    """
+    import time
+
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    key = source_hash()
+    if lib.is_file() and stamp.is_file() and stamp.read_text() == key:
+        return {"path": str(lib), "built": False, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = sources()
+    if not cu:
+        raise NvccError(f"no CUDA sources in {SRC_DIR}")
+    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = ([nvcc_path()] + ARCH_FLAGS + FLAGS
+           + (["-Xptxas", "-v"] if verbose else [])
+           + ["-I", str(SRC_DIR), "-o", str(tmp)] + [str(p) for p in cu])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = (proc.stdout + proc.stderr).strip()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise NvccError(f"nvcc failed ({proc.returncode}):\n"
+                         f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib)
+    stamp.write_text(key)
+    return {"path": str(lib), "built": True, "seconds": seconds, "log": log}
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with its C signatures set."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    info = build()
+    lib = ctypes.CDLL(info["path"])
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.pyfasst_estep_r1_real
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+    fn.restype = i
+    _lib = lib
+    return lib
