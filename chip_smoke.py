@@ -5,15 +5,29 @@
 
 Phases (each prints one line with its numbers and seconds):
   0. the machine: nvidia-smi name and power limit, torch, CUDA and nvcc;
-  1. build the CUDA kernels from csrc/ (nvcc, sm_90a);
-  2. the E-step kernel against its plain PyTorch version on the card, at
-     the bench shapes (B=8, F=513, N=863) and two small ones;
+  1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
+     sm_90a), with ptxas' register and spill report;
+  2. each E-step kernel variant against its plain PyTorch version on the
+     card, at the bench shapes (B=8, F=513, N=863) and two ragged ones,
+     with CUDA-event timings of kernel and plain version in turns:
+     a (real rank-1 mixing), b (complex mixing, J=3), c (rank 2, J=4, and
+     mixed ranks), d (ann_ns_inj, rank 1 and rank 2);
   3. the host API: MultiChanNMFInst_FASST on a 10 s stereo WAV, 500 GEM
      iterations, WAVs written; the kernel must carry every E-step and the
      separation must reach 60 dB SDR;
   4. the bench pipeline (STFT, 500 GEM iterations, Wiener, ISTFT) over 8
      clips at once, with the same SDR gate, and CUDA-event timings of one
-     E-step (kernel and plain) and of the whole pipeline at B=1 and B=8.
+     E-step (kernel and plain) and of the whole pipeline at B=1 and B=8;
+  5. BASELINE configs[1]: MultiChanNMFConv (3 sources, rank 1, ERB basis,
+     DEMIX init) on a 6 s anechoic mixture, 400 iterations, WAVs written;
+     400 launches of variant b, and the min SDR must reach 10 dB and lie
+     within 1 dB of the port's CPU run of the same recipe;
+  6. the configs[2] model: MultiChanNMFConv (4 sources, full rank 2) on a
+     6 s reverberant mixture, started from the true images' principal
+     directions, 400 iterations; 400 launches of variant c, min SDR at
+     least 5 dB and within 1 dB of the CPU run;
+  7. phase 5's model under 'ann_ns_inj' annealing, 100 iterations: 100
+     launches of variant d, finite loglik.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -41,10 +55,43 @@ BATCH = 8
 SDR_GATE = 60.0
 REPLACES = "pyfasst_tpu/ops/pallas_estep.py:108"
 KERNEL_SOURCE = "pyfasst_tpu_torch/csrc/estep.cu"
+GENERAL_SOURCE = "pyfasst_tpu_torch/csrc/estep_general.cuh"
+# BASELINE configs[1] and configs[2] (tools/validate_hw.py's anechoic and
+# reverberant recipes, seeds 101 and 102)
+FS_CONV = 16000
+DUR_CONV = 6.0
+WLEN_CONV = 1024
+NITER_CONV = 400
+NITER_NS = 100
+SDR_FLOOR = {"anechoic": 10.0, "reverb": 5.0}
+# min SDR (dB) of the port's own CPU run of phases 5 and 6, same mixture
+# and seed (python3 -c "import chip_smoke; chip_smoke.cpu_reference()",
+# measured on the 8-core host of an H100 machine); the card's run must lie
+# within SDR_SLACK of it
+CONV_LL_TAIL = NITER_CONV // 50
+CPU_SDR = {"anechoic": 14.43, "reverb": 13.52}
+SDR_SLACK = 1.0
 # Bars of tests/test_pallas_estep.py: xi 2e-4, frame-reduced statistics
 # 5e-4 (its multi-tile case), loglik 1e-4.
 TOL = {"xi": 2e-4, "txs": 5e-4, "tss": 5e-4, "t4": 5e-4, "t7": 5e-4,
        "loglik": 1e-4}
+# the new variants: (key, label, J, ranks, real_cov, ns_inj); rank 2 holds
+# xi at 3e-4 (test_pallas_estep.py's rank-2 bar)
+GENERAL_CASES = (
+    ("b", "complex J=3 rank 1", 3, (1, 1, 1), False, False),
+    ("c", "complex J=4 rank 2", 4, (2, 2, 2, 2), False, False),
+    ("c", "complex J=4 ranks (1,2,2,1)", 4, (1, 2, 2, 1), False, False),
+    ("d", "ns_inj complex J=3 rank 1", 3, (1, 1, 1), False, True),
+    ("d", "ns_inj complex J=4 rank 2", 4, (2, 2, 2, 2), False, True),
+)
+# the case whose numbers stand for each variant in the kernels line
+GENERAL_HEADLINE = {"b": "complex J=3 rank 1", "c": "complex J=4 rank 2",
+                    "d": "ns_inj complex J=3 rank 1"}
+GENERAL_REPLACES = {
+    "b": f"{REPLACES} (variant b: real_cov=False)",
+    "c": f"{REPLACES} (variant c: ranks 2 and mixed, :283-303)",
+    "d": f"{REPLACES} (variant d: ns_inj, :235-237 :252-255 :313-315 "
+         ":332-337)"}
 
 
 def log(msg: str) -> None:
@@ -120,18 +167,160 @@ def pipeline(mix, params, cfg, window, nsamples):
     return ys, logliks
 
 
-def check_logliks(ll: np.ndarray, label: str) -> None:
+def check_logliks(ll: np.ndarray, label: str, tail: int = 0) -> None:
     """Finite everywhere; the late iterations rise (monotone to within a
-    small relative slack, as the verify recipe asks)."""
+    small relative slack, as the verify recipe asks). The last `tail`
+    iterations are left out of the rise: there the conv models' loglik
+    falls as the annealed noise floor reaches its end value, in the JAX
+    package as in the port (iterations 395-398 of 400 on configs[1])."""
     if not np.all(np.isfinite(ll)):
         raise RuntimeError(f"{label}: non-finite loglik")
-    late = ll[..., ll.shape[-1] // 2:]
+    late = ll[..., ll.shape[-1] // 2:ll.shape[-1] - tail]
     worst = float(np.min(np.diff(late, axis=-1)))
     if worst < -1e-3 * float(np.max(np.abs(late))):
         raise RuntimeError(f"{label}: loglik falls late in the run "
                            f"(worst step {worst:.6g})")
     if np.any(late[..., -1] <= late[..., 0]):
         raise RuntimeError(f"{label}: loglik did not rise late in the run")
+
+
+def band_sources(rng, n, kinds, fs=FS_CONV):
+    """tools/validate_hw.py::_sources: spectrally distinct, amplitude-
+    modulated test sources, each scaled to unit standard deviation."""
+    from scipy.signal import butter, lfilter
+    t = np.arange(n) / fs
+    out = []
+    for kind in kinds:
+        if kind == "harm":
+            s = sum(np.sin(2 * np.pi * 220 * (k + 1) * t) / (k + 1)
+                    for k in range(5)) * (1 + 0.4 * np.sin(2 * np.pi * 2 * t))
+        elif kind.startswith("band:"):       # dense band-limited noise
+            lo, hi = (float(x) for x in kind.split(":")[1].split("-"))
+            b, a = butter(4, [lo, hi], btype="band")
+            s = lfilter(b, a, rng.standard_normal(n))
+        elif kind == "noise_lo":
+            s = np.convolve(rng.standard_normal(n), np.ones(24) / 24,
+                            "same") * (np.sin(2 * np.pi * 1.3 * t) > 0)
+        elif kind == "noise_hi":
+            w = rng.standard_normal(n)
+            s = (w - np.convolve(w, np.ones(8) / 8, "same")) \
+                * (1 + 0.5 * np.sin(2 * np.pi * 0.7 * t + 1))
+        elif kind == "clicks":
+            s = np.zeros(n)
+            s[::int(0.21 * fs)] = 1.0
+            s = np.convolve(s, np.hanning(64), "same") \
+                * rng.standard_normal(n) * 0.5 + s
+        else:
+            raise ValueError(kind)
+        out.append(s / (np.std(s) + 1e-9))
+    return out
+
+
+def anechoic_mixture(seed=101):
+    """configs[1]: three band-limited noises, gains [0.5, 1, 1.8] and
+    integer delays [-4, 0, 5] samples on the second channel (exact images).
+    Returns (mix (T, 2) float32, true images (3, T, 2))."""
+    rng = np.random.default_rng(seed)
+    n = int(FS_CONV * DUR_CONV)
+    srcs = band_sources(rng, n, ["band:0.01-0.2", "band:0.15-0.55",
+                                 "band:0.45-0.95"])
+    ys = np.stack([np.stack([s, g * np.roll(s, d)], 1)
+                   for s, g, d in zip(srcs, [0.5, 1.0, 1.8], [-4, 0, 5])])
+    return ys.sum(0).astype(np.float32), ys
+
+
+def reverb_mixture(seed=102):
+    """configs[2]: four sources, each convolved with 100-tap two-channel
+    responses (a direct path plus a decaying tail)."""
+    rng = np.random.default_rng(seed)
+    n = int(FS_CONV * DUR_CONV)
+    srcs = band_sources(rng, n, ["harm", "noise_lo", "noise_hi", "clicks"])
+    ys = []
+    for j, s in enumerate(srcs):
+        chs = []
+        for ch in range(2):
+            h = rng.standard_normal(100) * np.exp(-np.arange(100) / 20.0)
+            h[0] += 1.5 if ch == (j % 2) else 0.4
+            chs.append(np.convolve(s, h, "same"))
+        ys.append(np.stack(chs, 1))
+    ys = np.stack(ys)
+    return ys.sum(0).astype(np.float32), ys
+
+
+def principal_directions(ys_true, wlen=WLEN_CONV):
+    """Each true image's per-frequency principal direction, (J, F, 2, 1)
+    complex: the top eigenvector of sum_n y y^H, first entry made real."""
+    from pyfasst_tpu_torch.tf.stft import stft
+    out = []
+    for y in ys_true:
+        Y = stft(y, wlen).numpy()                          # (F, N, 2)
+        R = np.einsum("fni,fnk->fik", Y, Y.conj())
+        u = np.linalg.eigh(R)[1][..., -1]                  # (F, 2)
+        u = u * np.exp(-1j * np.angle(u[:, :1]))
+        out.append(u[..., None])
+    return np.stack(out)
+
+
+def best_perm_sdr(ys, ys_true):
+    """(min, mean) image SDR over sources at the permutation with the best
+    total SDR (tools/validate_hw.py::_best_perm_sdr)."""
+    import itertools
+
+    def sdr(a, b):
+        return 10 * np.log10(np.sum(b ** 2)
+                             / max(np.sum((a - b) ** 2), 1e-12))
+
+    J = len(ys_true)
+    best = max((tuple(sdr(ys[p[j]], ys_true[j]) for j in range(J))
+                for p in itertools.permutations(range(J))), key=sum)
+    return float(min(best)), float(np.mean(best))
+
+
+def conv_model(case, device, niter=NITER_CONV, annealing="ann"):
+    """(model, true images) for configs[1] ("anechoic": DEMIX init, rank 1,
+    ERB basis) or configs[2] ("reverb": principal-direction init, rank 2)
+    on `device`."""
+    from pyfasst_tpu_torch import DEMIX, MultiChanNMFConv
+    kw = dict(fs=FS_CONV, nbNMFComps=6, wlen=WLEN_CONV, iter_num=niter,
+              spatial_hold_frac=0.3, annealing=annealing, device=device)
+    if case == "anechoic":
+        mix, ys_true = anechoic_mixture()
+        dm = DEMIX(mix, fs=FS_CONV, wlen=WLEN_CONV)
+        dm.comp_parameters(K=3)
+        model = MultiChanNMFConv(mix, nbComps=3,
+                                 init_mixing=dm.mixing(WLEN_CONV // 2 + 1),
+                                 freq_basis="erb", n_bands=32, **kw)
+    else:
+        mix, ys_true = reverb_mixture()
+        model = MultiChanNMFConv(mix, nbComps=4, spatial_rank=2,
+                                 init_mixing=principal_directions(ys_true),
+                                 **kw)
+    return model, ys_true
+
+
+def drive_conv(model, ys_true, out_dir):
+    """Estimate, write the WAVs and score: returns the logliks, the (min,
+    mean) SDR, the seconds of estimation and separation, and the WAVs."""
+    import torch
+    t0 = time.perf_counter()
+    ll = model.estim_param_a_posteriori()
+    paths = model.separate_spat_comps(out_dir)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sdr = best_perm_sdr(model.separated_images(), ys_true)
+    return ll, sdr, seconds, paths
+
+
+def cpu_reference():
+    """Phases 5 and 6 on the CPU: the figures CPU_SDR holds."""
+    for case in ("anechoic", "reverb"):
+        model, ys_true = conv_model(case, "cpu")
+        with tempfile.TemporaryDirectory() as tmp:
+            ll, sdr, seconds, _ = drive_conv(model, ys_true, tmp)
+        print(json.dumps({"case": case, "min_sdr": sdr[0],
+                          "mean_sdr": sdr[1], "seconds": seconds,
+                          "final_loglik": float(ll[-1])}), flush=True)
 
 
 # -- phases --------------------------------------------------------------------
@@ -213,6 +402,80 @@ def phase_kernel_vs_plain(device):
                                f"B={B} F={F} N={N}: {bad}")
     log(f"phase 2 done | {time.perf_counter() - t0:.2f}s")
     return main_abs
+
+
+def phase_general_vs_plain(device):
+    """Variants b, c and d against the plain version, at the bench shapes
+    and the two ragged ones; times kernel and plain at the bench shapes,
+    in turns (plain, kernel, kernel, plain)."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_estep
+    t0 = time.perf_counter()
+    names = ("xi", "txs", "tss", "t4", "t7")
+    out = {}
+    for key, label, J_, ranks, real, ns in GENERAL_CASES:
+        tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
+        for (B, F, N) in ((BATCH, 513, 863), (1, 33, 70), (1, 9, 2500)):
+            inp = _general_inputs(B, J_, F, N, ranks, real, seed=F * N + J_,
+                                  device=device)
+            kw = dict(ns_inj=ns, real_cov=real)
+            got = cuda_estep.estep_general(*inp, ranks, **kw)
+            want = cuda_estep.estep_ref(*inp, ranks, **kw)
+            torch.cuda.synchronize()
+            errs = {n: _rel_err(g, w) for n, g, w in zip(names, got, want)}
+            ll_g, ll_w = -got[5].sum(-1), -want[5].sum(-1)
+            errs["loglik"] = float(((ll_g - ll_w).abs() / ll_w.abs()).max())
+            abs_err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+            timing = ""
+            if B == BATCH:
+                kern, plain = [], []
+                for fn, res, reps, inner in (
+                        (cuda_estep.estep_ref, plain, 3, 2),
+                        (cuda_estep.estep_general, kern, 11, 10),
+                        (cuda_estep.estep_general, kern, 11, 10),
+                        (cuda_estep.estep_ref, plain, 3, 2)):
+                    fn(*inp, ranks, **kw)                      # warm-up
+                    res.extend(_event_ms(lambda: fn(*inp, ranks, **kw),
+                                         reps, inner))
+                out[label] = {"key": key, "max_abs_err": abs_err,
+                              "ms": statistics.median(kern),
+                              "plain_ms": statistics.median(plain)}
+                timing = (f" | kernel {out[label]['ms']:.4f} ms (min "
+                          f"{min(kern):.4f}), plain "
+                          f"{out[label]['plain_ms']:.3f} ms (min "
+                          f"{min(plain):.3f}), medians in turns")
+            log(f"phase 2 {key} {label} B={B} F={F} N={N}: "
+                + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}"
+                           for n, e in errs.items())
+                + f" | max_abs_err {abs_err:.3e}{timing}")
+            bad = [n for n, e in errs.items() if not e <= tol[n]]
+            if bad:
+                raise RuntimeError(f"variant {key} ({label}) disagrees with "
+                                   f"its plain version at B={B} F={F} "
+                                   f"N={N}: {bad}")
+    log(f"phase 2 new variants done | {time.perf_counter() - t0:.2f}s")
+    return out
+
+
+def _general_inputs(B, J_, F, N, ranks, real, seed, device):
+    """Random E-step inputs for the general kernel: x4, v = FB TW, complex
+    (or real) per-frequency mixing columns A4, sigma."""
+    import torch
+    rng = np.random.default_rng(seed)
+    FB = 0.5 + rng.random((B, J_, F, K))
+    TW = 0.5 + rng.random((B, J_, K, N))
+    A4 = np.zeros((B, J_, F, 4 * max(ranks)))
+    for j, R in enumerate(ranks):
+        a = 0.7 * rng.standard_normal((B, F, 4 * R))
+        if real:
+            a[..., 1::2] = 0.0
+        A4[:, j, :, :4 * R] = a
+    arrays = (rng.standard_normal((B, 4, F, N)),
+              np.einsum("bjfk,bjkn->bjfn", FB, TW), A4,
+              0.01 + 0.005 * rng.random((B, F)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            .contiguous() for a in arrays]
 
 
 def phase_host_api(device, dur, niter):
@@ -347,6 +610,74 @@ def phase_batch(device, dur, niter, batch, card):
     return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "xrt": xrt}
 
 
+def _reset_counts():
+    from pyfasst_tpu_torch.ops import cuda_estep
+    cuda_estep.LAUNCHES = 0
+    for k in cuda_estep.VARIANT_LAUNCHES:
+        cuda_estep.VARIANT_LAUNCHES[k] = 0
+
+
+def _counts():
+    from pyfasst_tpu_torch.ops import cuda_estep
+    return cuda_estep.LAUNCHES, dict(cuda_estep.VARIANT_LAUNCHES)
+
+
+def phase_conv(device, case, card):
+    """Phase 5 (case "anechoic", configs[1]) or 6 ("reverb", the configs[2]
+    model) through the host API on the card, with the launch and SDR
+    gates. Returns the variant launch counts of the run."""
+    t0 = time.perf_counter()
+    phase = 5 if case == "anechoic" else 6
+    model, ys_true = conv_model(case, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        ll, (smin, smean), secs, paths = drive_conv(model, ys_true, tmp)
+        total, counts = _counts()
+        written = [p for p in paths if os.path.getsize(p) > 44]
+    check_logliks(ll, f"phase {phase} {case}", tail=CONV_LL_TAIL)
+    cpu = CPU_SDR[case]
+    log(f"phase {phase} {case}: J={model.params.n_spat} rank "
+        f"{model.params.spat[0].rank} F={model.F} N={model.N}, "
+        f"{NITER_CONV} iters, loglik {ll[0]:.6g} -> {ll[-1]:.6g}, launches "
+        f"{total} {counts}, min SDR {smin:.2f} dB (mean {smean:.2f}; CPU "
+        f"run {cpu} dB), wavs {len(written)}, run {secs:.2f}s -> xRT "
+        f"{DUR_CONV / secs:.2f} (first run, B=1) | {card} | "
+        f"{time.perf_counter() - t0:.2f}s")
+    key = "b" if case == "anechoic" else "c"
+    if total != NITER_CONV or counts[key] != NITER_CONV:
+        raise RuntimeError(f"phase {phase}: {total} kernel launches "
+                           f"({counts}) in {NITER_CONV} iterations")
+    if not smin >= SDR_FLOOR[case]:
+        raise RuntimeError(f"phase {phase}: min SDR {smin:.2f} dB < "
+                           f"{SDR_FLOOR[case]} dB")
+    if abs(smin - cpu) > SDR_SLACK:
+        raise RuntimeError(f"phase {phase}: min SDR {smin:.2f} dB not "
+                           f"within {SDR_SLACK} dB of the CPU run ({cpu})")
+    if len(written) != model.params.n_spat:
+        raise RuntimeError(f"phase {phase}: expected "
+                           f"{model.params.n_spat} WAVs, found {paths}")
+    return counts
+
+
+def phase_ns_inj(device):
+    """Phase 7: phase 5's model under 'ann_ns_inj', through the kernel."""
+    t0 = time.perf_counter()
+    model, _ = conv_model("anechoic", device, niter=NITER_NS,
+                          annealing="ann_ns_inj")
+    _reset_counts()
+    ll = model.estim_param_a_posteriori()
+    total, counts = _counts()
+    log(f"phase 7 ann_ns_inj: {NITER_NS} iters, loglik {ll[0]:.6g} -> "
+        f"{ll[-1]:.6g}, launches {total} {counts} | "
+        f"{time.perf_counter() - t0:.2f}s")
+    if not np.all(np.isfinite(ll)):
+        raise RuntimeError("phase 7: non-finite loglik")
+    if total != NITER_NS or counts["d"] != NITER_NS:
+        raise RuntimeError(f"phase 7: {total} kernel launches ({counts}) "
+                           f"in {NITER_NS} iterations")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -359,20 +690,39 @@ def main() -> int:
     card = phase_machine(device)
     phase_build()
     main_abs = phase_kernel_vs_plain(device)
+    general = phase_general_vs_plain(device)
+    _reset_counts()
     launches = phase_host_api(device, DUR, NITER)
     timing = phase_batch(device, DUR, NITER, BATCH, card)
+    path_launches = {"a": launches,
+                     "b": phase_conv(device, "anechoic", card)["b"],
+                     "c": phase_conv(device, "reverb", card)["c"],
+                     "d": phase_ns_inj(device)["d"]}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "estep_r1_real",
+    kernels = [{
+        "name": "estep_r1_real (variant a: real rank-1 mixing)",
         "route": "cuda",
         "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
+        "replaces": f"{REPLACES} (variant a)",
+        "launches": path_launches["a"],
         "max_abs_err": main_abs,
         "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"],
-    }]}))
+    }]
+    for key, label in GENERAL_HEADLINE.items():
+        g = general[label]
+        kernels.append({
+            "name": f"estep_general (variant {key}: {label})",
+            "route": "cuda",
+            "source": GENERAL_SOURCE,
+            "replaces": GENERAL_REPLACES[key],
+            "launches": path_launches[key],
+            "max_abs_err": g["max_abs_err"],
+            "ms": g["ms"],
+            "plain_ms": g["plain_ms"],
+        })
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,10 @@
 
 The JAX package (pyfasst_tpu) is the reference; this package keeps its
 module layout and public names, so each module's counterpart is found under
-the same path. It imports torch, numpy and scipy, never jax. The E-step of
-the main path runs in a hand-written CUDA kernel on an NVIDIA GPU
-(csrc/estep.cu, built with nvcc at first use); on the CPU every operation
-runs in plain PyTorch.
+the same path. It imports torch, numpy and scipy, never jax. Every E-step
+runs in a hand-written CUDA kernel on an NVIDIA GPU (csrc/, built with
+nvcc at first use): the instantaneous, convolutive and full-rank models
+alike. On the CPU every operation runs in plain PyTorch.
 
     import pyfasst_tpu_torch
 
@@ -13,13 +13,22 @@ runs in plain PyTorch.
         "mixture.wav", nbComps=2, nbNMFComps=8, iter_num=500, device="cuda")
     model.estim_param_a_posteriori()
     model.separate_spat_comps("out_dir")
+
+    # convolutive, DEMIX-initialized, full rank
+    dm = pyfasst_tpu_torch.DEMIX("mixture.wav", wlen=1024)
+    dm.comp_parameters(K=3)
+    model = pyfasst_tpu_torch.MultiChanNMFConv(
+        "mixture.wav", nbComps=3, nbNMFComps=6, spatial_rank=2,
+        init_mixing=dm.mixing(513), device="cuda")
 """
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AudioObject",
+    "DEMIX",
     "FASST",
+    "MultiChanNMFConv",
     "MultiChanNMFInst_FASST",
 ]
 
@@ -27,6 +36,8 @@ _LAZY = {
     "AudioObject": "pyfasst_tpu_torch.audio",
     "FASST": "pyfasst_tpu_torch.models",
     "MultiChanNMFInst_FASST": "pyfasst_tpu_torch.models",
+    "MultiChanNMFConv": "pyfasst_tpu_torch.models",
+    "DEMIX": "pyfasst_tpu_torch.models",
 }
 
 

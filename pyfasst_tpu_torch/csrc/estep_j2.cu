@@ -1,0 +1,5 @@
+// The general E-step kernel (estep_general.cuh) for J = 2 sources: one
+// translation unit per J, so the build compiles them in parallel.
+#include "estep_general.cuh"
+
+PYFASST_ESTEP_GENERAL_ENTRY(2)

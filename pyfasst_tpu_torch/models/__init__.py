@@ -14,6 +14,8 @@ from pyfasst_tpu_torch.models.components import (  # noqa: F401
 _LAZY = {
     "FASST": "pyfasst_tpu_torch.models.fasst",
     "MultiChanNMFInst_FASST": "pyfasst_tpu_torch.models.variants",
+    "MultiChanNMFConv": "pyfasst_tpu_torch.models.variants",
+    "DEMIX": "pyfasst_tpu_torch.models.demix",
 }
 
 __all__ = [

@@ -151,23 +151,32 @@ class FasstParams:
 
 def init_nmf_comp(generator: torch.Generator, F: int, N: int, n_nmf: int,
                   spat_ind: int, dtype=torch.float32, device="cpu",
-                  batch: int = 1) -> SpectralComp:
+                  batch: int = 1,
+                  fixed_FB: Optional[np.ndarray] = None) -> SpectralComp:
     """Random-init NMF spectral component with a leading clip axis:
     FB free random (B, F, K), FW/TB identity, TW free random (B, K, N).
+    With fixed_FB (an (F, L) ERB/Mel tf.filterbank.spectral_basis), FB is
+    that fixed basis and FW (B, L, K) becomes the free pattern weights on
+    the band grid: free = (False, True, True, False).
 
     The draws come from `generator`, a CPU torch.Generator, so CPU and CUDA
     runs start from the same numbers. They are NOT the numbers of the JAX
     package's jax.random draws from the same seed: to compare the two
     packages, hand both the same parameters (convert.params_from_numpy).
-    The JAX package's fixed_FB (filterbank) option waits for tf/filterbank.
     """
     def uniform(*shape):
         u = torch.rand((batch,) + shape, generator=generator,
                        dtype=torch.float64)
         return (0.5 + u).to(dtype=dtype, device=device)
 
-    return SpectralComp(FB=uniform(F, n_nmf), TW=uniform(n_nmf, N),
-                        spat_ind=spat_ind)
+    if fixed_FB is None:
+        return SpectralComp(FB=uniform(F, n_nmf), TW=uniform(n_nmf, N),
+                            spat_ind=spat_ind)
+    FB = torch.as_tensor(np.asarray(fixed_FB), dtype=dtype, device=device)
+    FW = uniform(FB.shape[1], n_nmf)
+    return SpectralComp(FB=FB[None].repeat(batch, 1, 1), FW=FW,
+                        TW=uniform(n_nmf, N), spat_ind=spat_ind,
+                        free=(False, True, True, False))
 
 
 def init_inst_mixing(key, I: int, R: int, J: int, dtype=torch.float32,

@@ -1,7 +1,7 @@
 """Device compute: Hermitian 2x2 algebra, GEM E/M steps, Wiener separation.
 
-Port of pyfasst_tpu/ops. cuda_estep binds the hand-written E-step kernel;
-importing it builds nothing (the kernel is compiled at its first CUDA use).
+Port of pyfasst_tpu/ops. cuda_estep binds the hand-written E-step kernels;
+importing it builds nothing (they are compiled at their first CUDA use).
 """
 
 from pyfasst_tpu_torch.ops import (  # noqa: F401

@@ -1,18 +1,21 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Compiles every ``csrc/*.cu`` of the package into one shared library with a
-plain C interface:
+Compiles every ``csrc/*.cu`` of the package to an object, one nvcc
+process per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o _build/libpyfasst_kernels.so csrc/*.cu
+         -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu
 
-on first CUDA use, into ``pyfasst_tpu_torch/_build/``. A stamp beside the
-library holds a hash of the sources and flags, so an unchanged tree is not
-rebuilt. Only the sources in the package and the CUDA toolkit's headers go
-into the build. A failed build raises with nvcc's output; nothing falls back
-to the plain PyTorch versions. No --use_fast_math: the kernels rely on exact
-IEEE divides and logf; and --fmad=false keeps every product rounded as the
-plain versions round it (see csrc/estep.cu).
+and links the objects into one shared library with a plain C interface
+(``nvcc -shared``), on first CUDA use, into ``pyfasst_tpu_torch/_build/``.
+A stamp beside the library holds a hash of the sources and flags, so an
+unchanged tree is not rebuilt. Only the sources in the package and the CUDA
+toolkit's headers go into the build. A failed build raises with nvcc's
+output; nothing falls back to the plain PyTorch versions. Each J of the
+general E-step kernel is its own source (csrc/estep_j{2,3,4}.cu), so its
+instantiations compile in parallel. No --use_fast_math: the kernels rely
+on exact IEEE divides and logf; and --fmad=false keeps every product
+rounded as the plain versions round it (see csrc/estep.cu).
 """
 from __future__ import annotations
 
@@ -29,8 +32,7 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libpyfasst_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler",
-         "-fPIC"]
+FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -81,21 +83,46 @@ def build(verbose: bool = False) -> dict:
     cu, _ = sources()
     if not cu:
         raise NvccError(f"no CUDA sources in {SRC_DIR}")
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = ([nvcc_path()] + ARCH_FLAGS + FLAGS
-           + (["-Xptxas", "-v"] if verbose else [])
-           + ["-I", str(SRC_DIR), "-o", str(tmp)] + [str(p) for p in cu])
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in cu:
+        obj = BUILD_DIR / f".{src.stem}.{tag}.o"
+        logf = BUILD_DIR / f".{src.stem}.{tag}.log"
+        cmd = ([nvcc] + ARCH_FLAGS + FLAGS
+               + (["-Xptxas", "-v"] if verbose else [])
+               + ["-I", str(SRC_DIR), "-c", "-o", str(obj), str(src)])
+        with open(logf, "w") as out:
+            proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+        jobs.append((cmd, obj, logf, proc))
+    logs, failed = [], []
+    for cmd, obj, logf, proc in jobs:
+        rc = proc.wait()
+        text = logf.read_text().strip()
+        logf.unlink(missing_ok=True)
+        logs.append(text)
+        if rc != 0:
+            failed.append(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    objs = [obj for _, obj, _, _ in jobs]
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = ([nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp)]
+               + [str(o) for o in objs])
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise NvccError(f"nvcc failed ({proc.returncode}):\n"
-                         f"{' '.join(cmd)}\n{log}")
+        raise NvccError("\n".join(failed))
     os.replace(tmp, lib)
     stamp.write_text(key)
-    return {"path": str(lib), "built": True, "seconds": seconds, "log": log}
+    return {"path": str(lib), "built": True, "seconds": seconds,
+            "log": "\n".join(t for t in logs if t)}
 
 
 def load() -> ctypes.CDLL:
@@ -107,7 +134,13 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(info["path"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.pyfasst_estep_r1_real
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+    fn.argtypes = [p] * 10 + [i] * 4 + [f, p]
     fn.restype = i
+    for J in (2, 3, 4):
+        fn = getattr(lib, f"pyfasst_estep_j{J}")
+        # x4 v A4 sigma, xi txs tss t4 t7 ll; B F N rank_mask rmax
+        # real_cov ns_inj; eps; stream
+        fn.argtypes = [p] * 10 + [i] * 7 + [f, p]
+        fn.restype = i
     _lib = lib
     return lib

@@ -13,8 +13,13 @@ conditioning of the per-bin 2x2 inverses.
 
 E-step dispatch (gem_step):
     CPU tensor                      estep.compute_suff_stats
-    CUDA tensor, kernel-eligible    cuda_estep.suff_stats_cuda
-    CUDA tensor, anything else      NotImplementedError naming the variant
+    CUDA tensor, kernel-eligible    cuda_estep.suff_stats_cuda: variant a
+                                    (real rank-1 mixing) or the general
+                                    kernel (complex mixing, rank 2, mixed
+                                    ranks, 'ann_ns_inj')
+    CUDA tensor, anything else      NotImplementedError naming the
+                                    ROADMAP entry (fast_recip, float64,
+                                    J outside 2-4, fuse_spectral)
 """
 from __future__ import annotations
 
@@ -86,6 +91,8 @@ def _estep(params, X, v, sigma, cfg: GEMConfig, x4):
         raise NotImplementedError(
             "fuse_spectral: the fb_stats/tw_stats kernels are not ported yet "
             "(ROADMAP kernel queue 2-3)")
+    # instantaneous models have real mixing: the kernels then drop the
+    # arithmetic on its identically-zero imaginary parts
     real_cov = all(not c.A.is_complex() for c in params.spat)
     why = cuda_estep.kernel_eligible(ranks, real_cov, noise_inject, v.dtype,
                                      cfg.fast_recip, X.shape[-1])
@@ -94,7 +101,8 @@ def _estep(params, X, v, sigma, cfg: GEMConfig, x4):
             f"no CUDA E-step for this model: {why} is not ported yet "
             "(see ROADMAP.md)")
     return cuda_estep.suff_stats_cuda(X, v, None, sigma, ranks, A_conv,
-                                      eps=cfg.eps, x4=x4, real_cov=True)
+                                      eps=cfg.eps, noise_inject=noise_inject,
+                                      x4=x4, real_cov=real_cov)
 
 
 def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,

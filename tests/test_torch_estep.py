@@ -174,6 +174,11 @@ def test_kernel_wrapper_uses_plain_version_on_cpu():
     assert [tuple(g.shape) for g in got] == shapes
 
 
+# Variants b (complex mixing), c (rank 2) and d (ann_ns_inj) and J = 4 run
+# in the general kernel; the rest have no kernel yet.
+_PORTED = ("rank 2", "complex mixing", "ann_ns_inj", "J = 4")
+
+
 @pytest.mark.parametrize("why,kw", [
     ("rank 2", dict(ranks=(2, 1))),
     ("complex mixing", dict(real_cov=False)),
@@ -181,6 +186,7 @@ def test_kernel_wrapper_uses_plain_version_on_cpu():
     ("fast_recip", dict(fast_recip=True)),
     ("float64", dict(dtype=torch.float64)),
     ("J = 4", dict(ranks=(1, 1, 1, 1))),
+    ("J = 5", dict(ranks=(1, 2, 1, 1, 1))),
 ])
 def test_kernel_eligibility_names_the_variant(why, kw):
     args = dict(ranks=(1, 1), real_cov=True, noise_inject=False,
@@ -188,16 +194,30 @@ def test_kernel_eligibility_names_the_variant(why, kw):
     assert cuda_estep.kernel_eligible(**args) == ""
     args.update(kw)
     reason = cuda_estep.kernel_eligible(**args)
-    assert reason and why.split()[0] in reason
+    if why in _PORTED:
+        assert reason == ""
+    else:
+        assert why.split()[0] in reason and "ROADMAP" in reason
 
 
 def test_suff_stats_cuda_raises_for_variants_not_ported():
     rng = np.random.default_rng(5)
     X, jparams, sigma = jax_problem(rng, F=9, N=20, mix_type="conv")
     _, tin, ranks = _inputs(X, jparams, sigma)
-    with pytest.raises(NotImplementedError, match="complex mixing"):
+    launches = cuda_estep.LAUNCHES
+    for kw in (dict(real_cov=False), dict(real_cov=True, noise_inject=True)):
+        # computed now (by the plain version, on CPU tensors)
+        stats = cuda_estep.suff_stats_cuda(tin[0], tin[1], None, tin[3],
+                                           ranks, tin[4], **kw)
+        assert bool(torch.isfinite(stats.xi).all())
+    assert cuda_estep.LAUNCHES == launches
+    with pytest.raises(NotImplementedError, match="fast_recip"):
         cuda_estep.suff_stats_cuda(tin[0], tin[1], None, tin[3], ranks,
-                                   tin[4], real_cov=False)
-    with pytest.raises(NotImplementedError, match="ann_ns_inj"):
-        cuda_estep.suff_stats_cuda(tin[0], tin[1], None, tin[3], ranks,
-                                   tin[4], real_cov=True, noise_inject=True)
+                                   tin[4], fast_recip=True)
+    with pytest.raises(NotImplementedError, match="float64"):
+        cuda_estep.suff_stats_cuda(tin[0], tin[1].double(), None, tin[3],
+                                   ranks, tin[4])
+    five = (tin[4] * 3)[:5]
+    with pytest.raises(NotImplementedError, match="J = 5"):
+        cuda_estep.suff_stats_cuda(tin[0], tin[1][:, [0, 1, 0, 1, 0]], None,
+                                   tin[3], (1,) * 5, five)

@@ -126,7 +126,8 @@ def test_model_chunked_estimation_is_exact(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """A separation through the port loads neither jax nor pyfasst_tpu."""
+    """A separation through the port (the inst model, and the conv model
+    with DEMIX and the ERB basis) loads neither jax nor pyfasst_tpu."""
     code = """
 import sys
 import numpy as np
@@ -139,6 +140,14 @@ m = pyfasst_tpu_torch.MultiChanNMFInst_FASST(x, fs=16000, nbComps=2,
 ll = m.estim_param_a_posteriori()
 ys = m.separated_images()
 assert ys.shape == (2, 4000, 2) and np.all(np.isfinite(ll))
+dm = pyfasst_tpu_torch.DEMIX(x, fs=16000, wlen=256)   # DEMIX and its STFT
+dm.comp_parameters(K=2)
+c = pyfasst_tpu_torch.MultiChanNMFConv(x, fs=16000, nbComps=2, nbNMFComps=2,
+                                       wlen=256, iter_num=3, spatial_rank=2,
+                                       init_mixing=dm.mixing(129),
+                                       freq_basis="erb", n_bands=8)
+assert np.all(np.isfinite(c.estim_param_a_posteriori()))
+assert c.separated_images().shape == (2, 4000, 2)
 from pyfasst_tpu_torch.ops import cuda_estep, _build  # kernel modules too
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "flax"))
