@@ -7,11 +7,16 @@ Phases (each prints one line with its numbers and seconds):
   0. the machine: nvidia-smi name and power limit, torch, CUDA and nvcc;
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
      sm_90a), with ptxas' register and spill report;
-  2. each E-step kernel variant against its plain PyTorch version on the
-     card, at the bench shapes (B=8, F=513, N=863) and two ragged ones,
-     with CUDA-event timings of kernel and plain version in turns:
-     a (real rank-1 mixing), b (complex mixing, J=3), c (rank 2, J=4, and
-     mixed ranks), d (ann_ns_inj, rank 1 and rank 2);
+  2. each kernel against its plain PyTorch version on the card, with
+     CUDA-event timings of kernel and plain version in turns, each
+     kernel's bound from its bytes and operations: the E-step variants a
+     (real rank-1 mixing), b (complex mixing, J=3), c (rank 2, J=4, and
+     mixed ranks), d (ann_ns_inj, rank 1 and rank 2) at the bench shapes
+     (B=8, F=513, N=863) and two ragged ones; e (fast_recip) and f (no_ll)
+     in variant a's kernel and in the general one, at the bench shapes and
+     a ragged one; the spectral kernels fb_stats and tw_stats at the bench
+     shapes (J=2, K=8) and the JAX suite's (37, 95), (130, 300) and J=3,
+     K=4 (70, 211);
   3. the host API: MultiChanNMFInst_FASST on a 10 s stereo WAV, 500 GEM
      iterations, WAVs written; the kernel must carry every E-step and the
      separation must reach 60 dB SDR;
@@ -27,7 +32,14 @@ Phases (each prints one line with its numbers and seconds):
      directions, 400 iterations; 400 launches of variant c, min SDR at
      least 5 dB and within 1 dB of the CPU run;
   7. phase 5's model under 'ann_ns_inj' annealing, 100 iterations: 100
-     launches of variant d, finite loglik.
+     launches of variant d, finite loglik;
+  8. the bench pipeline of phase 4 (B=8, 500 iterations) with the fused
+     spectral M-step, then with it and fast_recip (the configurations
+     tools/fuse_batch_probe.py sweeps): 500 launches each of fb_stats and
+     tw_stats, 500 E-step launches (500 of variant e with fast_recip), the
+     60 dB gate; pipeline time and xRT beside phase 4's unfused figure, and
+     a torch.profiler window of 20 iterations with fusion off and on (wall
+     and host-enqueue ms, device busy ms and kernels per iteration).
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -91,7 +103,28 @@ GENERAL_REPLACES = {
     "b": f"{REPLACES} (variant b: real_cov=False)",
     "c": f"{REPLACES} (variant c: ranks 2 and mixed, :283-303)",
     "d": f"{REPLACES} (variant d: ns_inj, :235-237 :252-255 :313-315 "
-         ":332-337)"}
+         ":332-337)",
+    "e": f"{REPLACES} (variant e: fast_recip, _recip :114-124)",
+    "f": f"{REPLACES} (variant f: no_ll, :239)"}
+# variants e and f: (label, kernel, J, ranks, real_cov, ns_inj), the kernel
+# "a" (estep_r1_real) or "general"; each at the bench shapes and a ragged one
+EF_CASES = (("variant a", "a", 2, (1, 1), True, False),
+            ("complex J=3 rank 1", "general", 3, (1, 1, 1), False, False),
+            ("complex J=4 rank 2", "general", 4, (2, 2, 2, 2), False, False))
+SPECTRAL_SOURCE = "pyfasst_tpu_torch/csrc/spectral.cu"
+SPECTRAL_REPLACES = {
+    "fb_stats": "pyfasst_tpu/ops/pallas_spectral.py:117 (fb_stats; body "
+                "_make_fb_kernel :55)",
+    "tw_stats": "pyfasst_tpu/ops/pallas_spectral.py:155 (tw_stats; body "
+                "_make_tw_kernel :90)"}
+# (B, J, F, N, K): the bench shapes, then tests/test_pallas_spectral.py's
+SPECTRAL_SHAPES = ((BATCH, J, 513, 863, K), (2, 2, 37, 95, 5),
+                   (2, 2, 130, 300, 5), (2, 3, 70, 211, 4))
+SPECTRAL_RTOL = 2e-5          # tests/test_pallas_spectral.py's bar
+# an H100 SXM's published peaks (NVIDIA's data sheet; 700 W): device
+# memory bandwidth and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -376,6 +409,66 @@ def _rel_err(got, want):
     return float(((got - want).abs() / (want.abs() + floor)).max())
 
 
+def count_ops(fn, *args, **kw) -> int:
+    """Arithmetic operations of one call of a plain version, counted while
+    it runs: each elementwise operation counts its output's elements, each
+    sum or mean its input's, a matrix product 2 M K N; views, copies and
+    allocations count nothing. The plain versions repeat their kernel's
+    arithmetic term by term, so this is the kernel's count on these inputs
+    (a little more where the kernel shares a term, as Tss_kj = Tss_jk^H)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    free = {aten.copy_, aten.clone, aten._to_copy, aten.fill_, aten.zero_,
+            aten.lift_fresh}
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            pkt = func.overloadpacket
+            if pkt in (aten.mm, aten.bmm):
+                self.ops += 2 * args[0].numel() * args[1].shape[-1]
+            elif pkt in (aten.sum, aten.mean):
+                self.ops += args[0].numel()
+            elif (pkt not in free and torch.Tag.pointwise in func.tags
+                  and isinstance(out, torch.Tensor)):
+                self.ops += out.numel()
+            return out
+
+    with Count() as counter:
+        fn(*args, **kw)
+    return counter.ops
+
+
+def bound(tensors, ops):
+    """(bound_ms, bound_by, bytes): the least time an H100 SXM could take
+    for a call that reads each of its inputs once and writes each of its
+    outputs once (`tensors`, both) and does `ops` float32 operations:
+    the larger of bytes over the memory rate and operations over the
+    float32 rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes)
+
+
+def _turns(kernel, plain, reps=11, inner=10, plain_reps=3, plain_inner=2):
+    """CUDA-event ms samples of kernel() and plain(), in turns (plain,
+    kernel, kernel, plain), each after a warm-up call: (kernel samples,
+    plain samples), each sample the mean of `inner` back-to-back calls."""
+    kern, ref = [], []
+    for fn, out, r, i in ((plain, ref, plain_reps, plain_inner),
+                          (kernel, kern, reps, inner),
+                          (kernel, kern, reps, inner),
+                          (plain, ref, plain_reps, plain_inner)):
+        fn()
+        out.extend(_event_ms(fn, r, i))
+    return kern, ref
+
+
 def phase_kernel_vs_plain(device):
     import torch
     from pyfasst_tpu_torch.ops import cuda_estep
@@ -429,22 +522,21 @@ def phase_general_vs_plain(device):
                           for g, w in zip(got, want))
             timing = ""
             if B == BATCH:
-                kern, plain = [], []
-                for fn, res, reps, inner in (
-                        (cuda_estep.estep_ref, plain, 3, 2),
-                        (cuda_estep.estep_general, kern, 11, 10),
-                        (cuda_estep.estep_general, kern, 11, 10),
-                        (cuda_estep.estep_ref, plain, 3, 2)):
-                    fn(*inp, ranks, **kw)                      # warm-up
-                    res.extend(_event_ms(lambda: fn(*inp, ranks, **kw),
-                                         reps, inner))
+                kern, plain = _turns(
+                    lambda: cuda_estep.estep_general(*inp, ranks, **kw),
+                    lambda: cuda_estep.estep_ref(*inp, ranks, **kw))
+                b_ms, b_by, nbytes = bound(
+                    list(inp) + list(got),
+                    count_ops(cuda_estep.estep_ref, *inp, ranks, **kw))
                 out[label] = {"key": key, "max_abs_err": abs_err,
                               "ms": statistics.median(kern),
-                              "plain_ms": statistics.median(plain)}
+                              "plain_ms": statistics.median(plain),
+                              "bound_ms": b_ms, "bound_by": b_by}
                 timing = (f" | kernel {out[label]['ms']:.4f} ms (min "
                           f"{min(kern):.4f}), plain "
                           f"{out[label]['plain_ms']:.3f} ms (min "
-                          f"{min(plain):.3f}), medians in turns")
+                          f"{min(plain):.3f}), medians in turns | bound "
+                          f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)")
             log(f"phase 2 {key} {label} B={B} F={F} N={N}: "
                 + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}"
                            for n, e in errs.items())
@@ -455,6 +547,135 @@ def phase_general_vs_plain(device):
                                    f"its plain version at B={B} F={F} "
                                    f"N={N}: {bad}")
     log(f"phase 2 new variants done | {time.perf_counter() - t0:.2f}s")
+    return out
+
+
+def phase_variants_ef(device):
+    """Variants e (fast_recip) and f (no_ll) against the plain versions (the
+    exact reciprocal; the loglik without log det), in variant a's kernel and
+    in the general kernel, at the bench shapes and a ragged one; times the
+    bench shapes in turns. Returns the numbers of each variant in variant
+    a's kernel, and the launches of variant f in this phase (no path sets
+    no_ll)."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_estep
+    t0 = time.perf_counter()
+    names = ("xi", "txs", "tss", "t4", "t7")
+    out = {}
+    f_before = cuda_estep.VARIANT_LAUNCHES["f"]
+    for label, kern_name, J_, ranks, real, ns in EF_CASES:
+        tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
+        for (B, F, N) in ((BATCH, 513, 863), (1, 33, 70)):
+            if kern_name == "a":
+                inp = list(_estep_inputs(B, F, N, seed=F * N + 5,
+                                         device=device).values())
+                kernel, plain = (cuda_estep.estep_r1_real,
+                                 cuda_estep.estep_r1_real_ref)
+                args, kw = (), {}
+            else:
+                inp = _general_inputs(B, J_, F, N, ranks, real,
+                                      seed=F * N + J_ + 5, device=device)
+                kernel, plain = cuda_estep.estep_general, cuda_estep.estep_ref
+                args, kw = (ranks,), dict(ns_inj=ns, real_cov=real)
+            for key, flag in (("e", "fast_recip"), ("f", "no_ll")):
+                got = kernel(*inp, *args, **kw, **{flag: True})
+                want = plain(*inp, *args, **kw, no_ll=flag == "no_ll")
+                torch.cuda.synchronize()
+                errs = {n: _rel_err(g, w) for n, g, w in zip(names, got,
+                                                             want)}
+                ll_g, ll_w = -got[5].sum(-1), -want[5].sum(-1)
+                errs["loglik"] = float(((ll_g - ll_w).abs()
+                                        / ll_w.abs()).max())
+                abs_err = max(float((g - w).abs().max())
+                              for g, w in zip(got, want))
+                timing = ""
+                if B == BATCH:
+                    ms, plain_ms = map(statistics.median, _turns(
+                        lambda: kernel(*inp, *args, **kw, **{flag: True}),
+                        lambda: plain(*inp, *args, **kw,
+                                      no_ll=flag == "no_ll")))
+                    b_ms, b_by, nbytes = bound(
+                        list(inp) + list(got),
+                        count_ops(plain, *inp, *args, **kw,
+                                  no_ll=flag == "no_ll"))
+                    if kern_name == "a":
+                        out[key] = {"max_abs_err": abs_err, "ms": ms,
+                                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                                    "bound_by": b_by}
+                    timing = (f" | kernel {ms:.4f} ms, plain {plain_ms:.3f}"
+                              f" ms, medians in turns | bound {b_ms:.4f} ms"
+                              f" by {b_by} ({nbytes / 1e6:.1f} MB)")
+                log(f"phase 2 {key} ({flag}) {label} B={B} F={F} N={N}: "
+                    + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}"
+                               for n, e in errs.items())
+                    + f" | max_abs_err {abs_err:.3e}{timing}")
+                bad = [n for n, e in errs.items() if not e <= tol[n]]
+                if bad:
+                    raise RuntimeError(
+                        f"variant {key} ({label}) disagrees with its plain "
+                        f"version at B={B} F={F} N={N}: {bad}")
+    f_launches = cuda_estep.VARIANT_LAUNCHES["f"] - f_before
+    log(f"phase 2 variants e, f done | {time.perf_counter() - t0:.2f}s")
+    return out, f_launches
+
+
+def _spectral_inputs(B, J_, F, N, K_, seed, device):
+    """fb_stats/tw_stats inputs: xi scattered around V = FB TW, and a floor
+    that clamps V in clip 0 (its 30th percentile) and not in the others
+    (fused_spectral_update's 1e-12 mean + eps)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    FB = 0.5 + rng.random((B, J_, F, K_))
+    TW = 0.5 + rng.random((B, J_, K_, N))
+    V = np.einsum("bjfk,bjkn->bjfn", FB, TW)
+    xi = V * (0.1 + rng.exponential(size=V.shape))
+    vfloor = 1e-12 * xi.mean(axis=(2, 3)) + 1e-30
+    vfloor[0] = np.quantile(V[0], 0.3, axis=(1, 2))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            .contiguous() for a in (xi, FB, TW, vfloor)]
+
+
+def phase_spectral_vs_plain(device):
+    """fb_stats and tw_stats against their plain versions at
+    SPECTRAL_SHAPES, relative per element (every output is positive) at
+    rtol 2e-5; times the bench shapes in turns."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_spectral
+    t0 = time.perf_counter()
+    out = {}
+    for (B, J_, F, N, K_) in SPECTRAL_SHAPES:
+        inp = _spectral_inputs(B, J_, F, N, K_, seed=F * N + K_,
+                               device=device)
+        for name in ("fb_stats", "tw_stats"):
+            kernel = getattr(cuda_spectral, name)
+            plain = getattr(cuda_spectral, f"{name}_ref")
+            got = kernel(*inp)
+            want = plain(*inp)
+            torch.cuda.synchronize()
+            err = max(float(((g - w).abs() / w.abs()).max())
+                      for g, w in zip(got, want))
+            abs_err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+            timing = ""
+            if B == BATCH:
+                ms, plain_ms = map(statistics.median, _turns(
+                    lambda: kernel(*inp), lambda: plain(*inp),
+                    plain_reps=11, plain_inner=10))
+                b_ms, b_by, nbytes = bound(list(inp) + list(got),
+                                           count_ops(plain, *inp))
+                out[name] = {"max_abs_err": abs_err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by}
+                timing = (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+                          f" medians in turns | bound {b_ms:.4f} ms by "
+                          f"{b_by} ({nbytes / 1e6:.2f} MB)")
+            log(f"phase 2 {name} B={B} J={J_} F={F} N={N} K={K_}: rel "
+                f"{err:.2e}<={SPECTRAL_RTOL:.0e} | max_abs_err "
+                f"{abs_err:.3e}{timing}")
+            if not err <= SPECTRAL_RTOL:
+                raise RuntimeError(f"{name} disagrees with its plain version"
+                                   f" at B={B} J={J_} F={F} N={N} K={K_}")
+    log(f"phase 2 spectral kernels done | {time.perf_counter() - t0:.2f}s")
     return out
 
 
@@ -534,16 +755,12 @@ def _event_ms(fn, reps, inner=1):
     return times
 
 
-def phase_batch(device, dur, niter, batch, card):
+def bench_setup(device, dur, batch):
+    """The bench pipeline's inputs: `batch` clips (seeds 0..batch-1) on the
+    card, their true images, the window, and a params(b_count) maker."""
     import torch
     from pyfasst_tpu_torch import convert
-    from pyfasst_tpu_torch.ops import cuda_estep
-    from pyfasst_tpu_torch.ops.gem import annealing_endpoints
-    from pyfasst_tpu_torch.tf.stft import (
-        _frame_geometry, _stft_core, sine_window,
-    )
-    from pyfasst_tpu_torch.utils.config import GEMConfig
-    t0 = time.perf_counter()
+    from pyfasst_tpu_torch.tf.stft import _frame_geometry, sine_window
     nsamples = int(FS * dur)
     clips = [make_mixture(dur=dur, seed=b) for b in range(batch)]
     mix = torch.as_tensor(np.stack([c[0] for c in clips]), device=device)
@@ -553,11 +770,23 @@ def phase_batch(device, dur, niter, batch, card):
                              device=device)
     F = WLEN // 2 + 1
     N = _frame_geometry(nsamples, WLEN, HOP)[2]
-    cfg = GEMConfig(niter=niter)
 
     def params_for(b_count):
         return convert.params_from_numpy(
             [bench_tree(F, N, seed=b) for b in range(b_count)], device=device)
+
+    return mix, y_true, window, nsamples, F, N, params_for
+
+
+def phase_batch(device, dur, niter, batch, card):
+    from pyfasst_tpu_torch.ops import cuda_estep
+    from pyfasst_tpu_torch.ops.gem import annealing_endpoints
+    from pyfasst_tpu_torch.tf.stft import _stft_core
+    from pyfasst_tpu_torch.utils.config import GEMConfig
+    t0 = time.perf_counter()
+    mix, y_true, window, nsamples, F, N, params_for = bench_setup(
+        device, dur, batch)
+    cfg = GEMConfig(niter=niter)
 
     ys, logliks = pipeline(mix, params_for(batch), cfg, window, nsamples)
     check_logliks(logliks.cpu().numpy(), f"batch-{batch}")
@@ -576,23 +805,20 @@ def phase_batch(device, dur, niter, batch, card):
            "A": cuda_estep.mixing_columns(
                tuple(c.conv_mixing(F) for c in params.spat)),
            "sigma": annealing_endpoints(X, cfg)[1].contiguous()}
-    reps, inner = 11, 10
-    kern, plain = [], []
-    for fn, out in ((cuda_estep.estep_r1_real_ref, plain),
-                    (cuda_estep.estep_r1_real, kern),
-                    (cuda_estep.estep_r1_real, kern),
-                    (cuda_estep.estep_r1_real_ref, plain)):
-        fn(**inp)                                          # warm-up
-        out.extend(_event_ms(lambda: fn(**inp), reps, inner))
+    kern, plain = _turns(lambda: cuda_estep.estep_r1_real(**inp),
+                         lambda: cuda_estep.estep_r1_real_ref(**inp),
+                         plain_reps=11, plain_inner=10)
     kernel_ms, plain_ms = statistics.median(kern), statistics.median(plain)
-    bins = batch * F * N
-    mbytes = bins * (16 + 8 * J) / 1e6
+    b_ms, b_by, nbytes = bound(
+        list(inp.values()) + list(cuda_estep.estep_r1_real(**inp)),
+        count_ops(cuda_estep.estep_r1_real_ref, **inp))
     log(f"phase 4 E-step B={batch} F={F} N={N}: kernel {kernel_ms:.4f} ms "
         f"(min {min(kern):.4f} max {max(kern):.4f}), plain {plain_ms:.4f} ms "
         f"(min {min(plain):.4f} max {max(plain):.4f}); median of "
-        f"{len(kern)} samples of {inner} back-to-back calls, in turns "
-        f"plain/kernel/kernel/plain | ~{mbytes:.1f} MB moved -> "
-        f"{mbytes / 1e3 / (kernel_ms / 1e3):.1f} GB/s | {card}")
+        f"{len(kern)} samples of 10 back-to-back calls, in turns "
+        f"plain/kernel/kernel/plain | {nbytes / 1e6:.1f} MB moved -> "
+        f"{nbytes / 1e3 / (kernel_ms / 1e3) / 1e6:.1f} GB/s | bound "
+        f"{b_ms:.4f} ms by {b_by} | {card}")
 
     # whole pipeline, B=1 and B=batch, after the warm-up run above
     xrt = {}
@@ -607,14 +833,113 @@ def phase_batch(device, dur, niter, batch, card):
             + ", ".join(f"{m:.1f}" for m in ms)
             + f" ms -> xRT {xrt[b_count]:.2f} (median of {len(ms)}) | {card}")
     log(f"phase 4 done | {time.perf_counter() - t0:.2f}s")
-    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "xrt": xrt}
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "xrt": xrt,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "pipeline_ms": statistics.median(ms)}
+
+
+def profile_gem(params, X, cfg, start=60, stop=80):
+    """GEM iterations [start, stop) of one run, per iteration: wall ms (to
+    the last kernel's end), host enqueue ms (the loop's return, before the
+    device finishes), and, from torch.profiler, the device's busy ms (the
+    sum of its kernels' times) and kernel count (memsets and copies
+    included). After one unprofiled pass over the same window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
+    sig = annealing_endpoints(X, cfg)
+    n = stop - start
+
+    def window():
+        return run_gem(params, X, cfg, start_iter=start, end_iter=stop,
+                       sigma_endpoints=sig)
+
+    window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return {"wall_ms": wall * 1e3 / n, "enqueue_ms": enqueue * 1e3 / n,
+            "busy_ms": busy / n if dev else None,
+            "kernels": len(dev) / n if dev else None}
+
+
+def phase_fused(device, dur, niter, batch, card, unfused):
+    """Phase 8: the bench pipeline with the fused spectral M-step, then with
+    it and fast_recip, with their launch and SDR gates; pipeline times
+    beside phase 4's unfused one, and a profile of 20 iterations with
+    fusion off and on. Returns each run's launch counts and times."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_spectral
+    from pyfasst_tpu_torch.tf.stft import _stft_core
+    from pyfasst_tpu_torch.utils.config import GEMConfig
+    t0 = time.perf_counter()
+    mix, y_true, window, nsamples, F, N, params_for = bench_setup(
+        device, dur, batch)
+    runs = {}
+    configs = (("fused", GEMConfig(niter=niter, fuse_spectral=True)),
+               ("fused+fast_recip", GEMConfig(niter=niter, fuse_spectral=True,
+                                              fast_recip=True)))
+    for label, cfg in configs:
+        _reset_counts()
+        ys, logliks = pipeline(mix, params_for(batch), cfg, window, nsamples)
+        torch.cuda.synchronize()
+        total, counts = _counts()
+        spectral = dict(cuda_spectral.LAUNCHES)
+        check_logliks(logliks.cpu().numpy(), f"phase 8 {label}")
+        sdrs = min_sdr(ys, y_true)
+        ms = _event_ms(lambda: pipeline(mix, params_for(batch), cfg, window,
+                                        nsamples), 5)
+        xrt = batch * dur / (statistics.median(ms) / 1e3)
+        log(f"phase 8 {label} batch-{batch}: {niter} iters, launches E-step "
+            f"{total} {counts}, {spectral}; per-clip min SDR "
+            + " ".join(f"{x:.2f}" for x in sdrs)
+            + " | pipeline " + ", ".join(f"{m:.1f}" for m in ms)
+            + f" ms -> xRT {xrt:.2f} (median of {len(ms)}); unfused (phase 4)"
+            f" {unfused['pipeline_ms']:.1f} ms, xRT "
+            f"{unfused['xrt'][batch]:.2f} | {card}")
+        want_e = niter if cfg.fast_recip else 0
+        if (total != niter or counts["e"] != want_e
+                or spectral != {"fb_stats": niter, "tw_stats": niter}):
+            raise RuntimeError(
+                f"phase 8 {label}: launches E-step {total} {counts}, "
+                f"spectral {spectral} in {niter} iterations (expected "
+                f"{niter} each, {want_e} of variant e)")
+        if not np.all(sdrs > SDR_GATE):
+            raise RuntimeError(f"phase 8 {label}: separation below "
+                               f"{SDR_GATE} dB: {sdrs}")
+        runs[label] = {"counts": counts, "spectral": spectral,
+                       "pipeline_ms": statistics.median(ms), "xrt": xrt}
+
+    X = _stft_core(mix, window, WLEN, HOP, "fft")
+    for label, cfg in ((("unfused", GEMConfig(niter=niter)),) + configs):
+        prof = profile_gem(params_for(batch), X, cfg)
+        log(f"phase 8 profile {label} B={batch}, iterations 60-80 of "
+            f"{niter}, per iteration: wall {prof['wall_ms']:.3f} ms, host "
+            f"enqueue {prof['enqueue_ms']:.3f} ms, device busy "
+            + (f"{prof['busy_ms']:.4f} ms ({prof['kernels']:.1f} kernels)"
+               if prof["kernels"] else "not measured (no device events)")
+            + f" | {card}")
+    log(f"phase 8 done | {time.perf_counter() - t0:.2f}s")
+    return runs
 
 
 def _reset_counts():
-    from pyfasst_tpu_torch.ops import cuda_estep
+    from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral
     cuda_estep.LAUNCHES = 0
     for k in cuda_estep.VARIANT_LAUNCHES:
         cuda_estep.VARIANT_LAUNCHES[k] = 0
+    for k in cuda_spectral.LAUNCHES:
+        cuda_spectral.LAUNCHES[k] = 0
 
 
 def _counts():
@@ -691,6 +1016,8 @@ def main() -> int:
     phase_build()
     main_abs = phase_kernel_vs_plain(device)
     general = phase_general_vs_plain(device)
+    ef, f_launches = phase_variants_ef(device)
+    spectral = phase_spectral_vs_plain(device)
     _reset_counts()
     launches = phase_host_api(device, DUR, NITER)
     timing = phase_batch(device, DUR, NITER, BATCH, card)
@@ -698,30 +1025,39 @@ def main() -> int:
                      "b": phase_conv(device, "anechoic", card)["b"],
                      "c": phase_conv(device, "reverb", card)["c"],
                      "d": phase_ns_inj(device)["d"]}
+    fused = phase_fused(device, DUR, NITER, BATCH, card, timing)
+    path_launches["e"] = fused["fused+fast_recip"]["counts"]["e"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     log(card)
-    kernels = [{
-        "name": "estep_r1_real (variant a: real rank-1 mixing)",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": f"{REPLACES} (variant a)",
-        "launches": path_launches["a"],
-        "max_abs_err": main_abs,
-        "ms": timing["kernel_ms"],
-        "plain_ms": timing["plain_ms"],
-    }]
+
+    def entry(name, source, replaces, launches, nums):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": nums["max_abs_err"], "ms": nums["ms"],
+                "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
+                "bound_by": nums["bound_by"], "library_ms": None}
+
+    kernels = [entry("estep_r1_real (variant a: real rank-1 mixing)",
+                     KERNEL_SOURCE, f"{REPLACES} (variant a)",
+                     path_launches["a"], dict(timing, max_abs_err=main_abs,
+                                              ms=timing["kernel_ms"]))]
     for key, label in GENERAL_HEADLINE.items():
-        g = general[label]
-        kernels.append({
-            "name": f"estep_general (variant {key}: {label})",
-            "route": "cuda",
-            "source": GENERAL_SOURCE,
-            "replaces": GENERAL_REPLACES[key],
-            "launches": path_launches[key],
-            "max_abs_err": g["max_abs_err"],
-            "ms": g["ms"],
-            "plain_ms": g["plain_ms"],
-        })
+        kernels.append(entry(f"estep_general (variant {key}: {label})",
+                             GENERAL_SOURCE, GENERAL_REPLACES[key],
+                             path_launches[key], general[label]))
+    kernels.append(entry("estep_r1_real with fast_recip (variant e)",
+                         KERNEL_SOURCE, GENERAL_REPLACES["e"],
+                         path_launches["e"], ef["e"]))
+    kernels.append(dict(
+        entry("estep_r1_real with no_ll (variant f)", KERNEL_SOURCE,
+              GENERAL_REPLACES["f"], f_launches, ef["f"]),
+        launches_from="phase 2, its check against the plain version: no "
+                      "path sets no_ll (pallas_estep.py:446 is its only "
+                      "use in the JAX package)"))
+    for name in ("fb_stats", "tw_stats"):
+        kernels.append(entry(name, SPECTRAL_SOURCE, SPECTRAL_REPLACES[name],
+                             fused["fused"]["spectral"][name],
+                             spectral[name]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,11 @@
 //
 // Replaces the TPU kernel pyfasst_tpu/ops/pallas_estep.py::_make_kernel
 // (launched by pallas_estep, pallas_estep.py:379) in its variant
-// ranks=(1, ..., 1), real_cov=True, ns_inj=False, fast_recip=False,
-// no_ll=False. It computes, in one pass over each (f, n) bin:
+// ranks=(1, ..., 1), real_cov=True, ns_inj=False, with its flags
+// fast_recip (variant e: the three reciprocals through recip.cuh's
+// approximate reciprocal and Newton step) and no_ll (variant f: log det
+// Sigma_x left out of the loglik sum), both uniform per launch. It
+// computes, in one pass over each (f, n) bin:
 //   - the spatial invariants from the mixing columns: packed R_j, tr R_j and
 //     the Lagrange cross terms X_jk (estep.cross_terms);
 //   - the subtract-free det Sigma_x = s^2 + s sum_j v_j trR_j
@@ -24,7 +27,8 @@
 // v and every store of xi is coalesced. The loop bound replaces the Pallas
 // ragged-edge select: no thread reads past N.
 //
-// Numerics follow the Pallas forms: exact IEEE divides (1.0f / x) and logf,
+// Numerics follow the Pallas forms: exact IEEE divides (1.0f / x; with
+// fast_recip the Pallas _recip at its three sites) and logf,
 // coef = 1 / (1 + v M00). Build without --use_fast_math: sigma reaches
 // ~3e-6 of the mean power, and approximate divides, flushed denormals or
 // __logf would move the statistics. Build with --fmad=false: y = adj x / det
@@ -55,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "recip.cuh"
 
 namespace {
 
@@ -113,6 +119,7 @@ __device__ __forceinline__ void bin_update(const RowConst<J>& c,
                                            float x0r, float x0i,
                                            float x1r, float x1i,
                                            const float (&v)[J], float eps,
+                                           bool fast, bool no_ll,
                                            float (&xi_out)[J],
                                            float (&acc)[Slots<J>::COUNT]) {
   using S = Slots<J>;
@@ -136,7 +143,7 @@ __device__ __forceinline__ void bin_update(const RowConst<J>& c,
   const float d = sig + sd;
   const float b = sb;
   const float det = sig * sig + sig * lin + 0.5f * quad;
-  const float rinv = 1.0f / det;
+  const float rinv = pyfasst::recip(det, fast);
 
   // y = Sigma_x^-1 x through the adjugate [d, -b; -b, a]
   const float y0r = rinv * (d * x0r - b * x1r);
@@ -145,7 +152,7 @@ __device__ __forceinline__ void bin_update(const RowConst<J>& c,
   const float y1i = rinv * (a * x1i - b * x0i);
   const float tr = fmaxf((x0r * y0r + x0i * y0i) + (x1r * y1r + x1i * y1i),
                          0.0f);
-  acc[S::LL] += logf(det) + tr;
+  acc[S::LL] += no_ll ? tr : logf(det) + tr;
 
   // w_j = A_j^T y and Sigma_x^-1 A_j
   float wr[J], wi[J], u0[J], u1[J];
@@ -181,12 +188,12 @@ __device__ __forceinline__ void bin_update(const RowConst<J>& c,
     const float aS = sig + la;
     const float dS = sig + ld;
     const float detS = sig * sig + sig * llin + 0.5f * lquad;
-    const float rinvS = 1.0f / detS;
+    const float rinvS = pyfasst::recip(detS, fast);
     const float z0 = rinvS * (dS * c.a0[j] - lb * c.a1[j]);
     const float z1 = rinvS * (aS * c.a1[j] - lb * c.a0[j]);
     const float M00 = c.a0[j] * z0 + c.a1[j] * z1;
     const float den = 1.0f + v[j] * M00;
-    const float coef = 1.0f / den;
+    const float coef = pyfasst::recip(den, fast);
     acc[S::T4 + j] += v[j] / den;
     xi_out[j] = fmaxf(v[j] * v[j] * trCR + v[j] * coef, eps);
 
@@ -225,7 +232,8 @@ estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
                      const float* __restrict__ sigma, float* __restrict__ xi,
                      float* __restrict__ txs, float* __restrict__ tss,
                      float* __restrict__ t4, float* __restrict__ t7,
-                     float* __restrict__ ll, int F, int N, float eps) {
+                     float* __restrict__ ll, int F, int N, float eps,
+                     bool fast, bool no_ll) {
   using S = Slots<J>;
   const int row = blockIdx.x;            // b * F + f
   const int b = row / F;
@@ -249,7 +257,7 @@ estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
 #pragma unroll
     for (int j = 0; j < J; ++j) vn[j] = vrow[j * FN + n];
     bin_update<J>(c, xrow[n], xrow[FN + n], xrow[2 * FN + n],
-                  xrow[3 * FN + n], vn, eps, xin, acc);
+                  xrow[3 * FN + n], vn, eps, fast, no_ll, xin, acc);
 #pragma unroll
     for (int j = 0; j < J; ++j) xirow[j * FN + n] = xin[j];
   }
@@ -303,9 +311,9 @@ template <int J>
 cudaError_t launch(const float* x4, const float* v, const float* A,
                    const float* sigma, float* xi, float* txs, float* tss,
                    float* t4, float* t7, float* ll, int B, int F, int N,
-                   float eps, cudaStream_t stream) {
+                   float eps, bool fast, bool no_ll, cudaStream_t stream) {
   estep_r1_real_kernel<J><<<B * F, kThreads, 0, stream>>>(
-      x4, v, A, sigma, xi, txs, tss, t4, t7, ll, F, N, eps);
+      x4, v, A, sigma, xi, txs, tss, t4, t7, ll, F, N, eps, fast, no_ll);
   return cudaGetLastError();
 }
 
@@ -319,17 +327,19 @@ extern "C" int pyfasst_estep_r1_real(const float* x4, const float* v,
                                      float* xi, float* txs, float* tss,
                                      float* t4, float* t7, float* ll, int B,
                                      int J, int F, int N, float eps,
+                                     int fast_recip, int no_ll,
                                      void* stream) {
   if (B <= 0 || F <= 0 || N <= 0 || (long long)B * F > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fast = fast_recip != 0, nl = no_ll != 0;
   switch (J) {
     case 2:
       return (int)launch<2>(x4, v, A, sigma, xi, txs, tss, t4, t7, ll, B, F,
-                            N, eps, s);
+                            N, eps, fast, nl, s);
     case 3:
       return (int)launch<3>(x4, v, A, sigma, xi, txs, tss, t4, t7, ll, B, F,
-                            N, eps, s);
+                            N, eps, fast, nl, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

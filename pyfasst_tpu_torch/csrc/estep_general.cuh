@@ -8,9 +8,14 @@
 //   c  ranks (2, ...) and mixed ranks (1, 2, ...),
 //   d  ns_inj=True         (pallas_estep.py:235-237, 252-255, 313-315,
 //                           332-337),
-// and their combinations, all with exact divides and the loglik
-// (fast_recip=False, no_ll=False). Variant a (ranks all 1, real mixing, no
-// ns_inj) keeps its own kernel, estep.cu. Per (f, n) bin it computes what
+// and their combinations, each with the flags of
+//   e  fast_recip=True     the four reciprocals (:223, :268, :285, :295)
+//                          through recip.cuh's approximate reciprocal and
+//                          one Newton step,
+//   f  no_ll=True          log det Sigma_x left out of the loglik (:239),
+// which are runtime flags, uniform per launch (no divergence, no more
+// instantiations). Variant a (ranks all 1, real mixing, no ns_inj) keeps
+// its own kernel, estep.cu. Per (f, n) bin it computes what
 // _make_kernel computes: the spatial invariants of the mixing columns
 // (packed R_j, tr R_j, the Lagrange cross terms X_jk); the subtract-free
 // det Sigma_x; y = Sigma_x^-1 x; w_jr = A_jr^H y and Sigma_x^-1 A_jr; the
@@ -73,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "recip.cuh"
 
 namespace pyfasst_general {
 
@@ -203,6 +210,7 @@ struct Args {
   float* ll;
   int F, N, rank_mask;
   float eps;
+  bool fast_recip, no_ll;
 };
 
 template <int J, int R, bool REAL, bool NS>
@@ -236,6 +244,7 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
   float* xirow = g.xi + (size_t)b * J * FN + (size_t)f * N;
   const float sig = c.sig;
   const float eps = g.eps;
+  const bool fast = g.fast_recip;
 
   for (int n = tid; n < N; n += kGenThreads) {
     const cf x0{xrow[n], xrow[FN + n]};
@@ -263,14 +272,14 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
     const float a = sig + sa;
     const float d = sig + sd;
     const float det = sig * sig + sig * lin + 0.5f * quad;
-    const float rinv = 1.0f / det;
+    const float rinv = pyfasst::recip(det, fast);
 
     cf y0, y1;
     herm_apply<REAL>(a, d, sb, rinv, x0, x1, y0, y1);
     float tr = fmaxf((x0.re * y0.re + x0.im * y0.im)
                      + (x1.re * y1.re + x1.im * y1.im), 0.0f);
     if constexpr (NS) tr = tr + sig * (a + d) * rinv;
-    acc[S::LL * kGenThreads] += logf(det) + tr;
+    acc[S::LL * kGenThreads] += g.no_ll ? tr : logf(det) + tr;
 
     // w_jr = A_jr^H y and z_jr = Sigma_x^-1 A_jr
     cf w[J][R], z[J][R][2];
@@ -324,7 +333,7 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
       const float aS = sig + la;
       const float dS = sig + ld;
       const float detS = sig * sig + sig * llin + 0.5f * lquad;
-      const float rinvS = 1.0f / detS;
+      const float rinvS = pyfasst::recip(detS, fast);
 
       // M_rs = A_jr^H S_j^-1 A_js
       cf sj[R][2];
@@ -343,7 +352,7 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
       float coef;
       if (R == 1 || rk[j] == 1) {
         const float den = 1.0f + vj * M(0, 0).re;
-        coef = 1.0f / den;
+        coef = pyfasst::recip(den, fast);
         acc[(S::T4 + j * S::NT4) * kGenThreads] += vj / den;
       } else {
         const cf m01 = M(0, 1);
@@ -353,7 +362,7 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
         float gg = g01.re * g01.re;
         if constexpr (!REAL) gg += g01.im * g01.im;
         const float dG = fmaxf(g00 * g11 - gg, 1.0f);
-        const float rG = 1.0f / dG;
+        const float rG = pyfasst::recip(dG, fast);
         coef = (g00 + g11) * rG;
         float* t4a = acc + (S::T4 + j * S::NT4) * kGenThreads;
         t4a[0] += vj * g11 * rG;
@@ -508,11 +517,12 @@ template <int J>
 int entry(const float* x4, const float* v, const float* A4,
           const float* sigma, float* xi, float* txs, float* tss, float* t4,
           float* t7, float* ll, int B, int F, int N, int rank_mask,
-          int rmax, int real_cov, int ns_inj, float eps, void* stream) {
+          int rmax, int real_cov, int ns_inj, float eps, int fast_recip,
+          int no_ll, void* stream) {
   if (B <= 0 || F <= 0 || N <= 0 || (long long)B * F > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const Args g{x4, v, A4, sigma, xi, txs, tss, t4, t7, ll, F, N, rank_mask,
-               eps};
+               eps, fast_recip != 0, no_ll != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool re = real_cov != 0, ns = ns_inj != 0;
   if (rmax == 1) {
@@ -540,8 +550,8 @@ int entry(const float* x4, const float* v, const float* A4,
       const float* x4, const float* v, const float* A4, const float* sigma,   \
       float* xi, float* txs, float* tss, float* t4, float* t7, float* ll,     \
       int B, int F, int N, int rank_mask, int rmax, int real_cov, int ns_inj, \
-      float eps, void* stream) {                                              \
+      float eps, int fast_recip, int no_ll, void* stream) {                   \
     return pyfasst_general::entry<J>(x4, v, A4, sigma, xi, txs, tss, t4, t7,  \
                                      ll, B, F, N, rank_mask, rmax, real_cov,  \
-                                     ns_inj, eps, stream);                    \
+                                     ns_inj, eps, fast_recip, no_ll, stream); \
   }

@@ -144,7 +144,7 @@ class DEMIX:
                 obj = AudioObject(data=audio, samplerate=fs)
             else:
                 obj = AudioObject(audio)
-            tft = STFT(wlen=wlen, fs=obj.samplerate)
+            tft = STFT(wlen=wlen, fs=obj.samplerate, device="cpu")
             X = tft.computeTransform(obj.data.astype(np.float32)).numpy()
         self.X = np.asarray(X)
         self.F = self.X.shape[0]

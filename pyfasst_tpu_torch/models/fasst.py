@@ -2,15 +2,15 @@
 
 Port of pyfasst_tpu/models/fasst.py. Same user-facing flow:
 
-    model = MultiChanNMFInst_FASST("mix.wav", nbComps=2, nbNMFComps=8,
-                                   device="cuda")
+    model = MultiChanNMFInst_FASST("mix.wav", nbComps=2, nbNMFComps=8)
     model.estim_param_a_posteriori()          # run the GEM loop
     model.separate_spat_comps("out_dir/")     # per-source WAVs on disk
 
 Audio I/O and WAV writing stay on the host; the transform, the GEM loop and
-the separation run on `device`. A model on "cuda" runs there or raises: it
-never moves to the CPU. Parameters carry a clip axis of size 1 and are
-replaced wholesale after each estimation call.
+the separation run on `device`, the card ("cuda") unless the caller asks
+for "cpu". A model on "cuda" runs there or raises: it never moves to the
+CPU. Parameters carry a clip axis of size 1 and are replaced wholesale
+after each estimation call.
 
 Not ported yet: the blind estimators (estim_param_blind_*), checkpoint
 save/load (ROADMAP item 8), and front-ends other than the STFT (item 11).
@@ -30,20 +30,7 @@ from pyfasst_tpu_torch.ops import wiener
 from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
 from pyfasst_tpu_torch.tf.stft import STFT
 from pyfasst_tpu_torch.utils.config import GEMConfig
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for a 'cpu' or 'cuda' request; raises when CUDA is asked
-    for and no card is present (never falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={str(device)!r} was requested but no CUDA device "
-                "is available")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(device)!r}")
-    return dev
+from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class FASST:
@@ -51,7 +38,8 @@ class FASST:
 
     Subclasses (variants.py) construct `self.params`. kwargs mirror the
     reference's constructor knobs: `wlen`, `hop`, `iter_num`, annealing
-    mode, `verbose`; `device` says where the tensors live.
+    mode, `verbose`; `device` says where the tensors live (the card unless
+    it says "cpu").
     """
 
     def __init__(self,
@@ -69,7 +57,7 @@ class FASST:
                  seed: int = 0,
                  spatial_hold_frac: Optional[float] = None,
                  transform: Optional[object] = None,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         if isinstance(audio, AudioObject):
             self.audio = audio

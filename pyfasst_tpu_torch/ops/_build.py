@@ -13,9 +13,11 @@ unchanged tree is not rebuilt. Only the sources in the package and the CUDA
 toolkit's headers go into the build. A failed build raises with nvcc's
 output; nothing falls back to the plain PyTorch versions. Each J of the
 general E-step kernel is its own source (csrc/estep_j{2,3,4}.cu), so its
-instantiations compile in parallel. No --use_fast_math: the kernels rely
-on exact IEEE divides and logf; and --fmad=false keeps every product
-rounded as the plain versions round it (see csrc/estep.cu).
+instantiations compile in parallel, beside csrc/estep.cu and
+csrc/spectral.cu. No --use_fast_math: the kernels rely on exact IEEE
+divides and logf (the E-step's fast_recip flag asks for its approximate
+reciprocal explicitly, csrc/recip.cuh); and --fmad=false keeps every
+product rounded as the plain versions round it (see csrc/estep.cu).
 """
 from __future__ import annotations
 
@@ -134,13 +136,20 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(info["path"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.pyfasst_estep_r1_real
-    fn.argtypes = [p] * 10 + [i] * 4 + [f, p]
+    # x4 v A sigma, xi txs tss t4 t7 ll; B J F N; eps; fast_recip no_ll;
+    # stream
+    fn.argtypes = [p] * 10 + [i] * 4 + [f] + [i] * 2 + [p]
     fn.restype = i
     for J in (2, 3, 4):
         fn = getattr(lib, f"pyfasst_estep_j{J}")
         # x4 v A4 sigma, xi txs tss t4 t7 ll; B F N rank_mask rmax
-        # real_cov ns_inj; eps; stream
-        fn.argtypes = [p] * 10 + [i] * 7 + [f, p]
+        # real_cov ns_inj; eps; fast_recip no_ll; stream
+        fn.argtypes = [p] * 10 + [i] * 7 + [f] + [i] * 2 + [p]
+        fn.restype = i
+    for name in ("pyfasst_fb_stats", "pyfasst_tw_stats"):
+        fn = getattr(lib, name)
+        # xi FB TW vfloor, num den; B J F N K; stream
+        fn.argtypes = [p] * 6 + [i] * 5 + [p]
         fn.restype = i
     _lib = lib
     return lib

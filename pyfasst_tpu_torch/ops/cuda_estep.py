@@ -12,15 +12,20 @@ ops/_build.py:
                                            ranks in {1, 2} per source,
                                            'ann_ns_inj'; J = 2, 3, 4
 
-Each launches its kernel on a CUDA tensor and runs its plain PyTorch
-version (``estep_r1_real_ref``, ``estep_ref``) on a CPU tensor; there is
-no fallback on CUDA. ``LAUNCHES`` counts kernel launches, and
+Both take the flags fast_recip (variant e: approximate reciprocals with a
+Newton step, csrc/recip.cuh) and no_ll (variant f: the loglik without
+log det Sigma_x). Each launches its kernel on a CUDA tensor and runs its
+plain PyTorch version (``estep_r1_real_ref``, ``estep_ref``) on a CPU
+tensor; there is no fallback on CUDA. The plain versions divide exactly
+whatever fast_recip says, as the Pallas kernel in interpret mode does
+(pallas_estep.py:448). ``LAUNCHES`` counts kernel launches, and
 ``VARIANT_LAUNCHES`` counts them by the variant each launch computes (one
-launch of a complex rank-2 E-step counts for b and c). ``suff_stats_cuda``
-returns an estep.SuffStats laid out as pallas_suff_stats lays it out.
+launch of a complex rank-2 E-step with fast_recip counts for b, c and e).
+``suff_stats_cuda`` returns an estep.SuffStats laid out as
+pallas_suff_stats lays it out.
 
-Still to port: fast_recip (kernel 1 variant e), float64, I != 2 and J
-outside 2-4: kernel_eligible names them and suff_stats_cuda raises.
+Still to port: float64, I != 2 and J outside 2-4: kernel_eligible names
+them and suff_stats_cuda raises.
 """
 from __future__ import annotations
 
@@ -35,10 +40,10 @@ LAUNCHES = 0
 """Launches of the CUDA kernels in this process (comparison launches
 included; callers reset it before the run they want to count)."""
 
-VARIANT_LAUNCHES = {"a": 0, "b": 0, "c": 0, "d": 0}
+VARIANT_LAUNCHES = {"a": 0, "b": 0, "c": 0, "d": 0, "e": 0, "f": 0}
 """Launches by kernel-1 variant: a (estep_r1_real, or the general kernel
 on real rank-1 mixing without noise injection), b (complex mixing),
-c (a rank-2 source), d (noise injection)."""
+c (a rank-2 source), d (noise injection), e (fast_recip), f (no_ll)."""
 
 GENERAL_J = (2, 3, 4)
 """Source counts the general kernel is built for."""
@@ -60,13 +65,15 @@ def mixing_columns(A_conv) -> torch.Tensor:
                        dim=1).contiguous()
 
 
-def estep_r1_real_ref(x4, v, A, sigma, eps: float = 1e-30):
+def estep_r1_real_ref(x4, v, A, sigma, eps: float = 1e-30,
+                      no_ll: bool = False):
     """Plain PyTorch version of the kernel: same inputs, same outputs.
 
     x4 (B, 4, F, N), v (B, J, F, N), A (B, J, F, 2), sigma (B, F). Returns
     (xi, txs, tss, t4, t7, ll) in the kernel's packed layout (see
     csrc/estep.cu). It follows _make_kernel's rank-1 real-mixing algebra
-    (coef = 1 / (1 + v M00)), not estep.compute_suff_stats' form.
+    (coef = 1 / (1 + v M00)), not estep.compute_suff_stats' form. no_ll
+    leaves log det Sigma_x out of ll.
     """
     B, J, F, N = v.shape
     x0r, x0i, x1r, x1i = (x4[:, c] for c in range(4))       # (B, F, N)
@@ -97,7 +104,7 @@ def estep_r1_real_ref(x4, v, A, sigma, eps: float = 1e-30):
     y1r, y1i = rinv * (a * x1r - b * x0r), rinv * (a * x1i - b * x0i)
     tr = torch.clamp((x0r * y0r + x0i * y0i) + (x1r * y1r + x1i * y1i),
                      min=0.0)
-    ll = torch.sum(torch.log(det) + tr, dim=-1)              # (B, F)
+    ll = torch.sum(tr if no_ll else torch.log(det) + tr, dim=-1)  # (B, F)
 
     wr = [a0[j] * y0r + a1[j] * y1r for j in range(J)]
     wi = [a0[j] * y0i + a1[j] * y1i for j in range(J)]
@@ -155,15 +162,18 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def estep_r1_real(x4, v, A, sigma, eps: float = 1e-30):
+def estep_r1_real(x4, v, A, sigma, eps: float = 1e-30,
+                  fast_recip: bool = False, no_ll: bool = False):
     """The E-step kernel on a CUDA tensor, its plain version on a CPU one.
 
     Shapes and outputs as estep_r1_real_ref. On CUDA every input must be
     float32, contiguous and on one device; the outputs are allocated here
-    and the kernel runs on the current stream.
+    and the kernel runs on the current stream. fast_recip (variant e) takes
+    the kernel's approximate reciprocals; no_ll (variant f) as in
+    estep_r1_real_ref.
     """
     if v.device.type == "cpu":
-        return estep_r1_real_ref(x4, v, A, sigma, eps)
+        return estep_r1_real_ref(x4, v, A, sigma, eps, no_ll)
     if v.device.type != "cuda":
         raise NotImplementedError(f"no E-step kernel for device {v.device}")
     B, J, F, N = v.shape
@@ -191,15 +201,19 @@ def estep_r1_real(x4, v, A, sigma, eps: float = 1e-30):
             x4.data_ptr(), v.data_ptr(), A.data_ptr(), sigma.data_ptr(),
             xi.data_ptr(), txs.data_ptr(), tss.data_ptr(), t4.data_ptr(),
             t7.data_ptr(), ll.data_ptr(), B, J, F, N, ctypes.c_float(eps),
-            stream)
+            int(fast_recip), int(no_ll), stream)
     if err != 0:
         raise RuntimeError(f"E-step kernel launch failed: cudaError_t {err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    VARIANT_LAUNCHES["a"] += 1
+    _count(["a"], fast_recip, no_ll)
     return xi, txs, tss, t4, t7, ll
 
 
+def _count(variants, fast_recip: bool, no_ll: bool) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    for name in (variants + (["e"] if fast_recip else [])
+                 + (["f"] if no_ll else [])):
+        VARIANT_LAUNCHES[name] += 1
 
 
 # -- the general kernel: variants b (complex), c (rank 2), d (ns_inj) ---------
@@ -261,7 +275,7 @@ def _cdot_conj(x, y):
 
 def estep_ref(x4, v, A4, sigma, ranks: Tuple[int, ...],
               ns_inj: bool = False, real_cov: bool = False,
-              eps: float = 1e-30):
+              eps: float = 1e-30, no_ll: bool = False):
     """Plain PyTorch version of the general kernel: same inputs, outputs.
 
     x4 (B, 4, F, N), v (B, J, F, N), A4 (B, J, F, 4 Rmax) with per column
@@ -269,7 +283,7 @@ def estep_ref(x4, v, A4, sigma, ranks: Tuple[int, ...],
     sigma (B, F). Returns (xi, txs, tss, t4, t7, ll) in the packed layout
     of csrc/estep_general.cuh. It follows _make_kernel
     (pallas_estep.py:108-362) term by term, with the clip axis and with xi
-    already floored at eps.
+    already floored at eps; no_ll leaves log det Sigma_x out of ll.
     """
     B, J, F, N = v.shape
     Rmax = max(ranks)
@@ -332,7 +346,7 @@ def estep_ref(x4, v, A4, sigma, ranks: Tuple[int, ...],
     if ns_inj:
         # 'ann_ns_inj': observed covariance becomes x x^H + sigma I
         tr = tr + sig * (a + d) * rinv
-    ll = torch.sum(torch.log(det) + tr, dim=-1)              # (B, F)
+    ll = torch.sum(tr if no_ll else torch.log(det) + tr, dim=-1)  # (B, F)
 
     w = [[_cadd(_cmul(_cconj(Acol[j][r][0]), y0),
                 _cmul(_cconj(Acol[j][r][1]), y1))
@@ -435,17 +449,20 @@ def pack_A4(A_conv, ranks: Tuple[int, ...]) -> torch.Tensor:
 
 def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
                   ns_inj: bool = False, real_cov: bool = False,
-                  eps: float = 1e-30):
+                  eps: float = 1e-30, fast_recip: bool = False,
+                  no_ll: bool = False):
     """The general E-step kernel on a CUDA tensor, its plain version
     (estep_ref) on a CPU one. Shapes and outputs as estep_ref.
 
     On CUDA every input must be float32, contiguous and on one device, with
     J in GENERAL_J and every rank in {1, 2}; the outputs are allocated here
-    and the kernel runs on the current stream.
+    and the kernel runs on the current stream. fast_recip (variant e) takes
+    the kernel's approximate reciprocals; no_ll (variant f) as in estep_ref.
     """
     ranks = tuple(int(r) for r in ranks)
     if v.device.type == "cpu":
-        return estep_ref(x4, v, A4, sigma, ranks, ns_inj, real_cov, eps)
+        return estep_ref(x4, v, A4, sigma, ranks, ns_inj, real_cov, eps,
+                         no_ll)
     if v.device.type != "cuda":
         raise NotImplementedError(f"no E-step kernel for device {v.device}")
     B, J, F, N = v.shape
@@ -480,15 +497,12 @@ def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
                  sigma.data_ptr(), xi.data_ptr(), txs.data_ptr(),
                  tss.data_ptr(), t4.data_ptr(), t7.data_ptr(), ll.data_ptr(),
                  B, F, N, rank_mask, Rmax, int(real_cov), int(ns_inj),
-                 ctypes.c_float(eps), stream)
+                 ctypes.c_float(eps), int(fast_recip), int(no_ll), stream)
     if err != 0:
         raise RuntimeError(f"E-step kernel launch failed: cudaError_t {err}")
-    global LAUNCHES
-    LAUNCHES += 1
     variants = ([] if real_cov else ["b"]) + (["c"] if Rmax == 2 else []) \
         + (["d"] if ns_inj else [])
-    for name in variants or ["a"]:
-        VARIANT_LAUNCHES[name] += 1
+    _count(variants or ["a"], fast_recip, no_ll)
     return xi, txs, tss, t4, t7, ll
 
 
@@ -496,12 +510,10 @@ def kernel_eligible(ranks: Tuple[int, ...], real_cov: bool,
                     noise_inject: bool, dtype, fast_recip: bool,
                     I: int) -> str:
     """'' when a kernel computes this E-step, else why none does (naming
-    the ROADMAP entry that ports it). Complex mixing, rank 2, mixed ranks
-    and noise injection are all computed."""
+    the ROADMAP entry that ports it). Complex mixing, rank 2, mixed ranks,
+    noise injection and fast_recip are all computed."""
     if I != 2:
         return f"I = {I} channels (general-I engine, ROADMAP item 9)"
-    if fast_recip:
-        return "fast_recip (ROADMAP kernel queue 1, variant e)"
     if dtype != torch.float32:
         return (f"dtype {dtype} (the kernels are float32; float64 runs on "
                 "the CPU, ROADMAP kernel queue 1)")
@@ -525,7 +537,8 @@ def suff_stats_cuda(X, v, Rj, sigma, ranks, A_conv, eps: float = 1e-30,
     columns. real_cov=True asserts every mixing column is real (the
     instantaneous models). Variant a takes real rank-1 mixing without noise
     injection at J = 2 and 3; the general kernel takes every other eligible
-    E-step. Raises NotImplementedError for one that no kernel computes.
+    E-step; fast_recip goes to either. Raises NotImplementedError for one
+    that no kernel computes.
     """
     ranks = tuple(int(r) for r in ranks)
     why = kernel_eligible(ranks, real_cov, noise_inject, v.dtype, fast_recip,
@@ -538,10 +551,12 @@ def suff_stats_cuda(X, v, Rj, sigma, ranks, A_conv, eps: float = 1e-30,
     sigma = sigma.contiguous()
     if (real_cov and not noise_inject and all(r == 1 for r in ranks)
             and len(ranks) in (2, 3)):
-        out = estep_r1_real(x4, v, mixing_columns(A_conv), sigma, eps)
+        out = estep_r1_real(x4, v, mixing_columns(A_conv), sigma, eps,
+                            fast_recip=fast_recip)
     else:
         out = estep_general(x4, v, pack_A4(A_conv, ranks), sigma, ranks,
-                            ns_inj=noise_inject, real_cov=real_cov, eps=eps)
+                            ns_inj=noise_inject, real_cov=real_cov, eps=eps,
+                            fast_recip=fast_recip)
     return unpack_stats(out, ranks)
 
 

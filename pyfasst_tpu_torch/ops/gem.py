@@ -16,10 +16,18 @@ E-step dispatch (gem_step):
     CUDA tensor, kernel-eligible    cuda_estep.suff_stats_cuda: variant a
                                     (real rank-1 mixing) or the general
                                     kernel (complex mixing, rank 2, mixed
-                                    ranks, 'ann_ns_inj')
+                                    ranks, 'ann_ns_inj'); fast_recip in
+                                    either (variant e)
     CUDA tensor, anything else      NotImplementedError naming the
-                                    ROADMAP entry (fast_recip, float64,
-                                    J outside 2-4, fuse_spectral)
+                                    ROADMAP entry (float64, J outside 2-4)
+
+Spectral M-step dispatch (gem_step), as the JAX gem_step takes it:
+    CUDA tensor, fuse_spectral,     cuda_spectral.fused_spectral_update:
+    cuda_spectral.eligible          the fb_stats and tw_stats kernels
+    anything else                   mstep.update_spectral (on the CPU
+                                    fuse_spectral changes nothing, as in
+                                    the JAX package, whose CPU path runs
+                                    no Pallas kernel)
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import numpy as np
 import torch
 
 from pyfasst_tpu_torch.models.components import FasstParams
-from pyfasst_tpu_torch.ops import cuda_estep
+from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral
 from pyfasst_tpu_torch.ops.estep import compute_suff_stats
 from pyfasst_tpu_torch.ops.mstep import (
     _as_conv_A, renormalize, update_spatial, update_spectral,
@@ -87,10 +95,6 @@ def _estep(params, X, v, sigma, cfg: GEMConfig, x4):
                                   noise_inject=noise_inject, A_conv=A_conv)
     if dev != "cuda":
         raise NotImplementedError(f"no GEM path for device {X.device}")
-    if cfg.fuse_spectral:
-        raise NotImplementedError(
-            "fuse_spectral: the fb_stats/tw_stats kernels are not ported yet "
-            "(ROADMAP kernel queue 2-3)")
     # instantaneous models have real mixing: the kernels then drop the
     # arithmetic on its identically-zero imaginary parts
     real_cov = all(not c.A.is_complex() for c in params.spat)
@@ -102,7 +106,8 @@ def _estep(params, X, v, sigma, cfg: GEMConfig, x4):
             "(see ROADMAP.md)")
     return cuda_estep.suff_stats_cuda(X, v, None, sigma, ranks, A_conv,
                                       eps=cfg.eps, noise_inject=noise_inject,
-                                      x4=x4, real_cov=real_cov)
+                                      x4=x4, real_cov=real_cov,
+                                      fast_recip=cfg.fast_recip)
 
 
 def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,
@@ -117,7 +122,12 @@ def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,
     v = params.all_source_powers()                    # (B, J, F, N)
     stats = _estep(params, X, v, sigma, cfg, x4)
     params = update_spatial(params, stats, sigma, enabled=spatial_enabled)
-    params = update_spectral(params, stats, eps=cfg.eps, v=v)
+    if (cfg.fuse_spectral and X.device.type == "cuda"
+            and cuda_spectral.eligible(params)):
+        params = cuda_spectral.fused_spectral_update(params, stats,
+                                                     eps=cfg.eps)
+    else:
+        params = update_spectral(params, stats, eps=cfg.eps, v=v)
     if cfg.renormalize:
         params = renormalize(params)
     return params, stats.loglik

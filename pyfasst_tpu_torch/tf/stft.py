@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
 
@@ -142,18 +143,21 @@ class STFT:
     """Object front-end matching the reference TFTransform API.
 
     ``computeTransform(data)`` / ``invertTransform(X)``. Frequency axis
-    first. Block streaming (``stream_blocks``) is not ported yet.
+    first. Arrays go to `device`, the card unless the caller asks for
+    "cpu" (a "cuda" request without a card raises). Block streaming
+    (``stream_blocks``) is not ported yet.
     """
 
     name = "stft"
 
     def __init__(self, wlen: int = 1024, hop: Optional[int] = None,
-                 fs: int = 44100, method: str = "fft", device="cpu"):
+                 fs: int = 44100, method: str = "fft",
+                 device=DEFAULT_DEVICE):
         self.wlen = int(wlen)
         self.hop = int(hop or wlen // 2)
         self.fs = int(fs)
         self.method = method
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.window = sine_window(self.wlen)
         self.F = self.wlen // 2 + 1
         self._nsamples: Optional[int] = None

@@ -4,8 +4,9 @@ Port of pyfasst_tpu/utils/config.py. The knobs and their defaults are the
 JAX package's, with one change: there is no ``use_pallas`` switch. The device
 of the tensors decides the E-step path (ops/gem.py::gem_step): a CPU tensor
 takes the plain PyTorch E-step, a CUDA tensor the hand-written kernel or an
-error. ``fast_recip`` and ``fuse_spectral`` stay for configuration parity;
-on CUDA they raise NotImplementedError until their kernels are ported.
+error. ``fast_recip`` and ``fuse_spectral`` select kernels on CUDA (the
+E-step's variant e; the fb_stats and tw_stats kernels) and change nothing
+on the CPU, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -47,12 +48,11 @@ class GEMConfig:
     power_floor_frac: float = 1e-4
     # Renormalize factor/mixing scales every iteration.
     renormalize: bool = True
-    # Fused spectral M-step kernels (pallas_spectral.py in the JAX package).
-    # Not ported yet: True raises on CUDA, and the CPU path ignores it as
-    # the JAX CPU path does.
+    # Fused spectral M-step kernels (ops/cuda_spectral.py) for eligible
+    # params on CUDA; the CPU path ignores it as the JAX CPU path does.
     fuse_spectral: bool = False
-    # Approximate reciprocals in the E-step kernel. Not ported yet: True
-    # raises on CUDA; the CPU path always divides exactly, as in JAX.
+    # Approximate reciprocals in the E-step kernels on CUDA (variant e); the
+    # CPU path always divides exactly, as in JAX.
     fast_recip: bool = False
     # Hold the spatial mixing fixed for the first frac of iterations, while
     # the random initial spectra adapt (source-collapse remedy).

@@ -1,4 +1,4 @@
-"""The CUDA E-step kernels and the port's CUDA dispatch, on an NVIDIA GPU.
+"""The CUDA kernels and the port's CUDA dispatch, on an NVIDIA GPU.
 
 Every test here needs a card (marker `cuda`) and skips without one; the
 file imports nothing of the JAX package, so it runs where only PyTorch is
@@ -13,15 +13,19 @@ zeros; xi 3e-4 for rank 2). CUDA runs against CPU runs of the port:
 loglik rtol 1e-4 and images within 1e-3 of their peak after 10 float32
 iterations -- the kernels' posterior forms (1/(1 + v M) for rank 1, the
 clamped closed-form G^-1 for rank 2) and the CPU path's agree only to
-rounding, and cuBLAS sums in its own order.
+rounding, and cuBLAS sums in its own order. The spectral kernels
+(fb_stats, tw_stats) against their plain versions: rtol 2e-5, the bar of
+tests/test_pallas_spectral.py (sums of positive terms in another order).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import pyfasst_tpu_torch
 from pyfasst_tpu_torch import convert
-from pyfasst_tpu_torch.ops import cuda_estep, gem
+from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral, gem
 from pyfasst_tpu_torch.utils.config import GEMConfig
 
 pytestmark = pytest.mark.cuda
@@ -122,8 +126,10 @@ def test_gem_step_on_cuda_goes_through_the_kernel(dev, monkeypatch):
 @pytest.mark.parametrize("case", ["conv", "float64", "ann_ns_inj",
                                   "fast_recip", "fuse_spectral", "J5"])
 def test_variants_without_a_kernel_raise_on_cuda(dev, case):
-    """Conv mixing and ann_ns_inj now run through the general kernel; the
-    variants still to port raise, naming their ROADMAP entry."""
+    """Conv mixing and ann_ns_inj run through the general kernel, fast_recip
+    through variant e and fuse_spectral through the spectral kernels; the
+    variants still to port (float64, J = 5) raise, naming their ROADMAP
+    entry."""
     rng = np.random.default_rng(2)
     dtype = torch.float64 if case == "float64" else torch.float32
     tree = _tree(rng, 9, 20, mix="conv" if case == "conv" else "inst")
@@ -138,10 +144,17 @@ def test_variants_without_a_kernel_raise_on_cuda(dev, case):
                     annealing="ann_ns_inj" if case == "ann_ns_inj" else "ann",
                     fast_recip=case == "fast_recip",
                     fuse_spectral=case == "fuse_spectral")
-    if case in ("conv", "ann_ns_inj"):
+    if case in ("conv", "ann_ns_inj", "fast_recip", "fuse_spectral"):
         launches = cuda_estep.LAUNCHES
+        e_launches = cuda_estep.VARIANT_LAUNCHES["e"]
+        spectral = dict(cuda_spectral.LAUNCHES)
         _, ll = gem.run_gem(params, X, cfg)
         assert cuda_estep.LAUNCHES == launches + 3
+        assert cuda_estep.VARIANT_LAUNCHES["e"] == e_launches + (
+            3 if case == "fast_recip" else 0)
+        fused = 3 if case == "fuse_spectral" else 0
+        assert cuda_spectral.LAUNCHES == {k: n + fused
+                                          for k, n in spectral.items()}
         assert bool(torch.isfinite(ll).all())
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -284,6 +297,124 @@ def test_host_api_on_cuda_matches_cpu(dev):
     launches = cuda_estep.LAUNCHES
     ll_gpu = gpu.estim_param_a_posteriori()
     assert cuda_estep.LAUNCHES == launches + 10
+    ll_cpu = cpu.estim_param_a_posteriori()
+    np.testing.assert_allclose(ll_gpu, ll_cpu, rtol=1e-4)
+    y_gpu, y_cpu = gpu.separated_images(), cpu.separated_images()
+    assert np.max(np.abs(y_gpu - y_cpu)) < 1e-3 * np.max(np.abs(y_cpu))
+
+
+# -- variants e (fast_recip) and f (no_ll) --------------------------------------
+
+@pytest.mark.parametrize("B,J,F,N", [(2, 2, 33, 70), (8, 2, 513, 863),
+                                     (1, 3, 9, 2500)])
+@pytest.mark.parametrize("flag", ["fast_recip", "no_ll"])
+def test_kernel_variants_e_f_match_plain_version(dev, flag, B, J, F, N):
+    rng = np.random.default_rng(B * F * N + J)
+    x4 = torch.as_tensor(rng.standard_normal((B, 4, F, N)),
+                         dtype=torch.float32, device=dev)
+    v = torch.as_tensor(0.5 + 4 * rng.random((B, J, F, N)),
+                        dtype=torch.float32, device=dev)
+    A = torch.as_tensor(0.3 + rng.random((B, J, 1, 2)), dtype=torch.float32,
+                        device=dev).expand(B, J, F, 2).contiguous()
+    sigma = torch.as_tensor(0.01 + 0.005 * rng.random((B, F)),
+                            dtype=torch.float32, device=dev)
+    key = "e" if flag == "fast_recip" else "f"
+    launches = cuda_estep.VARIANT_LAUNCHES[key]
+    got = cuda_estep.estep_r1_real(x4, v, A, sigma, **{flag: True})
+    want = cuda_estep.estep_r1_real_ref(x4, v, A, sigma,
+                                        no_ll=flag == "no_ll")
+    torch.cuda.synchronize()
+    assert cuda_estep.VARIANT_LAUNCHES[key] == launches + 1
+    for g, w, rtol in zip(got[:5], want[:5], (2e-4,) + (5e-4,) * 4):
+        assert _rel(g, w) <= rtol
+    torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.parametrize("flag", ["fast_recip", "no_ll"])
+@pytest.mark.parametrize("name", ["b_complex_r1_J3", "c_rank2_J4",
+                                  "d_ns_inj_r2_J4", "real_rank2_ns_J2"])
+def test_general_kernel_variants_e_f_match_plain_version(dev, name, flag):
+    J, ranks, real, ns = GENERAL[name]
+    inp = _general_inputs(2, J, 65, 300, ranks, real, 65 * 300 + J, dev)
+    key = "e" if flag == "fast_recip" else "f"
+    launches = cuda_estep.VARIANT_LAUNCHES[key]
+    got = cuda_estep.estep_general(*inp, ranks, ns_inj=ns, real_cov=real,
+                                   **{flag: True})
+    want = cuda_estep.estep_ref(*inp, ranks, ns_inj=ns, real_cov=real,
+                                no_ll=flag == "no_ll")
+    torch.cuda.synchronize()
+    assert cuda_estep.VARIANT_LAUNCHES[key] == launches + 1
+    xi_bar = 3e-4 if max(ranks) == 2 else 2e-4
+    for g, w, rtol in zip(got[:5], want[:5], (xi_bar,) + (5e-4,) * 4):
+        assert _rel(g, w) <= rtol
+    torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
+                               atol=0)
+
+
+# -- the spectral kernels (fb_stats, tw_stats) ----------------------------------
+
+def _spectral_inputs(B, J, F, N, K, seed, device):
+    rng = np.random.default_rng(seed)
+    FB = 0.5 + rng.random((B, J, F, K))
+    TW = 0.5 + rng.random((B, J, K, N))
+    V = np.einsum("bjfk,bjkn->bjfn", FB, TW)
+    xi = V * (0.1 + rng.exponential(size=V.shape))
+    vfloor = np.quantile(V, 0.3, axis=(2, 3))      # the clamp acts
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            .contiguous() for a in (xi, FB, TW, vfloor)]
+
+
+@pytest.mark.parametrize("B,J,F,N,K", [
+    (8, 2, 513, 863, 8), (2, 2, 37, 95, 5), (2, 2, 130, 300, 5),
+    (2, 3, 70, 211, 4), (1, 2, 33, 70, 16), (1, 2, 33, 70, 32)])
+@pytest.mark.parametrize("kernel", ["fb_stats", "tw_stats"])
+def test_spectral_kernel_matches_plain_version(dev, kernel, B, J, F, N, K):
+    inp = _spectral_inputs(B, J, F, N, K, B * F * N + K, dev)
+    launches = cuda_spectral.LAUNCHES[kernel]
+    got = getattr(cuda_spectral, kernel)(*inp)
+    want = getattr(cuda_spectral, f"{kernel}_ref")(*inp)
+    torch.cuda.synchronize()
+    assert cuda_spectral.LAUNCHES[kernel] == launches + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=0)
+    again = getattr(cuda_spectral, kernel)(*inp)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_spectral_wrappers_check_their_inputs(dev):
+    xi, FB, TW, vfloor = _spectral_inputs(1, 2, 9, 20, 3, 0, dev)
+    for fn in (cuda_spectral.fb_stats, cuda_spectral.tw_stats):
+        with pytest.raises(ValueError, match="shape"):
+            fn(xi, FB, TW[..., :10].contiguous(), vfloor)
+        with pytest.raises(TypeError, match="float32"):
+            fn(xi.double(), FB, TW, vfloor)
+        with pytest.raises(ValueError, match="on cpu"):
+            fn(xi, FB, TW, vfloor.cpu())
+    xi, FB, TW, vfloor = _spectral_inputs(1, 2, 9, 20, 33, 0, dev)
+    with pytest.raises(NotImplementedError, match="K <= 32"):
+        cuda_spectral.fb_stats(xi, FB, TW, vfloor)
+
+
+def test_fused_bench_model_on_cuda_matches_cpu(dev):
+    """Ten iterations of the fused path on the card against the unfused
+    CPU run of the same model."""
+    rng = np.random.default_rng(4)
+    t = np.arange(8000) / 16000
+    s1 = np.sin(2 * np.pi * 440 * t)
+    s2 = rng.standard_normal(t.size) * (np.sin(2 * np.pi * 3 * t) > 0)
+    mix = 0.3 * (np.outer(s1, [0.9, 0.4]) + np.outer(s2, [0.3, 0.9]))
+    kw = dict(fs=16000, nbComps=2, nbNMFComps=4, wlen=256, iter_num=10)
+    cpu = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, device="cpu", **kw)
+    gpu = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, device=dev, **kw)
+    gpu.cfg = dataclasses.replace(gpu.cfg, fuse_spectral=True)
+    gpu.params = convert.params_from_numpy(
+        convert.params_to_numpy(cpu.params), device=dev)
+    launches = dict(cuda_spectral.LAUNCHES)
+    ll_gpu = gpu.estim_param_a_posteriori()
+    assert cuda_spectral.LAUNCHES == {k: n + 10 for k, n in launches.items()}
     ll_cpu = cpu.estim_param_a_posteriori()
     np.testing.assert_allclose(ll_gpu, ll_cpu, rtol=1e-4)
     y_gpu, y_cpu = gpu.separated_images(), cpu.separated_images()

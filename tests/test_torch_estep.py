@@ -9,7 +9,10 @@
 2. The kernel's plain version (cuda_estep.estep_r1_real_ref, reached
    through suff_stats_cuda on CPU tensors) against the JAX Pallas kernel in
    interpret mode, at the shapes and tolerances of
-   tests/test_pallas_estep.py.
+   tests/test_pallas_estep.py; with no_ll (variant f) against
+   pallas_estep(..., no_ll=True).
+   fast_recip (variant e) changes nothing on the CPU: the plain version
+   divides exactly, as the Pallas kernel does in interpret mode.
 The CUDA kernel itself is held against its plain version on the card by
 tests/test_torch_cuda.py.
 """
@@ -22,7 +25,7 @@ import torch
 from pyfasst_tpu.ops.estep import compute_suff_stats as j_suff_stats
 from pyfasst_tpu.ops.gem import spatial_covs as j_spatial_covs
 from pyfasst_tpu.ops.mstep import _as_conv_A as j_conv_A
-from pyfasst_tpu.ops.pallas_estep import pallas_suff_stats
+from pyfasst_tpu.ops.pallas_estep import pallas_estep, pallas_suff_stats
 from pyfasst_tpu_torch.ops import cuda_estep, estep, gem
 from tests.torch_parity import batched, jax_problem, to_torch_params
 
@@ -155,6 +158,33 @@ def test_plain_kernel_version_matches_pallas(F, N, J):
                 _close(got.T7[j][k], want.T7[j][k], *tol["T7"])
 
 
+@pytest.mark.parametrize("F,N,J", sorted(PALLAS_TOL))
+def test_no_ll_plain_version_matches_pallas(F, N, J):
+    """Variant f: the loglik without log det Sigma_x; every other output
+    as with it."""
+    tol = PALLAS_TOL[(F, N, J)]
+    rng = np.random.default_rng(F * N)
+    X, jparams, sigma = jax_problem(rng, F=F, N=N, J=J)
+    _, tin, ranks = _inputs(X, jparams, sigma)
+    x4 = cuda_estep.pack_x4(tin[0])
+    A = cuda_estep.mixing_columns(tin[4])                   # (1, J, F, 2)
+    A4 = torch.stack([A[..., 0], torch.zeros_like(A[..., 0]), A[..., 1],
+                      torch.zeros_like(A[..., 0])], dim=-1)
+    want = pallas_estep(jnp.asarray(x4[0].numpy()), jnp.asarray(tin[1][0]),
+                        jnp.asarray(A4[0].numpy()), jnp.asarray(sigma),
+                        ranks=ranks, no_ll=True, real_cov=True,
+                        interpret=True)
+    got = cuda_estep.estep_r1_real(x4, tin[1], A, tin[3], no_ll=True)
+    with_ll = cuda_estep.estep_r1_real(x4, tin[1], A, tin[3])
+    for name, g, w, a in zip(("xi", "Txs", "Tss", "T4", "T7"), got, want,
+                             with_ll):
+        assert torch.equal(g, a)
+        _close(g, w, *tol[name])
+    np.testing.assert_allclose(-float(got[5].sum()), float(want[5]),
+                               rtol=tol["ll"])
+    assert not torch.equal(got[5], with_ll[5])
+
+
 def test_kernel_wrapper_uses_plain_version_on_cpu():
     rng = np.random.default_rng(3)
     x4 = torch.as_tensor(rng.standard_normal((2, 4, 5, 30)),
@@ -175,8 +205,9 @@ def test_kernel_wrapper_uses_plain_version_on_cpu():
 
 
 # Variants b (complex mixing), c (rank 2) and d (ann_ns_inj) and J = 4 run
-# in the general kernel; the rest have no kernel yet.
-_PORTED = ("rank 2", "complex mixing", "ann_ns_inj", "J = 4")
+# in the general kernel, e (fast_recip) in either kernel; the rest have no
+# kernel yet.
+_PORTED = ("rank 2", "complex mixing", "ann_ns_inj", "fast_recip", "J = 4")
 
 
 @pytest.mark.parametrize("why,kw", [
@@ -210,10 +241,15 @@ def test_suff_stats_cuda_raises_for_variants_not_ported():
         stats = cuda_estep.suff_stats_cuda(tin[0], tin[1], None, tin[3],
                                            ranks, tin[4], **kw)
         assert bool(torch.isfinite(stats.xi).all())
+    # fast_recip is computed too; on the CPU the plain version divides
+    # exactly, so it changes nothing there
+    exact = cuda_estep.suff_stats_cuda(tin[0], tin[1], None, tin[3], ranks,
+                                       tin[4])
+    fast = cuda_estep.suff_stats_cuda(tin[0], tin[1], None, tin[3], ranks,
+                                      tin[4], fast_recip=True)
+    assert torch.equal(exact.xi, fast.xi)
+    assert torch.equal(exact.loglik, fast.loglik)
     assert cuda_estep.LAUNCHES == launches
-    with pytest.raises(NotImplementedError, match="fast_recip"):
-        cuda_estep.suff_stats_cuda(tin[0], tin[1], None, tin[3], ranks,
-                                   tin[4], fast_recip=True)
     with pytest.raises(NotImplementedError, match="float64"):
         cuda_estep.suff_stats_cuda(tin[0], tin[1].double(), None, tin[3],
                                    ranks, tin[4])

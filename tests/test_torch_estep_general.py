@@ -4,9 +4,10 @@ cuda_estep.estep_ref, reached through suff_stats_cuda on CPU tensors
 (complex mixing, rank 2, mixed ranks, noise injection, and real rank 2 with
 noise injection), against the JAX Pallas kernel in interpret mode and
 against the JAX XLA E-step (compute_suff_stats), at the cases and
-tolerances of tests/test_pallas_estep.py. The CUDA kernel itself is held
-against this plain version on the card by tests/test_torch_cuda.py and
-chip_smoke.py.
+tolerances of tests/test_pallas_estep.py; and estep_ref with no_ll
+(variant f) against pallas_estep(..., no_ll=True). The CUDA kernel itself
+is held against this plain version on the card by tests/test_torch_cuda.py
+and chip_smoke.py.
 """
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,7 @@ import torch
 from pyfasst_tpu.ops.estep import compute_suff_stats as j_suff_stats
 from pyfasst_tpu.ops.gem import spatial_covs as j_spatial_covs
 from pyfasst_tpu.ops.mstep import _as_conv_A as j_conv_A
-from pyfasst_tpu.ops.pallas_estep import pallas_suff_stats
+from pyfasst_tpu.ops.pallas_estep import pallas_estep, pallas_suff_stats
 from pyfasst_tpu_torch.ops import cuda_estep
 from tests.torch_parity import batched, jax_problem, to_torch_params
 
@@ -118,6 +119,30 @@ def test_suff_stats_cuda_matches_xla_estep(name):
     want = _j_suff_stats(*jin[:4], ranks, noise_inject=ns, A_conv=jin[4])
     got = _port_stats(tin, ranks, ns, real)
     _compare_stats(got, want, len(ranks), CASES[name][-1])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_no_ll_plain_version_matches_pallas(name):
+    """Variant f: the packed outputs of estep_ref(no_ll=True) against
+    pallas_estep(no_ll=True) on the same packed inputs."""
+    jin, tin, ranks, ns, real = _case_inputs(name)
+    bars = CASES[name][-1]
+    x4 = cuda_estep.pack_x4(tin[0])
+    A4 = cuda_estep.pack_A4(tin[3], ranks)
+    want = pallas_estep(jnp.asarray(x4[0].numpy()), jin[1],
+                        jnp.asarray(A4[0].numpy()), jin[3], ranks=ranks,
+                        ns_inj=ns, no_ll=True, real_cov=real, interpret=True)
+    got = cuda_estep.estep_general(x4, tin[1], A4, tin[2], ranks, ns_inj=ns,
+                                   real_cov=real, no_ll=True)
+    with_ll = cuda_estep.estep_general(x4, tin[1], A4, tin[2], ranks,
+                                       ns_inj=ns, real_cov=real)
+    for stat, g, w, a in zip(("xi", "Txs", "Tss", "T4", "T7"), got, want,
+                             with_ll):
+        assert torch.equal(g, a)
+        _close(g, w, *bars[stat])
+    np.testing.assert_allclose(-float(got[5].sum()), float(want[5]),
+                               rtol=bars["ll"])
+    assert not torch.equal(got[5], with_ll[5])
 
 
 def test_plain_version_layout_and_padding():

@@ -11,6 +11,7 @@ float64 JAX run (JAX 6.2e-5, the port 5.2e-5) and the two float32 runs
 1.1e-4 apart. 5e-4 of the peak is -66 dB, far below the 0.1 dB that would
 be audible.
 """
+import inspect
 import json
 import os
 import subprocess
@@ -118,7 +119,8 @@ def test_model_chunked_estimation_is_exact(tmp_path):
     lls = []
     for every in (None, 4):
         m = pyfasst_tpu_torch.MultiChanNMFInst_FASST(
-            wav, nbComps=2, nbNMFComps=3, wlen=256, iter_num=10)
+            wav, nbComps=2, nbNMFComps=3, wlen=256, iter_num=10,
+            device="cpu")
         lls.append(m.estim_param_a_posteriori(checkpoint_every=every))
     np.testing.assert_array_equal(lls[0], lls[1])
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -145,7 +147,8 @@ dm.comp_parameters(K=2)
 c = pyfasst_tpu_torch.MultiChanNMFConv(x, fs=16000, nbComps=2, nbNMFComps=2,
                                        wlen=256, iter_num=3, spatial_rank=2,
                                        init_mixing=dm.mixing(129),
-                                       freq_basis="erb", n_bands=8)
+                                       freq_basis="erb", n_bands=8,
+                                       device="cpu")
 assert np.all(np.isfinite(c.estim_param_a_posteriori()))
 assert c.separated_images().shape == (2, 4000, 2)
 from pyfasst_tpu_torch.ops import cuda_estep, _build  # kernel modules too
@@ -173,6 +176,24 @@ def test_cuda_request_without_card_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("entry", ["MultiChanNMFInst_FASST",
+                                   "MultiChanNMFConv", "STFT"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """With no `device`, each entry point asks for the card: without one
+    it raises, naming the CPU as the caller's choice."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "STFT":
+        from pyfasst_tpu_torch.tf.stft import STFT as cls
+        owner, args, kw = cls, (), dict(wlen=256, fs=16000)
+    else:
+        cls = getattr(pyfasst_tpu_torch, entry)
+        owner, args, kw = pyfasst_tpu_torch.FASST, (np.zeros((4000, 2)),), \
+            dict(fs=16000)
+    assert inspect.signature(owner).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        cls(*args, **kw)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -86,7 +86,7 @@ def test_clip_axis_matches_single_clips():
 def test_object_api_shapes():
     n = FS
     x = _clip(3, n)
-    tr = STFT(wlen=1024, hop=512, fs=FS)
+    tr = STFT(wlen=1024, hop=512, fs=FS, device="cpu")
     X = tr.computeTransform(x)
     assert X.shape == (513, tr.n_frames(n), 2)
     y = tr.invertTransform(X).numpy()
