@@ -6,13 +6,18 @@
 Phases (each prints one line with its numbers and seconds):
   0. the machine: nvidia-smi name and power limit, torch, CUDA and nvcc;
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
-     sm_90a), with ptxas' register and spill report;
+     sm_90a), with ptxas' register and spill report, and the resident warps
+     per SM, registers and local bytes of every instantiation of the
+     general E-step kernel and of fb_stats, as the runtime reports them;
   2. each kernel against its plain PyTorch version on the card, with
-     CUDA-event timings of kernel and plain version in turns, each
-     kernel's bound from its bytes and operations: the E-step variants a
+     CUDA-event timings of kernel and plain version in turns (the kernel's
+     by CUDA-graph replay: device time), each kernel's bound from its
+     bytes and operations: the E-step variants a
      (real rank-1 mixing), b (complex mixing, J=3), c (rank 2, J=4, and
      mixed ranks), d (ann_ns_inj, rank 1 and rank 2) at the bench shapes
-     (B=8, F=513, N=863) and two ragged ones; e (fast_recip) and f (no_ll)
+     (B=8, F=513, N=863), at the conv paths' own shape (B=1, F=513, the N
+     of phases 5 and 6; timed too) and two ragged ones; e (fast_recip) and
+     f (no_ll)
      in variant a's kernel and in the general one, at the bench shapes and
      a ragged one; the spectral kernels fb_stats and tw_stats at the bench
      shapes (J=2, K=8) and the JAX suite's (37, 95), (130, 300) and J=3,
@@ -117,14 +122,22 @@ SPECTRAL_REPLACES = {
                 "_make_fb_kernel :55)",
     "tw_stats": "pyfasst_tpu/ops/pallas_spectral.py:155 (tw_stats; body "
                 "_make_tw_kernel :90)"}
-# (B, J, F, N, K): the bench shapes, then tests/test_pallas_spectral.py's
+# (B, J, F, N, K): the bench shapes, tests/test_pallas_spectral.py's, and
+# two that cross fb_stats' tiles of 8 rows and 128 frames
 SPECTRAL_SHAPES = ((BATCH, J, 513, 863, K), (2, 2, 37, 95, 5),
-                   (2, 2, 130, 300, 5), (2, 3, 70, 211, 4))
+                   (2, 2, 130, 300, 5), (2, 3, 70, 211, 4),
+                   (2, 2, 13, 31, 8), (1, 2, 513, 189, 8))
 SPECTRAL_RTOL = 2e-5          # tests/test_pallas_spectral.py's bar
 # an H100 SXM's published peaks (NVIDIA's data sheet; 700 W): device
 # memory bandwidth and float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the float32 rate open to kernels built with --fmad=false: each multiply
+# and add issues on its own, so half the FMA rate above
+FP32_NOFMA_OPS_PER_S = FP32_OPS_PER_S / 2
+# general E-step instantiations the paths take: (J, rmax, real_cov, ns_inj)
+GENERAL_PATH_INSTANCES = {"b": (3, 1, 0, 0), "c": (4, 2, 0, 0),
+                          "d": (3, 1, 0, 1)}
 
 
 def log(msg: str) -> None:
@@ -385,6 +398,35 @@ def phase_build():
         f"| {time.perf_counter() - t0:.2f}s")
     for ln in ptxas:
         log(f"  ptxas: {ln}")
+    occupancy_report()
+
+
+def occupancy_report():
+    """Resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    and registers / local bytes per thread of the 24 general E-step
+    instantiations and the three of fb_stats; the ones a path takes are
+    marked with its variant."""
+    import itertools
+    from pyfasst_tpu_torch.ops import _build
+    path = {v: k for k, v in GENERAL_PATH_INSTANCES.items()}
+    for J_ in (2, 3, 4):
+        cells = []
+        for rmax, real, ns in itertools.product((1, 2), (0, 1), (0, 1)):
+            i = _build.kernel_info(f"estep_j{J_}", rmax, real, ns)
+            tag = path.get((J_, rmax, real, ns), "")
+            cells.append(f"R{rmax}{'real' if real else 'cplx'}"
+                         f"{'+ns' if ns else ''}{'[' + tag + ']' if tag else ''}"
+                         f" {i['warps_per_sm']}w/{i['registers']}r/"
+                         f"{i['local_bytes']}B")
+        log(f"  occupancy estep_general J={J_} (warps per SM / registers / "
+            f"local bytes): " + ", ".join(cells))
+    cells = []
+    for K_ in (8, 16, 32):
+        i = _build.kernel_info("fb_stats", K_)
+        cells.append(f"KMAX={K_}{'[path]' if K_ == K else ''} "
+                     f"{i['warps_per_sm']}w/{i['registers']}r/"
+                     f"{i['local_bytes']}B/{i['shared_bytes']}B smem")
+    log("  occupancy fb_stats: " + ", ".join(cells))
 
 
 def _estep_inputs(B, F, N, seed, device):
@@ -442,6 +484,35 @@ def count_ops(fn, *args, **kw) -> int:
     return counter.ops
 
 
+def general_ops(inp, ranks, **kw) -> int:
+    """Operations of one general E-step on inputs `inp`: those of its plain
+    version (count_ops), less the ones estep_ref spends on Tss_jk for
+    j > k, which the function does not need: the kernel takes them from
+    Tss_kj, since Tss_jk = Tss_kj^H bit for bit. That part is counted by
+    repeating estep_ref's Tss products and sums for one (j > k, r, s)
+    pair, with its own helpers, on tensors of the input's (B, F, N)."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_estep as ce
+    ops = count_ops(ce.estep_ref, *inp, ranks, **kw)
+    B, _, F, N = inp[1].shape
+    t = torch.empty((B, F, N), device="meta")
+    sig = torch.empty((B, F, 1), device="meta")
+    w = (t, t)                               # w_jr = A_jr^H y: complex
+    z = (t, None) if kw.get("real_cov") else (t, t)   # Sigma_x^-1 A_jr
+
+    def pair():
+        pr = ce._cmul(w, ce._cconj(w))
+        if kw.get("ns_inj"):
+            zc = ce._cadd(ce._cdot_conj(z, z), ce._cdot_conj(z, z))
+            pr = ce._cadd(pr, ce._cscale(sig, zc))
+        for part in pr:
+            torch.sum(ce._m(t, part), dim=-1)
+
+    lower = sum(ranks[j] * ranks[k] for j in range(len(ranks))
+                for k in range(j))
+    return ops - lower * count_ops(pair)
+
+
 def bound(tensors, ops):
     """(bound_ms, bound_by, bytes): the least time an H100 SXM could take
     for a call that reads each of its inputs once and writes each of its
@@ -455,17 +526,40 @@ def bound(tensors, ops):
             else "operations", nbytes)
 
 
+def _graph_ms(fn, reps, inner):
+    """CUDA-event ms samples of fn(), each the mean of `inner` calls captured
+    in one CUDA graph and replayed: the device's time for the calls, without
+    the host's cost of launching them (which is what an eager loop of a
+    short kernel measures)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                      # warm-up off the capture, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    return [t / inner for t in _event_ms(graph.replay, reps)]
+
+
 def _turns(kernel, plain, reps=11, inner=10, plain_reps=3, plain_inner=2):
     """CUDA-event ms samples of kernel() and plain(), in turns (plain,
     kernel, kernel, plain), each after a warm-up call: (kernel samples,
-    plain samples), each sample the mean of `inner` back-to-back calls."""
+    plain samples). A kernel sample is the mean of `inner` calls replayed
+    from one CUDA graph (_graph_ms); a plain sample the mean of
+    `plain_inner` back-to-back eager calls, as its callers run it."""
     kern, ref = [], []
-    for fn, out, r, i in ((plain, ref, plain_reps, plain_inner),
-                          (kernel, kern, reps, inner),
-                          (kernel, kern, reps, inner),
-                          (plain, ref, plain_reps, plain_inner)):
+    for fn, out, timer, r, i in ((plain, ref, _event_ms, plain_reps,
+                                  plain_inner),
+                                 (kernel, kern, _graph_ms, reps, inner),
+                                 (kernel, kern, _graph_ms, reps, inner),
+                                 (plain, ref, _event_ms, plain_reps,
+                                  plain_inner)):
         fn()
-        out.extend(_event_ms(fn, r, i))
+        out.extend(timer(fn, r, i))
     return kern, ref
 
 
@@ -497,18 +591,30 @@ def phase_kernel_vs_plain(device):
     return main_abs
 
 
+def conv_frames():
+    """N of the conv paths (phases 5-7): the 6 s, 16 kHz clip, wlen 1024,
+    hop 512."""
+    from pyfasst_tpu_torch.tf.stft import _frame_geometry
+    return _frame_geometry(int(FS_CONV * DUR_CONV), WLEN_CONV,
+                           WLEN_CONV // 2)[2]
+
+
 def phase_general_vs_plain(device):
-    """Variants b, c and d against the plain version, at the bench shapes
-    and the two ragged ones; times kernel and plain at the bench shapes,
-    in turns (plain, kernel, kernel, plain)."""
+    """Variants b, c and d against the plain version, at the bench shapes,
+    at the conv paths' own shape and at two ragged ones; times kernel and
+    plain at the bench and path shapes, in turns (plain, kernel, kernel,
+    plain). Returns the bench-shape numbers by label, each with its
+    path-shape numbers under "path"."""
     import torch
     from pyfasst_tpu_torch.ops import cuda_estep
     t0 = time.perf_counter()
     names = ("xi", "txs", "tss", "t4", "t7")
+    path_shape = (1, 513, conv_frames())
     out = {}
     for key, label, J_, ranks, real, ns in GENERAL_CASES:
         tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
-        for (B, F, N) in ((BATCH, 513, 863), (1, 33, 70), (1, 9, 2500)):
+        for (B, F, N) in ((BATCH, 513, 863), path_shape, (1, 33, 70),
+                          (1, 9, 2500)):
             inp = _general_inputs(B, J_, F, N, ranks, real, seed=F * N + J_,
                                   device=device)
             kw = dict(ns_inj=ns, real_cov=real)
@@ -521,22 +627,28 @@ def phase_general_vs_plain(device):
             abs_err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
             timing = ""
-            if B == BATCH:
+            if (B, F, N) in ((BATCH, 513, 863), path_shape):
                 kern, plain = _turns(
                     lambda: cuda_estep.estep_general(*inp, ranks, **kw),
                     lambda: cuda_estep.estep_ref(*inp, ranks, **kw))
-                b_ms, b_by, nbytes = bound(
-                    list(inp) + list(got),
-                    count_ops(cuda_estep.estep_ref, *inp, ranks, **kw))
-                out[label] = {"key": key, "max_abs_err": abs_err,
-                              "ms": statistics.median(kern),
-                              "plain_ms": statistics.median(plain),
-                              "bound_ms": b_ms, "bound_by": b_by}
-                timing = (f" | kernel {out[label]['ms']:.4f} ms (min "
-                          f"{min(kern):.4f}), plain "
-                          f"{out[label]['plain_ms']:.3f} ms (min "
-                          f"{min(plain):.3f}), medians in turns | bound "
-                          f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)")
+                ops = general_ops(inp, ranks, **kw)
+                b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
+                nums = {"max_abs_err": abs_err,
+                        "ms": statistics.median(kern),
+                        "plain_ms": statistics.median(plain),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3}
+                if B == BATCH:
+                    out[label] = dict(nums, key=key)
+                else:
+                    out[label]["path"] = dict(nums, shape=[B, F, N])
+                timing = (f" | kernel {nums['ms']:.4f} ms (min "
+                          f"{min(kern):.4f}), "
+                          f"plain {nums['plain_ms']:.3f} ms (min "
+                          f"{min(plain):.3f}), medians in turns | "
+                          f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f}"
+                          f" MB, {ops / 1e9:.3f} Gop; without FMA "
+                          f"{nums['nofma_floor_ms']:.4f} ms)")
             log(f"phase 2 {key} {label} B={B} F={F} N={N}: "
                 + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}"
                            for n, e in errs.items())
@@ -594,10 +706,11 @@ def phase_variants_ef(device):
                         lambda: kernel(*inp, *args, **kw, **{flag: True}),
                         lambda: plain(*inp, *args, **kw,
                                       no_ll=flag == "no_ll")))
+                    no_ll = dict(no_ll=flag == "no_ll")
                     b_ms, b_by, nbytes = bound(
                         list(inp) + list(got),
-                        count_ops(plain, *inp, *args, **kw,
-                                  no_ll=flag == "no_ll"))
+                        count_ops(plain, *inp, **no_ll) if kern_name == "a"
+                        else general_ops(inp, ranks, **kw, **no_ll))
                     if kern_name == "a":
                         out[key] = {"max_abs_err": abs_err, "ms": ms,
                                     "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -661,14 +774,16 @@ def phase_spectral_vs_plain(device):
                 ms, plain_ms = map(statistics.median, _turns(
                     lambda: kernel(*inp), lambda: plain(*inp),
                     plain_reps=11, plain_inner=10))
-                b_ms, b_by, nbytes = bound(list(inp) + list(got),
-                                           count_ops(plain, *inp))
+                ops = count_ops(plain, *inp)
+                b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
                 out[name] = {"max_abs_err": abs_err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": b_ms,
                              "bound_by": b_by}
                 timing = (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
                           f" medians in turns | bound {b_ms:.4f} ms by "
-                          f"{b_by} ({nbytes / 1e6:.2f} MB)")
+                          f"{b_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} "
+                          f"Gop; without FMA "
+                          f"{ops / FP32_NOFMA_OPS_PER_S * 1e3:.4f} ms)")
             log(f"phase 2 {name} B={B} J={J_} F={F} N={N} K={K_}: rel "
                 f"{err:.2e}<={SPECTRAL_RTOL:.0e} | max_abs_err "
                 f"{abs_err:.3e}{timing}")
@@ -815,7 +930,7 @@ def phase_batch(device, dur, niter, batch, card):
     log(f"phase 4 E-step B={batch} F={F} N={N}: kernel {kernel_ms:.4f} ms "
         f"(min {min(kern):.4f} max {max(kern):.4f}), plain {plain_ms:.4f} ms "
         f"(min {min(plain):.4f} max {max(plain):.4f}); median of "
-        f"{len(kern)} samples of 10 back-to-back calls, in turns "
+        f"{len(kern)} samples of 10 calls by graph replay, in turns "
         f"plain/kernel/kernel/plain | {nbytes / 1e6:.1f} MB moved -> "
         f"{nbytes / 1e3 / (kernel_ms / 1e3) / 1e6:.1f} GB/s | bound "
         f"{b_ms:.4f} ms by {b_by} | {card}")
@@ -969,6 +1084,9 @@ def phase_conv(device, case, card):
         f"{DUR_CONV / secs:.2f} (first run, B=1) | {card} | "
         f"{time.perf_counter() - t0:.2f}s")
     key = "b" if case == "anechoic" else "c"
+    if model.N != conv_frames():
+        raise RuntimeError(f"phase {phase}: N = {model.N}, but phase 2 "
+                           f"timed the path's shape at N = {conv_frames()}")
     if total != NITER_CONV or counts[key] != NITER_CONV:
         raise RuntimeError(f"phase {phase}: {total} kernel launches "
                            f"({counts}) in {NITER_CONV} iterations")
@@ -1042,18 +1160,24 @@ def main() -> int:
                      path_launches["a"], dict(timing, max_abs_err=main_abs,
                                               ms=timing["kernel_ms"]))]
     for key, label in GENERAL_HEADLINE.items():
-        kernels.append(entry(f"estep_general (variant {key}: {label})",
-                             GENERAL_SOURCE, GENERAL_REPLACES[key],
-                             path_launches[key], general[label]))
+        path = general[label]["path"]
+        kernels.append(dict(
+            entry(f"estep_general (variant {key}: {label})", GENERAL_SOURCE,
+                  GENERAL_REPLACES[key], path_launches[key], general[label]),
+            path_shape=path["shape"], path_ms=path["ms"],
+            path_plain_ms=path["plain_ms"], path_bound_ms=path["bound_ms"])
+        )
     kernels.append(entry("estep_r1_real with fast_recip (variant e)",
                          KERNEL_SOURCE, GENERAL_REPLACES["e"],
                          path_launches["e"], ef["e"]))
     kernels.append(dict(
         entry("estep_r1_real with no_ll (variant f)", KERNEL_SOURCE,
               GENERAL_REPLACES["f"], f_launches, ef["f"]),
-        launches_from="phase 2, its check against the plain version: no "
-                      "path sets no_ll (pallas_estep.py:446 is its only "
-                      "use in the JAX package)"))
+        launches_from="phase 2: its checks against the plain version and "
+                      "the timing's warm-up calls (calls under graph "
+                      "capture and replays do not count); no path sets "
+                      "no_ll (pallas_estep.py:446 is its only use in the "
+                      "JAX package)"))
     for name in ("fb_stats", "tw_stats"):
         kernels.append(entry(name, SPECTRAL_SOURCE, SPECTRAL_REPLACES[name],
                              fused["fused"]["spectral"][name],

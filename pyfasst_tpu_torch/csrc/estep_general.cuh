@@ -25,22 +25,43 @@
 // the frame-reduced Txs, Tss, T4, T7 and loglik, with the ns_inj
 // corrections sigma Sigma_x^-1 A when asked.
 //
-// Design. As in estep.cu, one thread block owns one (b, f) row of the
-// plane and its threads stride over the N frames (coalesced loads of x4
-// and v, stores of xi; the loop bound masks the ragged edge). What differs
-// is where the frame sums live. J = 4 rank 2 needs 225 of them (ll 1,
-// Txs 32, Tss 80, T4 16, T7 96), past the 255-register limit before any
-// temporary, so each thread keeps its partial sums in its own column of
-// shared memory, acc[slot * kGenThreads + thread]: no two threads touch a
-// word, consecutive threads hit consecutive banks, and 128 threads of
-// J = 4 rank 2 hold 115 KB (dynamic shared memory, opted in above 48 KB).
-// Only j <= k of Tss is summed: Tss_kj = Tss_jk^H holds bit for bit,
-// since both are formed from the same products; T7 has no such exact
-// symmetry and is summed for every j != k. The row's mixing columns and
-// their invariants are computed once per block into shared memory. The
-// block reduction sums each slot's 128 columns in a fixed order (four
-// strided reads per lane, then a shuffle tree), so results are the same
-// from run to run: no atomics.
+// Design. One block of four warps owns one (b, f) row of the plane; its
+// warps take the row's tiles of 32 frames in turn (warp w: tiles w, w + 4,
+// ...), lane = frame: each lane loads its frame's x4 and v (coalesced),
+// computes Sigma_x, y, w_jr, z_jr = Sigma_x^-1 A_jr, the leave-one-out
+// posterior and xi (stored), and forms its frame's terms of the row's frame
+// sums by the formulas of the Pallas kernel. Where the sums live depends on
+// how many there are (Slots::COUNT, Plan::REG):
+//   - up to kRegSums = 40 (J <= 3 at rank 1): in registers, each lane its
+//     own running sums over its frames, and the next tile's x4 and v are
+//     loaded while this one is computed. At the end of the row the lanes'
+//     sums go through the warp's tile (below) once, lanes in order.
+//   - more (rank 2, J = 4; up to 224 at J = 4 rank 2: T4 16, Txs 32,
+//     Tss 80, T7 96): through the warp's tile in shared memory, 32 sums at
+//     a time. w_jr and z_jr go into a per-warp buffer (feature-major, lane
+//     = frame) as phase 1 forms them; then, chunk by chunk, each lane forms
+//     its frame's products for the chunk's 32 sums from the buffer and
+//     stores them in tile[sum][frame] (row stride 33 words: conflict-free
+//     both ways), and lane = sum adds its row of the tile, frames in order,
+//     to a register. The T4 terms go straight into the first chunk's rows.
+// So each frame sum lives in registers (one per lane per chunk in the
+// tiled case: 7 at J = 4 rank 2), and shared memory sees one store and one
+// load per product, with no read-modify-write. A block holds 17 KB of
+// tiles and up to 24 KB of buffer, static; __launch_bounds__(128, 4) holds
+// a thread to 128 registers, so four blocks (16 warps) fit on an SM, with
+// no spill at J = 4 rank 2 (chip_smoke.py phase 1 prints each
+// instantiation's resident warps, registers and local bytes). The
+// loglik's per-lane sums end in a shuffle tree. At the end of the row the
+// four warps' sums are added in warp order through shared memory: a fixed
+// order, no atomics, the same results from run to run. The row's mixing
+// columns and their invariants are computed once per block into shared
+// memory, spread over the threads (one (source, column, channel) entry per
+// thread, then one R_j or X_jk per thread). Ragged edges: a lane past N
+// loads nothing (a select gives 0) and stores no xi; its loglik term and,
+// in registers, its sums' terms are selected to 0, and a tile's sums stop
+// at its last frame. Only j <= k of Tss is summed: Tss_kj = Tss_jk^H holds
+// bit for bit, since both are formed from the same products; T7 has no
+// such exact symmetry and is summed for every j != k.
 //
 // Numerics follow the Pallas forms term by term: the subtract-free dets of
 // Sigma_x and of each S_j, the rank-2 dG clamp and coef = (g00 + g11)/dG,
@@ -51,11 +72,14 @@
 // arithmetic, as the Pallas symbolic-zero algebra does.
 //
 // What bounds it on an H100: per bin it reads x4 (16 B) and v (4 B per
-// source) and writes xi (4 B per source), against ~500 (J = 3, rank 1) to
-// ~2500 (J = 4, rank 2, ns_inj) flops and one shared-memory read-modify-
-// write per frame sum; the rank-2 cases are bound by issue and by the
-// occupancy that their shared memory allows (one block per SM for J = 4
-// rank 2), not by device memory. Making it fast is later work.
+// source) and writes xi (4 B per source), against ~800 (J = 3, rank 1) to
+// ~4,400 (J = 4, rank 2, ns_inj) float32 operations counted in its plain
+// version, so the rank-2 cases are bound by operations, and with
+// --fmad=false each multiply and add issues on its own: half the card's
+// FMA rate is open to them. On top of those come the exact divides, logf,
+// the selects and the shared-memory traffic of the sums, so the kernel is
+// bound by instruction issue; at J = 4 rank 2 it runs at about twice the
+// time that the operations alone would take at that half rate (PERF.md).
 //
 // Layouts (float32, contiguous), with the clip axis B; Rmax = max rank:
 //   x4    (B, 4, F, N)        [Re x0, Im x0, Re x1, Im x1]
@@ -83,8 +107,12 @@
 
 namespace pyfasst_general {
 
-constexpr int kGenThreads = 128;
-constexpr int kGenWarps = kGenThreads / 32;
+constexpr int kGenWarps = 4;
+constexpr int kGenThreads = 32 * kGenWarps;
+constexpr int kGenMinBlocks = 4;  // resident blocks per SM asked of ptxas
+constexpr int kRegSums = 40;      // at most this many sums: in registers
+constexpr int kTile = 32;         // frames per warp tile, sums per chunk
+constexpr int kTileStride = kTile + 1;
 
 struct cf {
   float re, im;
@@ -119,18 +147,19 @@ __device__ __forceinline__ void herm_apply(float a, float d, cf b, float rinv,
   y1 = cf{rinv * (a * u1.re - cbu0.re), rinv * (a * u1.im - cbu0.im)};
 }
 
-// Accumulator slots of one (b, f) row.
+// Frame sums of one (b, f) row (the loglik is summed apart, per lane).
 template <int J, int R>
 struct Slots {
   static constexpr int PAIRS = J * (J + 1) / 2;   // Tss, j <= k
   static constexpr int OFFD = J * (J - 1);        // T7, j != k
   static constexpr int NT4 = (R == 1) ? 1 : 4;
-  static constexpr int LL = 0;
-  static constexpr int TXS = 1;                       // (j, r): 4 each
-  static constexpr int T4 = TXS + J * R * 4;          // j: NT4 each
-  static constexpr int TSS = T4 + J * NT4;            // (pair, r, s): 2 each
+  static constexpr int T4 = 0;                        // j: NT4 each
+  static constexpr int TXS = T4 + J * NT4;            // (j, r): 4 each
+  static constexpr int TSS = TXS + J * R * 4;         // (pair, r, s): 2 each
   static constexpr int T7 = TSS + PAIRS * R * R * 2;  // (j != k, r, s): 2 each
   static constexpr int COUNT = T7 + OFFD * R * R * 2;
+  static constexpr int LL = COUNT;                    // in the block's sums
+  static constexpr int CHUNKS = (COUNT + kTile - 1) / kTile;
   __device__ static constexpr int pair(int j, int k) {  // j <= k
     return j * J - j * (j - 1) / 2 + (k - j);
   }
@@ -149,19 +178,24 @@ struct Row {
   float sig;
 };
 
+// The row's invariants, spread over the block: one (j, r, channel) entry
+// of the mixing columns per thread, then one R_j or one X_jk per thread.
+// Ends with the block synchronised.
 template <int J, int R, bool REAL>
 __device__ __forceinline__ void row_constants(Row<J, R>& c,
                                               const float* __restrict__ A4,
                                               size_t a_stride,
-                                              const int (&rk)[J], float sig) {
-  for (int j = 0; j < J; ++j) {
-    for (int r = 0; r < R; ++r) {
-      const float* a = A4 + j * a_stride + 4 * r;
-      c.A[j][r][0] = cf{a[0], REAL ? 0.f : a[1]};
-      c.A[j][r][1] = cf{a[2], REAL ? 0.f : a[3]};
-    }
+                                              const int (&rk)[J], float sig,
+                                              int tid) {
+  if (tid < J * R * 2) {
+    const int j = tid / (2 * R), r = (tid / 2) % R, ch = tid % 2;
+    const float* a = A4 + j * a_stride + 4 * r + 2 * ch;
+    c.A[j][r][ch] = cf{a[0], REAL ? 0.f : a[1]};
   }
-  for (int j = 0; j < J; ++j) {
+  if (tid == 0) c.sig = sig;
+  __syncthreads();
+  if (tid < J) {
+    const int j = tid;
     float ra = 0.f, rd = 0.f;
     cf rb{0.f, 0.f};
     for (int r = 0; r < rk[j]; ++r) {
@@ -176,25 +210,23 @@ __device__ __forceinline__ void row_constants(Row<J, R>& c,
     c.Rd[j] = rd;
     c.Rb[j] = rb;
     c.trR[j] = ra + rd;
-  }
-  for (int j = 0; j < J; ++j) {
-    for (int k = 0; k < J; ++k) {
-      float x = 0.f;
-      for (int r = 0; r < rk[j]; ++r) {
-        for (int s = 0; s < rk[k]; ++s) {
-          const cf p = c.A[j][r][0], q = c.A[k][s][1];
-          const cf u = c.A[j][r][1], w = c.A[k][s][0];
-          // A_j[0,r] A_k[1,s] - A_j[1,r] A_k[0,s]
-          const cf t{
-              (p.re * q.re - p.im * q.im) - (u.re * w.re - u.im * w.im),
-              (p.re * q.im + p.im * q.re) - (u.re * w.im + u.im * w.re)};
-          x += cabs2(t);
-        }
+  } else if (tid < J + J * J) {
+    const int j = (tid - J) / J, k = (tid - J) % J;
+    float x = 0.f;
+    for (int r = 0; r < rk[j]; ++r) {
+      for (int s = 0; s < rk[k]; ++s) {
+        const cf p = c.A[j][r][0], q = c.A[k][s][1];
+        const cf u = c.A[j][r][1], w = c.A[k][s][0];
+        // A_j[0,r] A_k[1,s] - A_j[1,r] A_k[0,s]
+        const cf t{
+            (p.re * q.re - p.im * q.im) - (u.re * w.re - u.im * w.im),
+            (p.re * q.im + p.im * q.re) - (u.re * w.im + u.im * w.re)};
+        x += cabs2(t);
       }
-      c.Xc[j][k] = x;
     }
+    c.Xc[j][k] = x;
   }
-  c.sig = sig;
+  __syncthreads();
 }
 
 struct Args {
@@ -213,12 +245,30 @@ struct Args {
   bool fast_recip, no_ll;
 };
 
-template <int J, int R, bool REAL, bool NS>
-__global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
+// How a row's frame sums are kept (see the head of this file).
+template <int J, int R>
+struct Plan {
   using S = Slots<J, R>;
-  extern __shared__ float acc_sm[];  // S::COUNT x kGenThreads
+  // each lane keeps all of the row's sums for its frames in registers
+  static constexpr bool REG = S::COUNT <= kRegSums;
+  // otherwise w_jr and z_jr go through a per-warp buffer, feature-major
+  static constexpr int NF = REG ? 1 : 6 * J * R;
+  static constexpr int W = 0;          // w_jr: 2 words at 2 (j R + r)
+  static constexpr int Z = 2 * J * R;  // z_jr: 4 words at Z + 4 (j R + r)
+};
+
+template <int J, int R, bool REAL, bool NS>
+__global__ void __launch_bounds__(kGenThreads, kGenMinBlocks)
+    estep_general_kernel(Args g) {
+  using S = Slots<J, R>;
+  using P = Plan<J, R>;
   __shared__ Row<J, R> c;
-  __shared__ float red[S::COUNT];
+  // the warps' tiles; at the end of the row, the warps' sums
+  __shared__ float tiles[kGenWarps][kTile * kTileStride];
+  __shared__ float feats[kGenWarps][P::NF * kTile];
+  static_assert(kGenWarps * (S::COUNT + 1) <= kGenWarps * kTile * kTileStride,
+                "the block's sums must fit in the tiles");
+  static_assert(J * S::NT4 <= kTile, "T4 must lie in the first chunk");
 
   const int F = g.F, N = g.N;
   const int row = blockIdx.x;  // b * F + f
@@ -226,32 +276,94 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
   const int f = row - b * F;
   const size_t FN = (size_t)F * N;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
   int rk[J];
 #pragma unroll
   for (int j = 0; j < J; ++j)
     rk[j] = (R == 2 && ((g.rank_mask >> j) & 1)) ? 2 : 1;
 
-  if (tid == 0)
-    row_constants<J, R, REAL>(c, g.A4 + ((size_t)b * J * F + f) * 4 * R,
-                              (size_t)F * 4 * R, rk, g.sigma[row]);
-  float* acc = acc_sm + tid;
-  for (int s = 0; s < S::COUNT; ++s) acc[s * kGenThreads] = 0.f;
-  __syncthreads();
+  row_constants<J, R, REAL>(c, g.A4 + ((size_t)b * J * F + f) * 4 * R,
+                            (size_t)F * 4 * R, rk, g.sigma[row], tid);
 
   const float* xrow = g.x4 + (size_t)b * 4 * FN + (size_t)f * N;
   const float* vrow = g.v + (size_t)b * J * FN + (size_t)f * N;
   float* xirow = g.xi + (size_t)b * J * FN + (size_t)f * N;
+  float* tile = tiles[warp];
+  float* feat = feats[warp];
   const float sig = c.sig;
   const float eps = g.eps;
   const bool fast = g.fast_recip;
 
-  for (int n = tid; n < N; n += kGenThreads) {
-    const cf x0{xrow[n], xrow[FN + n]};
-    const cf x1{xrow[2 * FN + n], xrow[3 * FN + n]};
-    float v[J];
+  // Moves 32 sums at a time from the lanes into registers of lane = sum:
+  // emit(in_chunk, put) puts each sum's value of this lane's frame into
+  // the tile; then each lane adds the first `count` frames of its row of
+  // the tile, in order, to acc[chunk].
+  float acc[S::CHUNKS];
 #pragma unroll
-    for (int j = 0; j < J; ++j) v[j] = vrow[j * FN + n];
+  for (int ch = 0; ch < S::CHUNKS; ++ch) acc[ch] = 0.f;
+  auto flush = [&](auto&& emit, int count) {
+#pragma unroll
+    for (int ch = 0; ch < S::CHUNKS; ++ch) {
+      const int lo = ch * kTile;
+      emit([&](int slot, int n) { return slot < lo + kTile && slot + n > lo; },
+           [&](int slot, float val) {
+             if (slot >= lo && slot < lo + kTile)
+               tile[(slot - lo) * kTileStride + lane] = val;
+           });
+      __syncwarp();
+      if (ch + 1 < S::CHUNKS || lane < S::COUNT - lo) {
+        const float* col = tile + lane * kTileStride;
+        float t = acc[ch];
+#pragma unroll 8
+        for (int m = 0; m < count; ++m) t += col[m];
+        acc[ch] = t;
+      }
+      __syncwarp();
+    }
+  };
+
+  float racc[P::REG ? S::COUNT : 1];  // REG: lane = frame, its frame sums
+#pragma unroll
+  for (int s = 0; s < (P::REG ? S::COUNT : 1); ++s) racc[s] = 0.f;
+  float ll_acc = 0.f;                 // lane = frame: its loglik terms
+
+  // REG: the next tile's x4 and v are loaded while this one is computed
+  float px[4], pv[J];
+  if constexpr (P::REG) {
+    const int n = warp * kTile + lane;
+    const bool valid = n < N;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) px[q] = valid ? xrow[q * FN + n] : 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) pv[j] = valid ? vrow[j * FN + n] : 0.f;
+  }
+
+  for (int n0 = warp * kTile; n0 < N; n0 += kGenThreads) {
+    const int n = n0 + lane;
+    const bool valid = n < N;
+
+    // -- phase 1, lane = frame ------------------------------------------------
+    cf x0, x1;
+    float v[J];
+    if constexpr (P::REG) {
+      x0 = cf{px[0], px[1]};
+      x1 = cf{px[2], px[3]};
+#pragma unroll
+      for (int j = 0; j < J; ++j) v[j] = pv[j];
+      const int nn = n + kGenThreads;
+      const bool vn = nn < N;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) px[q] = vn ? xrow[q * FN + nn] : 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) pv[j] = vn ? vrow[j * FN + nn] : 0.f;
+    } else {
+      x0 = cf{valid ? xrow[n] : 0.f, valid ? xrow[FN + n] : 0.f};
+      x1 = cf{valid ? xrow[2 * FN + n] : 0.f, valid ? xrow[3 * FN + n] : 0.f};
+#pragma unroll
+      for (int j = 0; j < J; ++j) v[j] = valid ? vrow[j * FN + n] : 0.f;
+    }
 
     // Sigma_x = sig I + sum_j v_j R_j and its subtract-free determinant
     float sa = 0.f, sd = 0.f, lin = 0.f, quad = 0.f;
@@ -279,34 +391,51 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
     float tr = fmaxf((x0.re * y0.re + x0.im * y0.im)
                      + (x1.re * y1.re + x1.im * y1.im), 0.0f);
     if constexpr (NS) tr = tr + sig * (a + d) * rinv;
-    acc[S::LL * kGenThreads] += g.no_ll ? tr : logf(det) + tr;
+    const float llt = g.no_ll ? tr : logf(det) + tr;
+    ll_acc += valid ? llt : 0.f;
 
-    // w_jr = A_jr^H y and z_jr = Sigma_x^-1 A_jr
-    cf w[J][R], z[J][R][2];
+    // per source: w_jr = A_jr^H y and z_jr = Sigma_x^-1 A_jr (zero past the
+    // rank), kept for phase 2 in registers (REG) or in the warp's buffer
+    cf w[P::REG ? J : 1][R], z[P::REG ? J : 1][R][2];
 #pragma unroll
     for (int j = 0; j < J; ++j) {
+      cf wj[R], zj[R][2];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        if (r >= rk[j]) continue;
-        const cf p = cmul_conj<REAL>(c.A[j][r][0], y0);
-        const cf q = cmul_conj<REAL>(c.A[j][r][1], y1);
-        w[j][r] = cf{p.re + q.re, p.im + q.im};
-        herm_apply<REAL>(a, d, sb, rinv, c.A[j][r][0], c.A[j][r][1],
-                         z[j][r][0], z[j][r][1]);
+        wj[r] = cf{0.f, 0.f};
+        zj[r][0] = zj[r][1] = cf{0.f, 0.f};
+        if (r < rk[j]) {
+          const cf p = cmul_conj<REAL>(c.A[j][r][0], y0);
+          const cf q = cmul_conj<REAL>(c.A[j][r][1], y1);
+          wj[r] = cf{p.re + q.re, p.im + q.im};
+          herm_apply<REAL>(a, d, sb, rinv, c.A[j][r][0], c.A[j][r][1],
+                           zj[r][0], zj[r][1]);
+        }
+        if constexpr (P::REG) {
+          w[j][r] = wj[r];
+          z[j][r][0] = zj[r][0];
+          z[j][r][1] = zj[r][1];
+        } else {
+          float* fw = feat + (P::W + 2 * (j * R + r)) * kTile + lane;
+          fw[0] = wj[r].re;
+          fw[kTile] = wj[r].im;
+          float* fz = feat + (P::Z + 4 * (j * R + r)) * kTile + lane;
+          fz[0] = zj[r][0].re;
+          fz[kTile] = zj[r][0].im;
+          fz[2 * kTile] = zj[r][1].re;
+          fz[3 * kTile] = zj[r][1].im;
+        }
       }
-    }
 
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
       float trCR = 0.f;
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        if (r < rk[j]) trCR += cabs2(w[j][r]);
+        if (r < rk[j]) trCR += cabs2(wj[r]);
       if constexpr (NS) {
         float zz = 0.f;
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          if (r < rk[j]) zz += cabs2(z[j][r][0]) + cabs2(z[j][r][1]);
+          if (r < rk[j]) zz += cabs2(zj[r][0]) + cabs2(zj[r][1]);
         trCR = trCR + sig * zz;
       }
 
@@ -348,13 +477,19 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
         return cf{p.re + q.re, p.im + q.im};
       };
 
+      // the T4 terms: 1 / den for rank 1, v G^-1 for rank 2
       const float vj = v[j];
-      float coef;
-      if (R == 1 || rk[j] == 1) {
+      float coef = 0.f;
+      float t4[S::NT4];
+      bool rank1 = true;
+      if constexpr (R == 2) rank1 = rk[j] == 1;
+      if (rank1) {
         const float den = 1.0f + vj * M(0, 0).re;
         coef = pyfasst::recip(den, fast);
-        acc[(S::T4 + j * S::NT4) * kGenThreads] += vj / den;
-      } else {
+        t4[0] = vj / den;
+#pragma unroll
+        for (int q = 1; q < S::NT4; ++q) t4[q] = 0.f;
+      } else if constexpr (R == 2) {
         const cf m01 = M(0, 1);
         const float g00 = 1.0f + vj * M(0, 0).re;
         const float g11 = 1.0f + vj * M(1, 1).re;
@@ -364,93 +499,144 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
         const float dG = fmaxf(g00 * g11 - gg, 1.0f);
         const float rG = pyfasst::recip(dG, fast);
         coef = (g00 + g11) * rG;
-        float* t4a = acc + (S::T4 + j * S::NT4) * kGenThreads;
-        t4a[0] += vj * g11 * rG;
-        t4a[kGenThreads] += vj * g00 * rG;
-        t4a[2 * kGenThreads] += -vj * g01.re * rG;
-        if constexpr (!REAL) t4a[3 * kGenThreads] += -vj * g01.im * rG;
+        t4[0] = vj * g11 * rG;
+        t4[1] = vj * g00 * rG;
+        t4[2] = -vj * g01.re * rG;
+        t4[3] = REAL ? 0.f : -vj * g01.im * rG;
       }
-      xirow[j * FN + n] =
-          fmaxf((vj * vj * trCR + vj * coef) / (float)rk[j], eps);
-
-      // Txs_j: per column r, v_j [x0 conj(w_jr), x1 conj(w_jr)]
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (r >= rk[j]) continue;
-        const cf wr = w[j][r];
-        cf p0{x0.re * wr.re + x0.im * wr.im, x0.im * wr.re - x0.re * wr.im};
-        cf p1{x1.re * wr.re + x1.im * wr.im, x1.im * wr.re - x1.re * wr.im};
-        if constexpr (NS) {
-          p0 = cf{p0.re + sig * z[j][r][0].re, p0.im + sig * z[j][r][0].im};
-          p1 = cf{p1.re + sig * z[j][r][1].re, p1.im + sig * z[j][r][1].im};
-        }
-        float* t = acc + (S::TXS + (j * R + r) * 4) * kGenThreads;
-        t[0] += vj * p0.re;
-        t[kGenThreads] += vj * p0.im;
-        t[2 * kGenThreads] += vj * p1.re;
-        t[3 * kGenThreads] += vj * p1.im;
+      for (int q = 0; q < S::NT4; ++q) {
+        const int slot = S::T4 + j * S::NT4 + q;
+        if constexpr (P::REG)
+          racc[slot] += valid ? t4[q] : 0.f;
+        else  // the first chunk's rows of the tile
+          tile[slot * kTileStride + lane] = t4[q];
       }
+      if (valid)
+        xirow[j * FN + n] =
+            fmaxf((vj * vj * trCR + vj * coef) / (float)rk[j], eps);
     }
 
-    // Tss (j <= k) and T7 (j != k)
+    // -- phase 2: the products of the frame sums ------------------------------
+    // W(j, r), Z(j, r, channel): this frame's w_jr and z_jr
+    auto W = [&](int j, int r) -> cf {
+      if constexpr (P::REG) return w[j][r];
+      const float* p = feat + (P::W + 2 * (j * R + r)) * kTile + lane;
+      return cf{p[0], p[kTile]};
+    };
+    auto Z = [&](int j, int r, int ch) -> cf {
+      if constexpr (P::REG) return z[j][r][ch];
+      const float* p = feat + (P::Z + 4 * (j * R + r) + 2 * ch) * kTile + lane;
+      return cf{p[0], p[kTile]};
+    };
+    auto emit = [&](auto&& in_chunk, auto&& put) {
+      // Txs_j: per column r, v_j [x0 conj(w_jr), x1 conj(w_jr)]
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-#pragma unroll
-      for (int k = 0; k < J; ++k) {
-        const float vv = v[j] * v[k];
+      for (int j = 0; j < J; ++j) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
+          const int slot = S::TXS + (j * R + r) * 4;
+          if (!in_chunk(slot, 4)) continue;
+          const bool on = r < rk[j];
+          const cf wr = W(j, r);
+          cf p0{x0.re * wr.re + x0.im * wr.im, x0.im * wr.re - x0.re * wr.im};
+          cf p1{x1.re * wr.re + x1.im * wr.im, x1.im * wr.re - x1.re * wr.im};
+          if constexpr (NS) {
+            const cf z0 = Z(j, r, 0), z1 = Z(j, r, 1);
+            p0 = cf{p0.re + sig * z0.re, p0.im + sig * z0.im};
+            p1 = cf{p1.re + sig * z1.re, p1.im + sig * z1.im};
+          }
+          const float vj = v[j];
+          put(slot, on ? vj * p0.re : 0.f);
+          put(slot + 1, on ? vj * p0.im : 0.f);
+          put(slot + 2, on ? vj * p1.re : 0.f);
+          put(slot + 3, on ? vj * p1.im : 0.f);
+        }
+      }
+      // Tss (j <= k) and T7 (j != k)
 #pragma unroll
-          for (int s = 0; s < R; ++s) {
-            if (r >= rk[j] || s >= rk[k]) continue;
-            if (j <= k) {
-              const cf wj = w[j][r], wk = w[k][s];
-              cf pr{wj.re * wk.re + wj.im * wk.im,
-                    wj.im * wk.re - wj.re * wk.im};
-              if constexpr (NS) {
-                const cf a0 = z[j][r][0], b0 = z[k][s][0];
-                const cf a1 = z[j][r][1], b1 = z[k][s][1];
-                const cf zc{(a0.re * b0.re + a0.im * b0.im)
-                                + (a1.re * b1.re + a1.im * b1.im),
-                            (a0.re * b0.im - a0.im * b0.re)
-                                + (a1.re * b1.im - a1.im * b1.re)};
-                pr = cf{pr.re + sig * zc.re, pr.im + sig * zc.im};
+      for (int j = 0; j < J; ++j) {
+#pragma unroll
+        for (int k = 0; k < J; ++k) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int s = 0; s < R; ++s) {
+              const bool on = r < rk[j] && s < rk[k];
+              if (j <= k) {
+                const int slot =
+                    S::TSS + (S::pair(j, k) * R * R + r * R + s) * 2;
+                if (in_chunk(slot, 2)) {
+                  const float vv = v[j] * v[k];
+                  const cf wj = W(j, r), wk = W(k, s);
+                  cf pr{wj.re * wk.re + wj.im * wk.im,
+                        wj.im * wk.re - wj.re * wk.im};
+                  if constexpr (NS) {
+                    const cf a0 = Z(j, r, 0), b0 = Z(k, s, 0);
+                    const cf a1 = Z(j, r, 1), b1 = Z(k, s, 1);
+                    const cf zc{(a0.re * b0.re + a0.im * b0.im)
+                                    + (a1.re * b1.re + a1.im * b1.im),
+                                (a0.re * b0.im - a0.im * b0.re)
+                                    + (a1.re * b1.im - a1.im * b1.re)};
+                    pr = cf{pr.re + sig * zc.re, pr.im + sig * zc.im};
+                  }
+                  put(slot, on ? vv * pr.re : 0.f);
+                  put(slot + 1, on ? vv * pr.im : 0.f);
+                }
               }
-              const int slot =
-                  S::TSS + (S::pair(j, k) * R * R + r * R + s) * 2;
-              float* t = acc + slot * kGenThreads;
-              t[0] += vv * pr.re;
-              t[kGenThreads] += vv * pr.im;
-            }
-            if (j != k) {
-              const cf p = cmul_conj<REAL>(c.A[j][r][0], z[k][s][0]);
-              const cf q = cmul_conj<REAL>(c.A[j][r][1], z[k][s][1]);
-              const int slot =
-                  S::T7 + (S::offd(j, k) * R * R + r * R + s) * 2;
-              float* t = acc + slot * kGenThreads;
-              t[0] += vv * (p.re + q.re);
-              if constexpr (!REAL) t[kGenThreads] += vv * (p.im + q.im);
+              if (j != k) {
+                const int slot =
+                    S::T7 + (S::offd(j, k) * R * R + r * R + s) * 2;
+                if (in_chunk(slot, 2)) {
+                  const float vv = v[j] * v[k];
+                  const cf p = cmul_conj<REAL>(c.A[j][r][0], Z(k, s, 0));
+                  const cf q = cmul_conj<REAL>(c.A[j][r][1], Z(k, s, 1));
+                  put(slot, on ? vv * (p.re + q.re) : 0.f);
+                  put(slot + 1, (on && !REAL) ? vv * (p.im + q.im) : 0.f);
+                }
+              }
             }
           }
         }
       }
+    };
+    if constexpr (P::REG) {
+      emit([](int, int) { return true; },
+           [&](int slot, float val) { racc[slot] += valid ? val : 0.f; });
+    } else {
+      // Each lane reads back only its own features; the barrier keeps the
+      // compiler from carrying phase 1's registers into phase 2, which is
+      // what holds J = 4 rank 2 to 128 registers without spill.
+      __syncwarp();
+      flush(emit, min(kTile, N - n0));
     }
   }
 
-  // Block reduction in a fixed order: each slot's columns summed by one
-  // warp (four strided reads per lane, then a shuffle tree).
+  if constexpr (P::REG) {  // the lanes' sums, added over the lanes in order
+    flush([&](auto&& in_chunk, auto&& put) {
+#pragma unroll
+      for (int s = 0; s < S::COUNT; ++s) put(s, racc[s]);
+    }, kTile);
+  }
+
+  // The warp's loglik, a shuffle tree; then the warps' sums in warp order.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ll_acc += __shfl_down_sync(0xffffffffu, ll_acc, off);
+  __syncthreads();  // every warp is done with its tile
+  constexpr int RW = S::COUNT + 1;
+  float* red = &tiles[0][0];  // [kGenWarps][RW]
+#pragma unroll
+  for (int ch = 0; ch < S::CHUNKS; ++ch)
+    if (ch * kTile + lane < S::COUNT)
+      red[warp * RW + ch * kTile + lane] = acc[ch];
+  if (lane == 0) red[warp * RW + S::LL] = ll_acc;
   __syncthreads();
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int s = warp; s < S::COUNT; s += kGenWarps) {
-    const float* col = acc_sm + s * kGenThreads;
-    float t = col[lane];
+  for (int s = tid; s < RW; s += kGenThreads) {
+    float t = red[s];
 #pragma unroll
-    for (int i = 1; i < kGenThreads / 32; ++i) t += col[lane + 32 * i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      t += __shfl_down_sync(0xffffffffu, t, off);
-    if (lane == 0) red[s] = t;
+    for (int w2 = 1; w2 < kGenWarps; ++w2) t += red[w2 * RW + s];
+    red[s] = t;
   }
   __syncthreads();
 
@@ -499,18 +685,26 @@ __global__ void __launch_bounds__(kGenThreads) estep_general_kernel(Args g) {
   }
 }
 
-template <int J, int R, bool REAL, bool NS>
-cudaError_t launch(const Args& g, int B, cudaStream_t stream) {
-  constexpr size_t smem =
-      (size_t)Slots<J, R>::COUNT * kGenThreads * sizeof(float);
-  auto kernel = estep_general_kernel<J, R, REAL, NS>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+using Kernel = void (*)(Args);
+
+// The instantiation that rmax, real_cov and ns_inj name; null for no rank
+// the kernel is built for.
+template <int J>
+Kernel pick(int rmax, int real_cov, int ns_inj) {
+  const bool re = real_cov != 0, ns = ns_inj != 0;
+  if (rmax == 1) {
+    if (re) return ns ? &estep_general_kernel<J, 1, true, true>
+                      : &estep_general_kernel<J, 1, true, false>;
+    return ns ? &estep_general_kernel<J, 1, false, true>
+              : &estep_general_kernel<J, 1, false, false>;
   }
-  kernel<<<B * g.F, kGenThreads, smem, stream>>>(g);
-  return cudaGetLastError();
+  if (rmax == 2) {
+    if (re) return ns ? &estep_general_kernel<J, 2, true, true>
+                      : &estep_general_kernel<J, 2, true, false>;
+    return ns ? &estep_general_kernel<J, 2, false, true>
+              : &estep_general_kernel<J, 2, false, false>;
+  }
+  return nullptr;
 }
 
 template <int J>
@@ -519,32 +713,44 @@ int entry(const float* x4, const float* v, const float* A4,
           float* t7, float* ll, int B, int F, int N, int rank_mask,
           int rmax, int real_cov, int ns_inj, float eps, int fast_recip,
           int no_ll, void* stream) {
-  if (B <= 0 || F <= 0 || N <= 0 || (long long)B * F > 2147483647LL)
+  const Kernel kernel = pick<J>(rmax, real_cov, ns_inj);
+  if (!kernel || B <= 0 || F <= 0 || N <= 0 ||
+      (long long)B * F > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const Args g{x4, v, A4, sigma, xi, txs, tss, t4, t7, ll, F, N, rank_mask,
                eps, fast_recip != 0, no_ll != 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool re = real_cov != 0, ns = ns_inj != 0;
-  if (rmax == 1) {
-    if (re) return (int)(ns ? launch<J, 1, true, true>(g, B, s)
-                            : launch<J, 1, true, false>(g, B, s));
-    return (int)(ns ? launch<J, 1, false, true>(g, B, s)
-                    : launch<J, 1, false, false>(g, B, s));
-  }
-  if (rmax == 2) {
-    if (re) return (int)(ns ? launch<J, 2, true, true>(g, B, s)
-                            : launch<J, 2, true, false>(g, B, s));
-    return (int)(ns ? launch<J, 2, false, true>(g, B, s)
-                    : launch<J, 2, false, false>(g, B, s));
-  }
-  return (int)cudaErrorInvalidValue;
+  kernel<<<B * F, kGenThreads, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// Resident warps per SM, registers, local (spill) bytes and static shared
+// bytes of one instantiation, as the runtime reports them.
+template <int J>
+int entry_info(int rmax, int real_cov, int ns_inj, int* out) {
+  const Kernel kernel = pick<J>(rmax, real_cov, ns_inj);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    kGenThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks * kGenWarps;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = (int)attr.sharedSizeBytes;
+  return 0;
 }
 
 }  // namespace pyfasst_general
 
-// C entry point for J sources, bound with ctypes (ops/cuda_estep.py).
-// Launches on `stream`, does not synchronise, allocates nothing. Returns a
-// cudaError_t: 0 when the launch was accepted.
+// C entry points for J sources, bound with ctypes (ops/cuda_estep.py,
+// ops/_build.py). The E-step launches on `stream`, does not synchronise,
+// allocates nothing. The info call writes [resident warps per SM,
+// registers per thread, local bytes per thread, static shared bytes per
+// block] of the instantiation that rmax, real_cov and ns_inj name. Each
+// returns a cudaError_t: 0 on success.
 #define PYFASST_ESTEP_GENERAL_ENTRY(J)                                        \
   extern "C" int pyfasst_estep_j##J(                                          \
       const float* x4, const float* v, const float* A4, const float* sigma,   \
@@ -554,4 +760,8 @@ int entry(const float* x4, const float* v, const float* A4,
     return pyfasst_general::entry<J>(x4, v, A4, sigma, xi, txs, tss, t4, t7,  \
                                      ll, B, F, N, rank_mask, rmax, real_cov,  \
                                      ns_inj, eps, fast_recip, no_ll, stream); \
+  }                                                                           \
+  extern "C" int pyfasst_estep_j##J##_info(int rmax, int real_cov,            \
+                                           int ns_inj, int* out) {            \
+    return pyfasst_general::entry_info<J>(rmax, real_cov, ns_inj, out);       \
   }

@@ -14,13 +14,18 @@
 // registers, and each kernel reads xi once.
 //
 // Design.
-//   fb_stats: one block per (b, j, f) row. Its threads stride over the N
-//     frames (neighbouring threads on neighbouring frames: coalesced reads
-//     of xi and of each row of TW). Each thread keeps the row's K values of
-//     FB, the frame's K values of TW and its 2K partial sums in registers
-//     (K <= 32: at most 64 sums; ptxas' report in chip_smoke.py phase 1 says
-//     whether any spill). The block reduces the sums in a fixed order: a
-//     shuffle tree in each warp, then the warps in order, as estep.cu does.
+//   fb_stats: one block per (b, j) and tile of kFbRows = 8 frequency rows,
+//     one warp per row. TW is the operand every row of a (b, j) shares, so
+//     the block stages it in shared memory, kFbFrames = 128 frames at a
+//     time, with cp.async (__pipeline_memcpy_async) into two buffers, and
+//     each warp stages its own row of xi beside it: the next stage's copies
+//     are in flight while the warps work on this one. Lanes read the stage
+//     on consecutive frames (consecutive banks). Each lane keeps its row's
+//     K values of FB and its 2K partial sums in registers (K <= 32: at most
+//     64 sums; ptxas' report in chip_smoke.py phase 1 says whether any
+//     spill); a row ends with one shuffle tree in its warp, and lane 0
+//     writes it. No block-wide reduction, and TW is read from L2 once per
+//     8 rows instead of once per row.
 //   tw_stats: one block per (b, j) and strip of 32 frames; lane = frame,
 //     warp = every kTwWarps-th frequency. Each thread keeps its frame's K
 //     values of TW and its 2K partial sums in registers; FB goes through
@@ -36,16 +41,24 @@
 //   TF32), and the build's --fmad=false rounds each product on its own.
 //   Divides are exact (1 / Vc, xi / (Vc Vc)), as in the Pallas kernels.
 //
-// Ragged edges: frames past N read nothing (a select gives 0) and are never
-// written; frequency rows past F are never visited and their FB tile rows
-// are selected to 0.
+// Ragged edges: frames past N read nothing (fb_stats: the copy zero-fills
+// TW and a select gives x, 1 / Vc and xi / Vc^2 of 0; tw_stats: a select
+// gives 0) and are never written; frequency rows past F are never
+// visited or written (fb_stats: the warp of such a row only helps stage TW)
+// and their FB tile rows are selected to 0 (tw_stats).
 //
 // What bounds it on an H100: each kernel reads xi once, 4 B per
 // (b, j, f, n), and FB, TW and its outputs, which are K / N and K / F of
 // that: at B = 8, J = 2, F = 513, N = 863, K = 8, 28.3 MB of xi and under
 // 1 MB else, ~8.7 us at 3.35 TB/s; against ~6K + 5 flops per element,
-// 0.38 GFLOP, ~5.6 us at 67 TFLOP/s. Memory bandwidth bounds it. A simple
-// kernel that is right comes first; making it fast is later work.
+// 0.38 GFLOP, ~5.6 us at 67 TFLOP/s, or ~11 us at the 33.5 Tops/s that
+// separate multiplies and adds (--fmad=false) can issue. Memory bounds it
+// on paper. fb_stats runs at ~5x that bound (PERF.md). More TW reuse does
+// little: 16 rows per block ran 2% faster at the bench shape, while 4 rows
+// and 64-frame stages ran 13% slower (kernel_compare.py's variants), so
+// the exact divides' dependent chains and the two barriers per stage are
+// the suspects; the card's machine has no profiler that could split them.
+// tw_stats keeps the design of its first port.
 //
 // Layouts (float32, contiguous), BJ = B * J:
 //   xi     (BJ, F, N)   posterior PSDs
@@ -56,6 +69,7 @@
 //   fb_stats: num, den (BJ, F, K)
 //   tw_stats: num, den (BJ, K, N)
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -63,8 +77,9 @@ namespace {
 
 constexpr int kMaxK = 32;
 
-constexpr int kFbThreads = 128;
-constexpr int kFbWarps = kFbThreads / 32;
+constexpr int kFbRows = 8;      // frequency rows per block, one warp each
+constexpr int kFbThreads = 32 * kFbRows;
+constexpr int kFbFrames = 128;  // frames per shared-memory stage
 
 constexpr int kTwWarps = 8;
 constexpr int kTwThreads = 32 * kTwWarps;
@@ -76,47 +91,88 @@ fb_stats_kernel(const float* __restrict__ xi, const float* __restrict__ FB,
                 const float* __restrict__ TW,
                 const float* __restrict__ vfloor, float* __restrict__ num,
                 float* __restrict__ den, int F, int N, int K) {
-  const int row = blockIdx.x;  // (b * J + j) * F + f
-  const int bj = row / F;
-  const float* xrow = xi + (size_t)row * N;
+  __shared__ float tws[2][KMAX][kFbFrames];
+  __shared__ float xis[2][kFbRows][kFbFrames];
+
+  const int bj = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int f = blockIdx.x * kFbRows + warp;
+  const bool live = f < F;  // uniform across the warp
+  const size_t row = (size_t)bj * F + (live ? f : 0);
+  const float* xrow = xi + row * N;
   const float* tw = TW + (size_t)bj * K * N;
   const float vf = vfloor[bj];
 
   float w[KMAX], an[KMAX], ad[KMAX];
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
-    w[k] = (k < K) ? FB[(size_t)row * K + k] : 0.f;
+    w[k] = (live && k < K) ? FB[row * K + k] : 0.f;
     an[k] = 0.f;
     ad[k] = 0.f;
   }
 
-  for (int n = threadIdx.x; n < N; n += kFbThreads) {
-    float h[KMAX];
-    float V = 0.f;
+  // Stage frames n0 .. n0 + kFbFrames - 1 into buffer `buf`, zero past N:
+  // the K rows of TW, spread over the block's threads, and each warp's row
+  // of xi.
+  auto stage = [&](int n0, int buf) {
+    for (int i = threadIdx.x; i < K * kFbFrames; i += kFbThreads) {
+      const int k = i / kFbFrames, m = i - k * kFbFrames;
+      const bool in = n0 + m < N;
+      __pipeline_memcpy_async(&tws[buf][k][m],
+                              tw + (size_t)k * N + (in ? n0 + m : 0),
+                              sizeof(float), in ? 0 : sizeof(float));
+    }
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K) {
-        h[k] = tw[(size_t)k * N + n];
-        V += w[k] * h[k];
+    for (int i = 0; i < kFbFrames / 32; ++i) {
+      const int m = lane + 32 * i;
+      const bool in = live && n0 + m < N;
+      __pipeline_memcpy_async(&xis[buf][warp][m], xrow + (in ? n0 + m : 0),
+                              sizeof(float), in ? 0 : sizeof(float));
+    }
+    __pipeline_commit();
+  };
+
+  const int stages = (N + kFbFrames - 1) / kFbFrames;
+  stage(0, 0);
+  for (int t = 0; t < stages; ++t) {
+    const int n0 = t * kFbFrames;
+    if (t + 1 < stages) {
+      stage(n0 + kFbFrames, (t + 1) & 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // stage t is in shared memory for every warp
+    if (live) {
+      const float(*h)[kFbFrames] = tws[t & 1];
+      const float* xs = xis[t & 1][warp];
+#pragma unroll
+      for (int i = 0; i < kFbFrames / 32; ++i) {
+        const int m = lane + 32 * i;
+        const bool valid = n0 + m < N;
+        const float x = valid ? xs[m] : 0.f;
+        float V = 0.f;
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k)
+          if (k < K) V += w[k] * h[k][m];
+        const float Vc = fmaxf(V, vf);
+        const float d = valid ? 1.0f / Vc : 0.f;
+        const float q = valid ? x / (Vc * Vc) : 0.f;
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) {
+          if (k < K) {
+            an[k] += q * h[k][m];
+            ad[k] += d * h[k][m];
+          }
+        }
       }
     }
-    const float Vc = fmaxf(V, vf);
-    const float d = 1.0f / Vc;
-    const float q = xrow[n] / (Vc * Vc);
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < K) {
-        an[k] += q * h[k];
-        ad[k] += d * h[k];
-      }
-    }
+    __syncthreads();  // every warp is done with buffer t & 1
   }
 
-  // Block reduction in a fixed order: shuffle tree within each warp, then
-  // the warps' partials in warp order.
-  __shared__ float red[kFbWarps][2 * KMAX];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  // The row's sums: a shuffle tree in its warp, in a fixed order.
+  if (!live) return;
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
     if (k >= K) continue;
@@ -127,19 +183,9 @@ fb_stats_kernel(const float* __restrict__ xi, const float* __restrict__ FB,
       sd += __shfl_down_sync(0xffffffffu, sd, off);
     }
     if (lane == 0) {
-      red[warp][k] = sn;
-      red[warp][KMAX + k] = sd;
+      num[row * K + k] = sn;
+      den[row * K + k] = sd;
     }
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < 2 * K; s += kFbThreads) {
-    const bool is_num = s < K;
-    const int k = is_num ? s : s - K;
-    const int slot = is_num ? k : KMAX + k;
-    float t = red[0][slot];
-#pragma unroll
-    for (int w2 = 1; w2 < kFbWarps; ++w2) t += red[w2][slot];
-    (is_num ? num : den)[(size_t)row * K + k] = t;
   }
 }
 
@@ -225,9 +271,29 @@ template <int KMAX>
 cudaError_t launch_fb(const float* xi, const float* FB, const float* TW,
                       const float* vfloor, float* num, float* den, int BJ,
                       int F, int N, int K, cudaStream_t stream) {
-  fb_stats_kernel<KMAX><<<BJ * F, kFbThreads, 0, stream>>>(
+  const dim3 grid((F + kFbRows - 1) / kFbRows, BJ);
+  fb_stats_kernel<KMAX><<<grid, kFbThreads, 0, stream>>>(
       xi, FB, TW, vfloor, num, den, F, N, K);
   return cudaGetLastError();
+}
+
+// [resident warps per SM, registers per thread, local bytes per thread,
+// static shared bytes per block] of fb_stats_kernel<KMAX>.
+template <int KMAX>
+cudaError_t info_fb(int* out) {
+  auto kernel = fb_stats_kernel<KMAX>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    kFbThreads, 0);
+  if (e != cudaSuccess) return e;
+  out[0] = blocks * kFbRows;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = (int)attr.sharedSizeBytes;
+  return cudaSuccess;
 }
 
 template <int KMAX>
@@ -254,9 +320,10 @@ bool bad_shape(int B, int J, int F, int N, int K) {
 
 }  // namespace
 
-// C entry points, bound with ctypes (ops/cuda_spectral.py). Each launches on
-// `stream`, does not synchronise and allocates nothing. Returns a
-// cudaError_t: 0 when the launch was accepted.
+// C entry points, bound with ctypes (ops/cuda_spectral.py, ops/_build.py).
+// Each kernel launches on `stream`, does not synchronise and allocates
+// nothing; the info call writes fb_stats' occupancy and resources for the
+// KMAX that K takes. Each returns a cudaError_t: 0 on success.
 extern "C" int pyfasst_fb_stats(const float* xi, const float* FB,
                                 const float* TW, const float* vfloor,
                                 float* num, float* den, int B, int J, int F,
@@ -283,4 +350,11 @@ extern "C" int pyfasst_tw_stats(const float* xi, const float* FB,
   if (K <= 16)
     return (int)launch_tw<16>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
   return (int)launch_tw<32>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
+}
+
+extern "C" int pyfasst_fb_stats_info(int K, int* out) {
+  if (K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  if (K <= 8) return (int)info_fb<8>(out);
+  if (K <= 16) return (int)info_fb<16>(out);
+  return (int)info_fb<32>(out);
 }

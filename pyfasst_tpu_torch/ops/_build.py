@@ -151,5 +151,27 @@ def load() -> ctypes.CDLL:
         # xi FB TW vfloor, num den; B J F N K; stream
         fn.argtypes = [p] * 6 + [i] * 5 + [p]
         fn.restype = i
+    for J in (2, 3, 4):
+        fn = getattr(lib, f"pyfasst_estep_j{J}_info")
+        fn.argtypes = [i] * 3 + [p]             # rmax real_cov ns_inj; out
+        fn.restype = i
+    lib.pyfasst_fb_stats_info.argtypes = [i, p]  # K; out
+    lib.pyfasst_fb_stats_info.restype = i
     _lib = lib
     return lib
+
+
+def kernel_info(name: str, *args: int) -> dict:
+    """What the runtime reports of one kernel instantiation: resident warps
+    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
+    local (spill) bytes per thread, static shared bytes per block.
+
+    name is "estep_j2", "estep_j3" or "estep_j4" with args (rmax, real_cov,
+    ns_inj), or "fb_stats" with args (K,). Needs a CUDA device.
+    """
+    out = (ctypes.c_int * 4)()
+    err = getattr(load(), f"pyfasst_{name}_info")(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{name}{args} info failed: cudaError_t {err}")
+    return dict(zip(("warps_per_sm", "registers", "local_bytes",
+                     "shared_bytes"), out))

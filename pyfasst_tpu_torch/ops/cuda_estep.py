@@ -38,7 +38,9 @@ from pyfasst_tpu_torch.ops.estep import SuffStats
 
 LAUNCHES = 0
 """Launches of the CUDA kernels in this process (comparison launches
-included; callers reset it before the run they want to count)."""
+included; callers reset it before the run they want to count). A call
+made while a CUDA graph is being captured records the kernel and does not
+launch it, so it does not count; nor do the graph's replays."""
 
 VARIANT_LAUNCHES = {"a": 0, "b": 0, "c": 0, "d": 0, "e": 0, "f": 0}
 """Launches by kernel-1 variant: a (estep_r1_real, or the general kernel
@@ -210,6 +212,8 @@ def estep_r1_real(x4, v, A, sigma, eps: float = 1e-30,
 
 def _count(variants, fast_recip: bool, no_ll: bool) -> None:
     global LAUNCHES
+    if torch.cuda.is_current_stream_capturing():
+        return  # recorded into a CUDA graph, not launched
     LAUNCHES += 1
     for name in (variants + (["e"] if fast_recip else [])
                  + (["f"] if no_ll else [])):

@@ -29,7 +29,8 @@ from pyfasst_tpu_torch.ops.mstep import _mul_upd
 
 LAUNCHES = {"fb_stats": 0, "tw_stats": 0}
 """Launches of each CUDA kernel in this process (comparison launches
-included; callers reset the counts before the run they want to count)."""
+included; callers reset the counts before the run they want to count).
+Calls under CUDA-graph capture, and the graph's replays, do not count."""
 
 MAX_K = 32
 """The largest NMF rank K the kernels take (their 2K per-thread sums)."""
@@ -82,7 +83,8 @@ def _launch(name, xi, FB, TW, vfloor, out_shape):
                  B, J, F, N, K, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1  # a call under graph capture launches nothing
     return num, den
 
 

@@ -189,7 +189,10 @@ GENERAL = {
 }
 
 
-@pytest.mark.parametrize("B,F,N", [(2, 33, 70), (1, 9, 2500), (2, 65, 300)])
+# the last three cross the kernel's 32-frame tiles (N = 31, 33) and take
+# the conv paths' own shape (B = 1, F = 513, N = 189)
+@pytest.mark.parametrize("B,F,N", [(2, 33, 70), (1, 9, 2500), (2, 65, 300),
+                                   (1, 13, 31), (2, 13, 33), (1, 513, 189)])
 @pytest.mark.parametrize("name", sorted(GENERAL))
 def test_general_kernel_matches_plain_version(dev, name, B, F, N):
     J, ranks, real, ns = GENERAL[name]
@@ -365,9 +368,13 @@ def _spectral_inputs(B, J, F, N, K, seed, device):
             .contiguous() for a in (xi, FB, TW, vfloor)]
 
 
+# the last four cross fb_stats' tiles (8 rows, 128 frames): F = 13, N in
+# {31, 33, 189}, and the conv paths' shape
 @pytest.mark.parametrize("B,J,F,N,K", [
     (8, 2, 513, 863, 8), (2, 2, 37, 95, 5), (2, 2, 130, 300, 5),
-    (2, 3, 70, 211, 4), (1, 2, 33, 70, 16), (1, 2, 33, 70, 32)])
+    (2, 3, 70, 211, 4), (1, 2, 33, 70, 16), (1, 2, 33, 70, 32),
+    (2, 2, 13, 31, 8), (1, 3, 13, 33, 16), (1, 2, 21, 189, 32),
+    (1, 2, 513, 189, 8)])
 @pytest.mark.parametrize("kernel", ["fb_stats", "tw_stats"])
 def test_spectral_kernel_matches_plain_version(dev, kernel, B, J, F, N, K):
     inp = _spectral_inputs(B, J, F, N, K, B * F * N + K, dev)
@@ -419,3 +426,42 @@ def test_fused_bench_model_on_cuda_matches_cpu(dev):
     np.testing.assert_allclose(ll_gpu, ll_cpu, rtol=1e-4)
     y_gpu, y_cpu = gpu.separated_images(), cpu.separated_images()
     assert np.max(np.abs(y_gpu - y_cpu)) < 1e-3 * np.max(np.abs(y_cpu))
+
+
+def test_graph_capture_and_replay_launch_counts(dev):
+    """A call under CUDA-graph capture records the kernel without launching
+    it, and the graph's replays bypass the wrappers: neither counts. The
+    replay computes what an eager call computes."""
+    rng = np.random.default_rng(7)
+    x4 = torch.as_tensor(rng.standard_normal((1, 4, 13, 70)),
+                         dtype=torch.float32, device=dev)
+    v = torch.as_tensor(0.5 + rng.random((1, 3, 13, 70)),
+                        dtype=torch.float32, device=dev)
+    A4 = torch.as_tensor(0.7 * rng.standard_normal((1, 3, 13, 4)),
+                         dtype=torch.float32, device=dev)
+    sigma = torch.full((1, 13), 0.01, dtype=torch.float32, device=dev)
+    spec = _spectral_inputs(1, 2, 13, 70, 8, 7, dev)
+
+    def calls():
+        return (cuda_estep.estep_general(x4, v, A4, sigma, (1, 1, 1)),
+                cuda_spectral.fb_stats(*spec))
+
+    eager = calls()                       # also the warm-up capture asks for
+    torch.cuda.synchronize()
+    launches = cuda_estep.LAUNCHES
+    variants = dict(cuda_estep.VARIANT_LAUNCHES)
+    spectral = dict(cuda_spectral.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert cuda_estep.LAUNCHES == launches
+    assert cuda_estep.VARIANT_LAUNCHES == variants
+    assert cuda_spectral.LAUNCHES == spectral
+    for got, want in zip(captured[0] + captured[1], eager[0] + eager[1]):
+        assert torch.equal(got, want)
+    calls()
+    assert cuda_estep.LAUNCHES == launches + 1
+    assert cuda_spectral.LAUNCHES["fb_stats"] == spectral["fb_stats"] + 1

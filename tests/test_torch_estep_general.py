@@ -48,6 +48,14 @@ CASES = {
     "ns_inj": (2, (1, 1), "inst", 17, 40, True, False, _BARS_NS),
     "real_rank2_ns_inj": (2, (2, 1), "real", 17, 40, True, True,
                           _BARS_REAL_NS),
+    # the configurations chip_smoke.py times, and an N that is not a
+    # multiple of the CUDA kernel's 32-frame tile
+    "mixed_1221_J4": (4, (1, 2, 2, 1), "conv", 21, 50, False, False,
+                      _BARS_R2),
+    "ns_inj_rank2_J4": (4, (2, 2, 2, 2), "conv", 21, 50, True, False,
+                        _BARS_R2),
+    "complex_r1_J3_N33": (3, (1, 1, 1), "conv", 17, 33, False, False,
+                          _BARS_J3),
 }
 
 

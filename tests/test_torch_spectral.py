@@ -38,8 +38,11 @@ torch.set_num_threads(1)
 _j_suff_stats = jax.jit(j_suff_stats, static_argnames=("ranks",
                                                        "noise_inject"))
 
-# (J, F, N, K): test_pallas_spectral.py's shapes
-SHAPES = [(2, 64, 128, 5), (2, 37, 95, 5), (2, 130, 300, 5), (3, 70, 211, 4)]
+# (J, F, N, K): test_pallas_spectral.py's shapes, and one whose F is not a
+# multiple of the CUDA fb_stats kernel's 8-row tile and whose N is under
+# one warp's 32 frames
+SHAPES = [(2, 64, 128, 5), (2, 37, 95, 5), (2, 130, 300, 5), (3, 70, 211, 4),
+          (2, 13, 29, 8)]
 RTOL = 2e-5
 
 
