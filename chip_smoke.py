@@ -8,20 +8,24 @@ Phases (each prints one line with its numbers and seconds):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
      sm_90a), with ptxas' register and spill report, and the resident warps
      per SM, registers and local bytes of every instantiation of the
-     general E-step kernel and of fb_stats, as the runtime reports them;
+     general E-step kernel, of fb_stats, of tw_stats and of estep_r1_real,
+     as the runtime reports them;
   2. each kernel against its plain PyTorch version on the card, with
      CUDA-event timings of kernel and plain version in turns (the kernel's
      by CUDA-graph replay: device time), each kernel's bound from its
      bytes and operations: the E-step variants a
-     (real rank-1 mixing), b (complex mixing, J=3), c (rank 2, J=4, and
+     (real rank-1 mixing: at R1_SHAPES, J=2 and 3, across its 32-frame
+     tiles, with each flag, xi bit for bit and two runs bit for bit),
+     b (complex mixing, J=3), c (rank 2, J=4, and
      mixed ranks), d (ann_ns_inj, rank 1 and rank 2) at the bench shapes
      (B=8, F=513, N=863), at the conv paths' own shape (B=1, F=513, the N
      of phases 5 and 6; timed too) and two ragged ones; e (fast_recip) and
      f (no_ll)
      in variant a's kernel and in the general one, at the bench shapes and
      a ragged one; the spectral kernels fb_stats and tw_stats at the bench
-     shapes (J=2, K=8) and the JAX suite's (37, 95), (130, 300) and J=3,
-     K=4 (70, 211);
+     shapes (J=2, K=8), the JAX suite's (37, 95), (130, 300) and J=3,
+     K=4 (70, 211), and across their tiles, strips, batches and chunks with
+     K=16 and 32 (SPECTRAL_SHAPES), two runs bit for bit;
   3. the host API: MultiChanNMFInst_FASST on a 10 s stereo WAV, 500 GEM
      iterations, WAVs written; the kernel must carry every E-step and the
      separation must reach 60 dB SDR;
@@ -31,7 +35,9 @@ Phases (each prints one line with its numbers and seconds):
   5. BASELINE configs[1]: MultiChanNMFConv (3 sources, rank 1, ERB basis,
      DEMIX init) on a 6 s anechoic mixture, 400 iterations, WAVs written;
      400 launches of variant b, and the min SDR must reach 10 dB and lie
-     within 1 dB of the port's CPU run of the same recipe;
+     within 1 dB of the port's CPU run of the same recipe; then a
+     torch.profiler window of 20 iterations (as phase 8's), here and in
+     phase 6;
   6. the configs[2] model: MultiChanNMFConv (4 sources, full rank 2) on a
      6 s reverberant mixture, started from the true images' principal
      directions, 400 iterations; 400 launches of variant c, min SDR at
@@ -122,11 +128,22 @@ SPECTRAL_REPLACES = {
                 "_make_fb_kernel :55)",
     "tw_stats": "pyfasst_tpu/ops/pallas_spectral.py:155 (tw_stats; body "
                 "_make_tw_kernel :90)"}
-# (B, J, F, N, K): the bench shapes, tests/test_pallas_spectral.py's, and
-# two that cross fb_stats' tiles of 8 rows and 128 frames
+# (B, J, F, N, K): the bench shapes, tests/test_pallas_spectral.py's, two
+# that cross fb_stats' tiles of 8 rows and 128 frames, and the ones that
+# cross tw_stats' strips of 16 frames (N = 1, 31, 33, 7), its batches of 128
+# rows (F = 3 and 64 below one, 129 one past one) and its chunk of FB in
+# shared memory (F = 530 at K = 32: two chunks), with K = 16 and 32
 SPECTRAL_SHAPES = ((BATCH, J, 513, 863, K), (2, 2, 37, 95, 5),
                    (2, 2, 130, 300, 5), (2, 3, 70, 211, 4),
-                   (2, 2, 13, 31, 8), (1, 2, 513, 189, 8))
+                   (2, 2, 13, 31, 8), (1, 2, 513, 189, 8),
+                   (1, 2, 3, 1, 8), (1, 2, 129, 33, 16), (2, 1, 64, 7, 32),
+                   (1, 2, 530, 45, 32), (1, 2, 513, 863, 16))
+# (B, J, F, N) of estep_r1_real's checks: the bench shape, two ragged ones,
+# and the ones that cross its tiles of 32 frames (N = 1, 31, 33, and 7 below
+# one tile), at J = 2 and 3; each of the small ones also with each flag
+R1_SHAPES = ((BATCH, 2, 513, 863), (1, 2, 33, 70), (1, 2, 9, 2500),
+             (2, 2, 5, 1), (1, 2, 13, 31), (2, 2, 13, 33), (1, 2, 3, 7),
+             (1, 3, 13, 31), (2, 3, 9, 33), (1, 3, 17, 200))
 SPECTRAL_RTOL = 2e-5          # tests/test_pallas_spectral.py's bar
 # an H100 SXM's published peaks (NVIDIA's data sheet; 700 W): device
 # memory bandwidth and float32 outside the tensor cores
@@ -404,8 +421,8 @@ def phase_build():
 def occupancy_report():
     """Resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
     and registers / local bytes per thread of the 24 general E-step
-    instantiations and the three of fb_stats; the ones a path takes are
-    marked with its variant."""
+    instantiations, the three each of fb_stats and tw_stats and the two of
+    estep_r1_real; the ones a path takes are marked."""
     import itertools
     from pyfasst_tpu_torch.ops import _build
     path = {v: k for k, v in GENERAL_PATH_INSTANCES.items()}
@@ -420,24 +437,32 @@ def occupancy_report():
                          f"{i['local_bytes']}B")
         log(f"  occupancy estep_general J={J_} (warps per SM / registers / "
             f"local bytes): " + ", ".join(cells))
-    cells = []
-    for K_ in (8, 16, 32):
-        i = _build.kernel_info("fb_stats", K_)
-        cells.append(f"KMAX={K_}{'[path]' if K_ == K else ''} "
-                     f"{i['warps_per_sm']}w/{i['registers']}r/"
-                     f"{i['local_bytes']}B/{i['shared_bytes']}B smem")
-    log("  occupancy fb_stats: " + ", ".join(cells))
+    F = WLEN // 2 + 1
+    for label, kernel, cases in (
+            ("fb_stats", "fb_stats",
+             [(f"KMAX={k}", (k,), k == K) for k in (8, 16, 32)]),
+            (f"tw_stats (F={F})", "tw_stats",
+             [(f"KMAX={k}", (k, F), k == K) for k in (8, 16, 32)]),
+            ("estep_r1_real", "estep_r1_real",
+             [(f"J={j}", (j,), j == J) for j in (2, 3)])):
+        cells = []
+        for tag, args, on_path in cases:
+            i = _build.kernel_info(kernel, *args)
+            cells.append(f"{tag}{'[path]' if on_path else ''} "
+                         f"{i['warps_per_sm']}w/{i['registers']}r/"
+                         f"{i['local_bytes']}B/{i['shared_bytes']}B smem")
+        log(f"  occupancy {label}: " + ", ".join(cells))
 
 
-def _estep_inputs(B, F, N, seed, device):
+def _estep_inputs(B, F, N, seed, device, J_=J):
     import torch
     rng = np.random.default_rng(seed)
-    FB = 0.5 + rng.random((B, J, F, K))
-    TW = 0.5 + rng.random((B, J, K, N))
+    FB = 0.5 + rng.random((B, J_, F, K))
+    TW = 0.5 + rng.random((B, J_, K, N))
     arrays = {
         "x4": rng.standard_normal((B, 4, F, N)),
         "v": np.einsum("bjfk,bjkn->bjfn", FB, TW),
-        "A": np.abs(rng.standard_normal((B, J, 1, 2))).repeat(F, 2) + 0.3,
+        "A": np.abs(rng.standard_normal((B, J_, 1, 2))).repeat(F, 2) + 0.3,
         "sigma": 0.01 + 0.005 * rng.random((B, F)),
     }
     return {k: torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -569,24 +594,39 @@ def phase_kernel_vs_plain(device):
     t0 = time.perf_counter()
     names = ("xi", "txs", "tss", "t4", "t7")
     main_abs = 0.0
-    for (B, F, N) in ((BATCH, 513, 863), (1, 33, 70), (1, 9, 2500)):
-        inp = _estep_inputs(B, F, N, seed=F * N, device=device)
-        got = cuda_estep.estep_r1_real(**inp)
-        want = cuda_estep.estep_r1_real_ref(**inp)
-        torch.cuda.synchronize()
-        errs = {n: _rel_err(g, w) for n, g, w in zip(names, got, want)}
-        ll_g, ll_w = -got[5].sum(-1), -want[5].sum(-1)
-        errs["loglik"] = float(((ll_g - ll_w).abs() / ll_w.abs()).max())
-        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        if B == BATCH:
-            main_abs = abs_err
-        log(f"phase 2 kernel vs plain B={B} F={F} N={N}: "
-            + " ".join(f"{n} {e:.2e}<={TOL[n]:.0e}" for n, e in errs.items())
-            + f" | max_abs_err {abs_err:.3e}")
-        bad = [n for n, e in errs.items() if not e <= TOL[n]]
-        if bad:
-            raise RuntimeError(f"kernel disagrees with its plain version at "
-                               f"B={B} F={F} N={N}: {bad}")
+    for (B, J_, F, N) in R1_SHAPES:
+        inp = _estep_inputs(B, F, N, seed=F * N, device=device, J_=J_)
+        for flag in (("",) if B == BATCH or N > 1000
+                     else ("", "fast_recip", "no_ll")):
+            kw = {flag: True} if flag else {}
+            got = cuda_estep.estep_r1_real(**inp, **kw)
+            want = cuda_estep.estep_r1_real_ref(**inp,
+                                                no_ll=flag == "no_ll")
+            again = cuda_estep.estep_r1_real(**inp, **kw)
+            torch.cuda.synchronize()
+            errs = {n: _rel_err(g, w) for n, g, w in zip(names, got, want)}
+            ll_g, ll_w = -got[5].sum(-1), -want[5].sum(-1)
+            errs["loglik"] = float(((ll_g - ll_w).abs() / ll_w.abs()).max())
+            abs_err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+            xi_bits = bool(torch.equal(got[0], want[0]))
+            if B == BATCH:
+                main_abs = abs_err
+            log(f"phase 2 kernel vs plain B={B} J={J_} F={F} N={N}"
+                f"{' ' + flag if flag else ''}: "
+                + " ".join(f"{n} {e:.2e}<={TOL[n]:.0e}"
+                           for n, e in errs.items())
+                + f" | max_abs_err {abs_err:.3e} | xi bit-identical "
+                f"{xi_bits}")
+            bad = [n for n, e in errs.items() if not e <= TOL[n]]
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                bad.append("two runs differ")
+            if flag != "fast_recip" and not xi_bits:
+                bad.append("xi differs from the plain version's bits")
+            if bad:
+                raise RuntimeError(f"kernel disagrees with its plain version "
+                                   f"at B={B} J={J_} F={F} N={N} {flag}: "
+                                   f"{bad}")
     log(f"phase 2 done | {time.perf_counter() - t0:.2f}s")
     return main_abs
 
@@ -764,13 +804,17 @@ def phase_spectral_vs_plain(device):
             plain = getattr(cuda_spectral, f"{name}_ref")
             got = kernel(*inp)
             want = plain(*inp)
+            again = kernel(*inp)
             torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise RuntimeError(f"two runs of {name} differ at B={B} "
+                                   f"J={J_} F={F} N={N} K={K_}")
             err = max(float(((g - w).abs() / w.abs()).max())
                       for g, w in zip(got, want))
             abs_err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
             timing = ""
-            if B == BATCH:
+            if (B, K_) == (BATCH, K):
                 ms, plain_ms = map(statistics.median, _turns(
                     lambda: kernel(*inp), lambda: plain(*inp),
                     plain_reps=11, plain_inner=10))
@@ -1083,6 +1127,13 @@ def phase_conv(device, case, card):
         f"run {cpu} dB), wavs {len(written)}, run {secs:.2f}s -> xRT "
         f"{DUR_CONV / secs:.2f} (first run, B=1) | {card} | "
         f"{time.perf_counter() - t0:.2f}s")
+    prof = profile_gem(model.params, model.Xs, model.cfg)
+    log(f"phase {phase} profile {case} B=1, iterations 60-80 of "
+        f"{NITER_CONV}, per iteration: wall {prof['wall_ms']:.3f} ms, host "
+        f"enqueue {prof['enqueue_ms']:.3f} ms, device busy "
+        + (f"{prof['busy_ms']:.4f} ms ({prof['kernels']:.1f} kernels)"
+           if prof["kernels"] else "not measured (no device events)")
+        + f" | {card}")
     key = "b" if case == "anechoic" else "c"
     if model.N != conv_frames():
         raise RuntimeError(f"phase {phase}: N = {model.N}, but phase 2 "

@@ -10,15 +10,17 @@ A side is a directory that holds a `pyfasst_tpu_torch` package:
     unpacked with `git archive` into chip_checkout/ (gitignored);
   - --variant NAME FILE OLD NEW: a copy of this checkout's package under
     chip_checkout/variants/NAME/, with the one occurrence of OLD in
-    csrc/FILE replaced by NEW (a tuning experiment).
+    csrc/FILE replaced by NEW (a tuning experiment); several --variant
+    with one NAME make one side with all their replacements.
 Each side runs in a process of its own, which builds its package's kernels
 (_build.build, into that package's _build/), checks each kernel against its
 plain version at chip_smoke.py's bars and times it with chip_smoke.py's
 _graph_ms (CUDA-graph replay: device time), the same ruler for every side:
 estep_r1_real (variant a, and with fast_recip and no_ll) at B = 8,
-F = 513, N = 863; the general kernel's GENERAL_CASES at that shape and at
-the conv paths' own (B = 1, F = 513, N = 189); fb_stats and tw_stats at
-the bench shape (B = 8, J = 2, F = 513, N = 863, K = 8). The sides run in
+F = 513, N = 863, and variant a at the host API's B = 1; the general
+kernel's GENERAL_CASES at the bench shape and at the conv paths' own
+(B = 1, F = 513, N = 189); fb_stats and tw_stats at the bench shape (B = 8,
+J = 2, F = 513, N = 863, K = 8) and at B = 1. The sides run in
 turns, forward and then backward (this, parent, parent, this), --rounds
 times; a kernel's figure is the median of its side's samples. Prints the
 card (nvidia-smi name and power limit), one line per side and run, and a
@@ -71,12 +73,15 @@ def cases(smoke, device):
     out = []
     bench = (smoke.BATCH, 513, 863)
     inp = smoke._estep_inputs(*bench, seed=1, device=device)
-    for name, flags in (("1a", {}), ("1e", {"fast_recip": True}),
-                        ("1f", {"no_ll": True})):
+    one = smoke._estep_inputs(1, 513, 863, seed=1, device=device)
+    for name, flags, i in (("1a", {}, inp), ("1e", {"fast_recip": True}, inp),
+                           ("1f", {"no_ll": True}, inp),
+                           ("1a 1x513x863", {}, one)):
         no_ll = {"no_ll": True} if "no_ll" in flags else {}
         out.append((name,
-                    lambda f=flags: cuda_estep.estep_r1_real(**inp, **f),
-                    lambda f=no_ll: cuda_estep.estep_r1_real_ref(**inp, **f),
+                    lambda f=flags, i=i: cuda_estep.estep_r1_real(**i, **f),
+                    lambda f=no_ll, i=i: cuda_estep.estep_r1_real_ref(**i,
+                                                                      **f),
                     smoke.TOL))
     for key, label, J_, ranks, real, ns in smoke.GENERAL_CASES:
         tol = dict(smoke.TOL, xi=3e-4 if max(ranks) == 2 else smoke.TOL["xi"])
@@ -89,19 +94,21 @@ def cases(smoke, device):
                         cuda_estep.estep_general(*a, r, **k),
                         lambda a=g_inp, r=ranks, k=kw:
                         cuda_estep.estep_ref(*a, r, **k), tol))
-    s_inp = smoke._spectral_inputs(smoke.BATCH, smoke.J, 513, 863, smoke.K,
-                                   seed=3, device=device)
-    for name in ("fb_stats", "tw_stats"):
-        out.append((name, lambda n=name: getattr(cuda_spectral, n)(*s_inp),
-                    lambda n=name: getattr(cuda_spectral, f"{n}_ref")(*s_inp),
-                    None))
+    for B, tag in ((smoke.BATCH, ""), (1, " 1x2x513x863")):
+        s_inp = smoke._spectral_inputs(B, smoke.J, 513, 863, smoke.K,
+                                       seed=3, device=device)
+        for name in ("fb_stats", "tw_stats"):
+            out.append((name + tag,
+                        lambda n=name, a=s_inp: getattr(cuda_spectral, n)(*a),
+                        lambda n=name, a=s_inp:
+                        getattr(cuda_spectral, f"{n}_ref")(*a), None))
     return out
 
 
 def run_side(name, directory, reps):
     """One side, in this process: build, check, time; prints one JSON
     line of {"side", "build_s", "ms": {case: samples}, "err": {case:
-    error over bar}}."""
+    error over bar}, "info": {kernel: _build.kernel_info or None}}."""
     sys.path.insert(0, str(Path(directory).resolve()))
     import torch
     from pyfasst_tpu_torch.ops import _build
@@ -110,7 +117,13 @@ def run_side(name, directory, reps):
     torch.cuda.set_device(device)
     info = _build.build()
     result = {"side": name, "dir": str(directory),
-              "build_s": info["seconds"], "ms": {}, "err": {}}
+              "build_s": info["seconds"], "ms": {}, "err": {}, "info": {}}
+    for kernel, args in (("estep_r1_real", (smoke.J,)),
+                         ("tw_stats", (smoke.K, 513))):
+        try:        # a tree from before these entry points has none
+            result["info"][kernel] = _build.kernel_info(kernel, *args)
+        except AttributeError:
+            result["info"][kernel] = None
     for case, kernel, plain, tol in cases(smoke, device):
         err = _within(smoke, kernel(), plain(), tol)
         if not err <= 1.0:
@@ -121,19 +134,21 @@ def run_side(name, directory, reps):
     print(json.dumps(result), flush=True)
 
 
-def make_variant(name, file, old, new):
-    """A copy of this checkout's package with OLD replaced by NEW (once)
-    in csrc/FILE; returns its directory."""
+def make_variant(name, edits):
+    """A copy of this checkout's package with, for each (FILE, OLD, NEW) of
+    `edits`, the one occurrence of OLD in csrc/FILE replaced by NEW; returns
+    its directory."""
     dest = ROOT / "chip_checkout" / "variants" / name
     shutil.rmtree(dest, ignore_errors=True)
     shutil.copytree(ROOT / PKG, dest / PKG, ignore=shutil.ignore_patterns(
         "_build", "__pycache__"))
-    src = dest / PKG / "csrc" / file
-    text = src.read_text()
-    if text.count(old) != 1:
-        raise SystemExit(f"variant {name}: {old!r} occurs "
-                         f"{text.count(old)} times in {file}, not once")
-    src.write_text(text.replace(old, new))
+    for file, old, new in edits:
+        src = dest / PKG / "csrc" / file
+        text = src.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"variant {name}: {old!r} occurs "
+                             f"{text.count(old)} times in {file}, not once")
+        src.write_text(text.replace(old, new))
     return dest
 
 
@@ -159,7 +174,10 @@ def main() -> int:
     print(smoke.smi(), flush=True)
     sides = [("this", ROOT)]
     sides += [tuple(t.split("=", 1)) for t in args.tree]
-    sides += [(v[0], make_variant(*v)) for v in args.variant]
+    edits = {}
+    for name, *edit in args.variant:
+        edits.setdefault(name, []).append(edit)
+    sides += [(name, make_variant(name, e)) for name, e in edits.items()]
     order = (sides + sides[::-1]) * args.rounds
     runs = []
     for name, directory in order:
@@ -172,7 +190,9 @@ def main() -> int:
             raise SystemExit(f"side {name} failed ({proc.returncode})")
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(res)
-        print(f"{name}: build {res['build_s']:.1f}s | "
+        print(f"{name}: build {res['build_s']:.1f}s | " + ", ".join(
+            f"{k} {i['warps_per_sm']}w/{i['registers']}r/{i['local_bytes']}B"
+            for k, i in res["info"].items() if i) + " | "
               + ", ".join(f"{c} {statistics.median(m):.4f}"
                           for c, m in res["ms"].items()), flush=True)
     names = [n for n, _ in sides]

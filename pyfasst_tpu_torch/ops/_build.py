@@ -155,8 +155,12 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"pyfasst_estep_j{J}_info")
         fn.argtypes = [i] * 3 + [p]             # rmax real_cov ns_inj; out
         fn.restype = i
-    lib.pyfasst_fb_stats_info.argtypes = [i, p]  # K; out
-    lib.pyfasst_fb_stats_info.restype = i
+    for name, args in (("estep_r1_real", [i]),      # J; out
+                       ("fb_stats", [i]),           # K; out
+                       ("tw_stats", [i, i])):       # K F; out
+        fn = getattr(lib, f"pyfasst_{name}_info")
+        fn.argtypes = args + [p]
+        fn.restype = i
     _lib = lib
     return lib
 
@@ -164,10 +168,12 @@ def load() -> ctypes.CDLL:
 def kernel_info(name: str, *args: int) -> dict:
     """What the runtime reports of one kernel instantiation: resident warps
     per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
-    local (spill) bytes per thread, static shared bytes per block.
+    local (spill) bytes per thread, shared bytes per block (static; for
+    tw_stats the launch's dynamic bytes too).
 
     name is "estep_j2", "estep_j3" or "estep_j4" with args (rmax, real_cov,
-    ns_inj), or "fb_stats" with args (K,). Needs a CUDA device.
+    ns_inj), "estep_r1_real" with args (J,), "fb_stats" with args (K,), or
+    "tw_stats" with args (K, F). Needs a CUDA device.
     """
     out = (ctypes.c_int * 4)()
     err = getattr(load(), f"pyfasst_{name}_info")(*args, out)

@@ -65,8 +65,12 @@ def _rel(got, want):
     return float(((got - want).abs() / (want.abs() + floor)).max())
 
 
+# the last six cross the kernel's tiles of 32 frames: N = 1, 31, 33 and 7
 @pytest.mark.parametrize("B,J,F,N", [(2, 2, 33, 70), (1, 2, 9, 2500),
-                                     (2, 3, 17, 40), (8, 2, 513, 863)])
+                                     (2, 3, 17, 40), (8, 2, 513, 863),
+                                     (2, 2, 5, 1), (1, 2, 13, 31),
+                                     (2, 2, 13, 33), (1, 2, 3, 7),
+                                     (1, 3, 13, 31), (2, 3, 9, 33)])
 def test_kernel_matches_plain_version(dev, B, J, F, N):
     rng = np.random.default_rng(B * F * N)
     x4 = torch.as_tensor(rng.standard_normal((B, 4, F, N)),
@@ -86,6 +90,13 @@ def test_kernel_matches_plain_version(dev, B, J, F, N):
         assert g.shape == w.shape and _rel(g, w) <= rtol
     torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
                                atol=0)
+    # xi has no sum in it: the plain version's bits; and the words written
+    # from a mirrored sum or as a constant are the plain version's too
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[2][..., 0], got[2][..., 0].transpose(1, 2))
+    assert torch.equal(got[2][..., 1], -got[2][..., 1].transpose(1, 2))
+    for g, w in zip(got[2:5], want[2:5]):
+        assert torch.equal(g[w == 0], w[w == 0])
     # deterministic: no atomics, fixed reduction order
     again = cuda_estep.estep_r1_real(x4, v, A, sigma)
     for g, a in zip(got, again):
@@ -309,7 +320,9 @@ def test_host_api_on_cuda_matches_cpu(dev):
 # -- variants e (fast_recip) and f (no_ll) --------------------------------------
 
 @pytest.mark.parametrize("B,J,F,N", [(2, 2, 33, 70), (8, 2, 513, 863),
-                                     (1, 3, 9, 2500)])
+                                     (1, 3, 9, 2500), (1, 3, 13, 31),
+                                     (2, 3, 9, 33), (2, 3, 5, 1),
+                                     (1, 2, 13, 31)])
 @pytest.mark.parametrize("flag", ["fast_recip", "no_ll"])
 def test_kernel_variants_e_f_match_plain_version(dev, flag, B, J, F, N):
     rng = np.random.default_rng(B * F * N + J)
@@ -368,13 +381,17 @@ def _spectral_inputs(B, J, F, N, K, seed, device):
             .contiguous() for a in (xi, FB, TW, vfloor)]
 
 
-# the last four cross fb_stats' tiles (8 rows, 128 frames): F = 13, N in
-# {31, 33, 189}, and the conv paths' shape
+# (2, 2, 13, 31, 8) to (1, 2, 513, 189, 8) cross fb_stats' tiles (8 rows,
+# 128 frames): F = 13, N in {31, 33, 189}, and the conv paths' shape; the
+# last five cross tw_stats' strips of 16 frames (N = 1, 7, 33, 45), its
+# batches of 128 rows (F = 3, 64, 129) and its chunk of FB in shared
+# memory (F = 530 at K = 32: two chunks)
 @pytest.mark.parametrize("B,J,F,N,K", [
     (8, 2, 513, 863, 8), (2, 2, 37, 95, 5), (2, 2, 130, 300, 5),
     (2, 3, 70, 211, 4), (1, 2, 33, 70, 16), (1, 2, 33, 70, 32),
     (2, 2, 13, 31, 8), (1, 3, 13, 33, 16), (1, 2, 21, 189, 32),
-    (1, 2, 513, 189, 8)])
+    (1, 2, 513, 189, 8), (1, 2, 3, 1, 8), (1, 2, 129, 33, 16),
+    (2, 1, 64, 7, 32), (1, 2, 530, 45, 32), (1, 2, 513, 863, 16)])
 @pytest.mark.parametrize("kernel", ["fb_stats", "tw_stats"])
 def test_spectral_kernel_matches_plain_version(dev, kernel, B, J, F, N, K):
     inp = _spectral_inputs(B, J, F, N, K, B * F * N + K, dev)
@@ -389,6 +406,23 @@ def test_spectral_kernel_matches_plain_version(dev, kernel, B, J, F, N, K):
     again = getattr(cuda_spectral, kernel)(*inp)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("name,args,warps", [
+    ("estep_r1_real", (2,), 28), ("estep_r1_real", (3,), 16),
+    ("tw_stats", (8, 513), 24), ("tw_stats", (16, 513), 16),
+    ("tw_stats", (32, 513), 8), ("fb_stats", (8,), 32)])
+def test_kernel_info_reports_the_resident_warps_aimed_at(dev, name, args,
+                                                         warps):
+    """The occupancy each source's __launch_bounds__ aims at, as the runtime
+    reports it, with at most a few words of spill."""
+    from pyfasst_tpu_torch.ops import _build
+    info = _build.kernel_info(name, *args)
+    assert info["warps_per_sm"] >= warps
+    assert 0 < info["registers"] <= 255
+    assert info["local_bytes"] <= 16
+    if name == "tw_stats":                 # FB whole in shared memory
+        assert info["shared_bytes"] >= args[0] * args[1] * 4
 
 
 def test_spectral_wrappers_check_their_inputs(dev):

@@ -257,3 +257,81 @@ def test_suff_stats_cuda_raises_for_variants_not_ported():
     with pytest.raises(NotImplementedError, match="J = 5"):
         cuda_estep.suff_stats_cuda(tin[0], tin[1][:, [0, 1, 0, 1, 0]], None,
                                    tin[3], (1,) * 5, five)
+
+
+# -- the symmetries the rank-1 real CUDA kernel relies on ----------------------
+#
+# csrc/estep.cu carries only the distinct frame sums (Re Tss_jk for j <= k,
+# Im Tss_jk for j < k) and writes the mirrored words from them, and writes
+# Im Tss_jj, t4[1:4], Im T7 and T7_jj as constant zeros. That changes no bit
+# of what the plain version (the kernel's contract on the card) produces,
+# which these tests hold for J = 2 and 3 and each flag. The Pallas kernel in
+# interpret mode gives the same zeros and the same Re Tss_kj = Re Tss_jk bit
+# for bit; its Im Tss_kj equals -Im Tss_jk only to rounding (up to 4e-5
+# relative here), because XLA's CPU compiler contracts
+# wi_j wr_k - wr_j wi_k into a fused multiply-add, which is not
+# antisymmetric in (j, k). The port's kernels are built without contraction.
+
+def _r1_problem(J, seed, F=11, N=150):
+    rng = np.random.default_rng(seed)
+    x4 = rng.standard_normal((1, 4, F, N)).astype(np.float32)
+    v = (0.5 + 4 * rng.random((1, J, F, N))).astype(np.float32)
+    A = (0.3 + rng.random((1, J, F, 2))).astype(np.float32)
+    sigma = (0.01 + 0.005 * rng.random((1, F))).astype(np.float32)
+    return x4, v, A, sigma
+
+
+def _r1_outputs(which, J, flag, seed):
+    """(tss, t4, t7) as numpy, (J, J, F, 2), (J, F, 4), (J, J, F, 2)."""
+    x4, v, A, sigma = _r1_problem(J, seed)
+    if which == "plain":
+        out = cuda_estep.estep_r1_real_ref(
+            *(torch.as_tensor(a) for a in (x4, v, A, sigma)),
+            no_ll=flag == "no_ll")
+        return tuple(out[i][0].numpy() for i in (2, 3, 4))
+    A4 = np.stack([A[..., 0], np.zeros_like(A[..., 0]), A[..., 1],
+                   np.zeros_like(A[..., 0])], axis=-1)
+    out = pallas_estep(jnp.asarray(x4[0]), jnp.asarray(v[0]),
+                       jnp.asarray(A4[0]), jnp.asarray(sigma[0]),
+                       ranks=(1,) * J, real_cov=True, interpret=True,
+                       no_ll=flag == "no_ll", fast_recip=flag == "fast_recip")
+    return tuple(np.asarray(out[i]) for i in (2, 3, 4))
+
+
+@pytest.mark.parametrize("flag", ["", "fast_recip", "no_ll"])
+@pytest.mark.parametrize("J", [2, 3])
+@pytest.mark.parametrize("which", ["plain", "pallas"])
+def test_rank1_real_sums_are_mirrored_bit_for_bit(which, J, flag):
+    tss, t4, t7 = _r1_outputs(which, J, flag, seed=10 * J + len(flag))
+    for j in range(J):
+        assert np.all(tss[j, j, :, 1] == 0)            # Im Tss_jj
+        assert np.all(t7[j, j] == 0)                   # no T7_jj
+        for k in range(J):
+            # Tss_kj = conj(Tss_jk), every bit
+            assert np.array_equal(tss[k, j, :, 0], tss[j, k, :, 0])
+            if which == "plain":
+                assert np.array_equal(tss[k, j, :, 1], -tss[j, k, :, 1])
+            else:
+                np.testing.assert_allclose(tss[k, j, :, 1], -tss[j, k, :, 1],
+                                           rtol=2e-4, atol=1e-4)
+            if j != k:
+                assert np.all(tss[j, k, :, 1] != 0)    # a real test of the sign
+    assert np.all(t4[..., 1:] == 0)                    # rank 1: one word of 4
+    assert np.all(t7[..., 1] == 0)                     # real mixing: Im T7
+
+
+@pytest.mark.parametrize("J", [2, 3])
+@pytest.mark.parametrize("which", ["plain", "pallas"])
+def test_rank1_real_t7_is_not_mirrored_bit_for_bit(which, J):
+    """The recorded answer: T7_jk = v_j v_k A_j^T Sigma_x^-1 A_k equals T7_kj
+    in exact arithmetic, but A_j^T (Sigma_x^-1 A_k) and A_k^T (Sigma_x^-1
+    A_j) round differently, in the plain version as in the Pallas kernel;
+    so the CUDA kernel carries both sums. They agree to rounding."""
+    _, _, t7 = _r1_outputs(which, J, "", seed=20 + J)
+    differing = 0
+    for j in range(J):
+        for k in range(j + 1, J):
+            np.testing.assert_allclose(t7[j, k, :, 0], t7[k, j, :, 0],
+                                       rtol=1e-4)
+            differing += int(np.sum(t7[j, k, :, 0] != t7[k, j, :, 0]))
+    assert differing > 0

@@ -38,11 +38,14 @@ torch.set_num_threads(1)
 _j_suff_stats = jax.jit(j_suff_stats, static_argnames=("ranks",
                                                        "noise_inject"))
 
-# (J, F, N, K): test_pallas_spectral.py's shapes, and one whose F is not a
+# (J, F, N, K): test_pallas_spectral.py's shapes; one whose F is not a
 # multiple of the CUDA fb_stats kernel's 8-row tile and whose N is under
-# one warp's 32 frames
+# one warp's 32 frames; and the ones that cross the CUDA tw_stats kernel's
+# strips of 16 frames (N = 1, 7, 31, 33) and batches of 128 rows (F = 3
+# and 64 below one, 129 one past one), with K = 16 and 32
 SHAPES = [(2, 64, 128, 5), (2, 37, 95, 5), (2, 130, 300, 5), (3, 70, 211, 4),
-          (2, 13, 29, 8)]
+          (2, 13, 29, 8), (2, 3, 1, 8), (2, 13, 31, 16), (2, 129, 33, 32),
+          (2, 64, 7, 16)]
 RTOL = 2e-5
 
 
