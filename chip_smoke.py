@@ -18,9 +18,10 @@ Phases (each prints one line with its numbers and seconds):
      tiles, with each flag, xi bit for bit and two runs bit for bit),
      b (complex mixing, J=3), c (rank 2, J=4, and
      mixed ranks), d (ann_ns_inj, rank 1 and rank 2) at the bench shapes
-     (B=8, F=513, N=863), at the conv paths' own shape (B=1, F=513, the N
-     of phases 5 and 6; timed too) and two ragged ones; e (fast_recip) and
-     f (no_ll)
+     (B=8, F=513, N=863), at the conv paths' own shapes (B=1, F=513, the
+     N of phases 5 and 6; the buckets of phases 9 and 10, B=8 for c and
+     B=4 for b at 256 frames; all timed too) and two ragged ones; e
+     (fast_recip) and f (no_ll)
      in variant a's kernel and in the general one, at the bench shapes and
      a ragged one; the spectral kernels fb_stats and tw_stats at the bench
      shapes (J=2, K=8), the JAX suite's (37, 95), (130, 300) and J=3,
@@ -50,7 +51,31 @@ Phases (each prints one line with its numbers and seconds):
      tw_stats, 500 E-step launches (500 of variant e with fast_recip), the
      60 dB gate; pipeline time and xRT beside phase 4's unfused figure, and
      a torch.profiler window of 20 iterations with fusion off and on (wall
-     and host-enqueue ms, device busy ms and kernels per iteration).
+     and host-enqueue ms, device busy ms and kernels per iteration);
+  3b. (run inside phase 3) resume on the card: a new host-API model cut
+     off after its checkpoint at iteration 250 (one every 125), a second
+     one loading it and resuming: logliks and every parameter leaf equal
+     phase 3's uninterrupted run bit for bit, 500 E-step launches over the
+     two legs;
+  9. the configs[2] model at B=8: batch_separate over the reverberant
+     recipe at seeds 102-109, each clip from its own principal-direction
+     init, N = 189 padded to 256 frames in one bucket: 400 launches of
+     variant c, each B = 8 wide; every clip within 1 dB of its own B = 1
+     run of the same init on the same padded frames, and >= 5 dB where
+     its unpadded B = 1 host-API run reaches 5 dB (that run's SDR, the
+     padding's cost, is printed beside); a profiler window at B=8;
+  10. configs[1] at B=4 in the same way (anechoic recipe, DEMIX init, seeds
+     101-104; cut from 8 clips for time, see CONV_BATCH_SEEDS): 400 launches
+     of variant b, each B = 4 wide, the same comparisons, 10 dB;
+  11. the general-I engine on the card: bench.py's general-I3 row (10 s,
+     3 channels, 500 iterations) through run_gem and separate_sources, and
+     the mono fixture of tests/test_multichannel.py (200 iterations): no
+     kernel launch, finite loglik, the I3 images summing to the mixture,
+     min SDR within 1 dB of the port's CPU runs; a profiler window of the
+     I3 loop;
+  12. the bench model at K = 40 (> cuda_spectral.MAX_K) with fuse_spectral,
+     20 iterations: no fb_stats/tw_stats launch and the unfused run's
+     numbers bit for bit.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -152,6 +177,26 @@ FP32_OPS_PER_S = 67e12
 # the float32 rate open to kernels built with --fmad=false: each multiply
 # and add issues on its own, so half the FMA rate above
 FP32_NOFMA_OPS_PER_S = FP32_OPS_PER_S / 2
+# phases 9 and 10: the configs[2] model at B = 8 and configs[1] at B = 4,
+# one clip per seed, padded by batch_separate into one bucket of frames.
+# configs[1] is cut from 8 clips to 4: its DEMIX init is ~10 s of host
+# NumPy per clip, and with 8 clips the script ran 459 s on an H100
+# machine's host, past the ~6 minutes the script aims at
+CONV_BATCH_SEEDS = {"reverb": tuple(range(102, 110)),
+                 "anechoic": tuple(range(101, 105))}
+GRANULARITY = 128
+# phase 11: bench.py:223-262's general-I3 row (two sources at these
+# 3-channel directions, 10 s at 44.1 kHz, 500 iterations) and the mono
+# fixture of tests/test_multichannel.py:71 (4 s at 16 kHz, 200 iterations)
+GENERAL_DIRS = ((0.9, 0.5, 0.2), (0.2, 0.6, 0.95))
+NITER_MONO = 200
+# min SDR (dB) of the port's own CPU run of phase 11's two recipes
+# (python3 -c "import chip_smoke; chip_smoke.cpu_reference_general()", with
+# 4 threads on the host of an H100 machine: 80.18 and 2.515); the card's
+# runs must lie within SDR_SLACK of them
+CPU_SDR_GENERAL = {"I3": 80.18, "mono": 2.52}
+# phase 12: an NMF rank above cuda_spectral.MAX_K
+K_BIG, NITER_K_BIG = 40, 20
 # general E-step instantiations the paths take: (J, rmax, real_cov, ns_inj)
 GENERAL_PATH_INSTANCES = {"b": (3, 1, 0, 0), "c": (4, 2, 0, 0),
                           "d": (3, 1, 0, 1)}
@@ -189,14 +234,15 @@ def make_mixture(fs=FS, dur=DUR, seed=0):
             (y2 / scale).astype(np.float32))
 
 
-def bench_tree(F, N, seed=0):
-    """bench.py::build_params as a parameter tree for convert."""
+def bench_tree(F, N, seed=0, K_=K):
+    """bench.py::build_params as a parameter tree for convert (NMF rank K_,
+    K by default)."""
     from pyfasst_tpu_torch.models.components import init_inst_mixing
     rng = np.random.default_rng(seed)
     spat = [{"A": a.numpy(), "mix_type": "inst", "free": True}
             for a in init_inst_mixing(None, 2, 1, J)]
-    spec = [{"FB": (0.5 + rng.random((F, K))).astype(np.float32),
-             "TW": (0.5 + rng.random((K, N))).astype(np.float32),
+    spec = [{"FB": (0.5 + rng.random((F, K_))).astype(np.float32),
+             "TW": (0.5 + rng.random((K_, N))).astype(np.float32),
              "spat_ind": j} for j in range(J)]
     return {"spat": spat, "spec": spec}
 
@@ -639,6 +685,13 @@ def conv_frames():
                            WLEN_CONV // 2)[2]
 
 
+def padded_frames(n):
+    """The frame count of batch_separate's bucket for n frames (its
+    default granularity)."""
+    from pyfasst_tpu_torch.parallel.batch import frame_buckets
+    return next(iter(frame_buckets([n], GRANULARITY)))
+
+
 def phase_general_vs_plain(device):
     """Variants b, c and d against the plain version, at the bench shapes,
     at the conv paths' own shape and at two ragged ones; times kernel and
@@ -653,8 +706,13 @@ def phase_general_vs_plain(device):
     out = {}
     for key, label, J_, ranks, real, ns in GENERAL_CASES:
         tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
-        for (B, F, N) in ((BATCH, 513, 863), path_shape, (1, 33, 70),
-                          (1, 9, 2500)):
+        # the batch paths' shape: phase 9's bucket (variant c), phase 10's
+        # (b); variant d runs at B = 1 only
+        batch = {"b": "anechoic", "c": "reverb"}.get(key)
+        timed = ((BATCH, 513, 863), path_shape) + (
+            ((len(CONV_BATCH_SEEDS[batch]), 513, padded_frames(conv_frames())),)
+            if batch else ())
+        for (B, F, N) in timed + ((1, 33, 70), (1, 9, 2500)):
             inp = _general_inputs(B, J_, F, N, ranks, real, seed=F * N + J_,
                                   device=device)
             kw = dict(ns_inj=ns, real_cov=real)
@@ -667,7 +725,7 @@ def phase_general_vs_plain(device):
             abs_err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
             timing = ""
-            if (B, F, N) in ((BATCH, 513, 863), path_shape):
+            if (B, F, N) in timed:
                 kern, plain = _turns(
                     lambda: cuda_estep.estep_general(*inp, ranks, **kw),
                     lambda: cuda_estep.estep_ref(*inp, ranks, **kw))
@@ -678,10 +736,12 @@ def phase_general_vs_plain(device):
                         "plain_ms": statistics.median(plain),
                         "bound_ms": b_ms, "bound_by": b_by,
                         "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3}
-                if B == BATCH:
+                if (B, F, N) == timed[0]:
                     out[label] = dict(nums, key=key)
                 else:
-                    out[label]["path"] = dict(nums, shape=[B, F, N])
+                    out[label]["path" if (B, F, N) == path_shape
+                               else "batch_path"] = dict(nums,
+                                                         shape=[B, F, N])
                 timing = (f" | kernel {nums['ms']:.4f} ms (min "
                           f"{min(kern):.4f}), "
                           f"plain {nums['plain_ms']:.3f} ms (min "
@@ -894,7 +954,71 @@ def phase_host_api(device, dur, niter):
                                f"{SDR_GATE} dB")
         if len(written) != J:
             raise RuntimeError(f"expected {J} WAVs, found {paths}")
+        phase_resume(device, wav, niter, model, ll)
     return launches
+
+
+class _Stopped(Exception):
+    """Raised by phase 3b's checkpoint hook: the run is cut off there, as a
+    killed job is."""
+
+
+def phase_resume(device, wav, niter, straight, ll_straight):
+    """Phase 3b: a new model runs iterations 0 -> niter/2 with a checkpoint
+    every niter/4 and is cut off after the save at niter/2; a second new
+    model loads that checkpoint and resumes. Its logliks from niter/2 on
+    and every leaf of its final parameters must equal phase 3's
+    uninterrupted run (`straight`) bit for bit."""
+    import torch
+    from pyfasst_tpu_torch import MultiChanNMFInst_FASST, convert
+    from pyfasst_tpu_torch.ops import cuda_estep
+    t0 = time.perf_counter()
+    half, every = niter // 2, niter // 4
+    ck = os.path.join(os.path.dirname(wav), "resume.npz")
+    kw = dict(nbComps=J, nbNMFComps=K, iter_num=niter, device=device)
+    first = MultiChanNMFInst_FASST(wav, **kw)
+    save = first.save_checkpoint
+
+    def save_then_stop(path, iteration=None):
+        out = save(path, iteration)
+        if iteration == half:
+            raise _Stopped(iteration)
+        return out
+
+    first.save_checkpoint = save_then_stop
+    cuda_estep.LAUNCHES = 0
+    try:
+        first.estim_param_a_posteriori(checkpoint_path=ck,
+                                       checkpoint_every=every)
+        raise RuntimeError("phase 3b: the run was not cut off at its "
+                           f"checkpoint of iteration {half}")
+    except _Stopped:
+        pass
+    resumed = MultiChanNMFInst_FASST(wav, **kw)
+    start = resumed.load_checkpoint(ck)
+    ll = resumed.estim_param_a_posteriori(start_iter=start,
+                                          checkpoint_path=ck,
+                                          checkpoint_every=every)
+    torch.cuda.synchronize()
+    launches = cuda_estep.LAUNCHES
+    same_ll = bool(np.array_equal(ll[half:], ll_straight[half:]))
+    trees = [convert.params_to_numpy(m.params)[0]
+             for m in (straight, resumed)]
+    leaves = [(c[n], d[n]) for part in ("spat", "spec")
+              for c, d in zip(trees[0][part], trees[1][part])
+              for n in c if isinstance(c[n], np.ndarray)]
+    same_leaves = sum(bool(np.array_equal(a, b)) for a, b in leaves)
+    log(f"phase 3b resume: cut off after the checkpoint at iteration "
+        f"{half} (every {every}), resumed from {start}; logliks "
+        f"{half}-{niter} bit-identical {same_ll}, parameter leaves "
+        f"bit-identical {same_leaves}/{len(leaves)}; E-step launches "
+        f"{launches} (both legs) | {time.perf_counter() - t0:.2f}s")
+    if start != half or not same_ll or same_leaves != len(leaves):
+        raise RuntimeError("phase 3b: the resumed run is not the "
+                           "uninterrupted one bit for bit")
+    if launches != niter:
+        raise RuntimeError(f"phase 3b: {launches} E-step launches in "
+                           f"{niter} iterations over both legs")
 
 
 def _event_ms(fn, reps, inner=1):
@@ -1032,6 +1156,15 @@ def profile_gem(params, X, cfg, start=60, stop=80):
             "kernels": len(dev) / n if dev else None}
 
 
+def _profile_line(label, prof, card):
+    return (f"{label}, iterations 60-80, per iteration: wall "
+            f"{prof['wall_ms']:.3f} ms, host enqueue {prof['enqueue_ms']:.3f}"
+            f" ms, device busy "
+            + (f"{prof['busy_ms']:.4f} ms ({prof['kernels']:.1f} kernels)"
+               if prof["kernels"] else "not measured (no device events)")
+            + f" | {card}")
+
+
 def phase_fused(device, dur, niter, batch, card, unfused):
     """Phase 8: the bench pipeline with the fused spectral M-step, then with
     it and fast_recip, with their launch and SDR gates; pipeline times
@@ -1082,12 +1215,8 @@ def phase_fused(device, dur, niter, batch, card, unfused):
     X = _stft_core(mix, window, WLEN, HOP, "fft")
     for label, cfg in ((("unfused", GEMConfig(niter=niter)),) + configs):
         prof = profile_gem(params_for(batch), X, cfg)
-        log(f"phase 8 profile {label} B={batch}, iterations 60-80 of "
-            f"{niter}, per iteration: wall {prof['wall_ms']:.3f} ms, host "
-            f"enqueue {prof['enqueue_ms']:.3f} ms, device busy "
-            + (f"{prof['busy_ms']:.4f} ms ({prof['kernels']:.1f} kernels)"
-               if prof["kernels"] else "not measured (no device events)")
-            + f" | {card}")
+        log(_profile_line(f"phase 8 profile {label} B={batch} (of {niter})",
+                          prof, card))
     log(f"phase 8 done | {time.perf_counter() - t0:.2f}s")
     return runs
 
@@ -1128,12 +1257,8 @@ def phase_conv(device, case, card):
         f"{DUR_CONV / secs:.2f} (first run, B=1) | {card} | "
         f"{time.perf_counter() - t0:.2f}s")
     prof = profile_gem(model.params, model.Xs, model.cfg)
-    log(f"phase {phase} profile {case} B=1, iterations 60-80 of "
-        f"{NITER_CONV}, per iteration: wall {prof['wall_ms']:.3f} ms, host "
-        f"enqueue {prof['enqueue_ms']:.3f} ms, device busy "
-        + (f"{prof['busy_ms']:.4f} ms ({prof['kernels']:.1f} kernels)"
-           if prof["kernels"] else "not measured (no device events)")
-        + f" | {card}")
+    log(_profile_line(f"phase {phase} profile {case} B=1 (of {NITER_CONV})",
+                      prof, card))
     key = "b" if case == "anechoic" else "c"
     if model.N != conv_frames():
         raise RuntimeError(f"phase {phase}: N = {model.N}, but phase 2 "
@@ -1172,6 +1297,320 @@ def phase_ns_inj(device):
     return counts
 
 
+def conv_clip(case, seed, device):
+    """One clip of phase 5's ("anechoic": DEMIX init, ERB basis) or phase
+    6's ("reverb": principal-direction init, rank 2) recipe with its own
+    seed: (host-API model on `device`, true images)."""
+    from pyfasst_tpu_torch import DEMIX, MultiChanNMFConv
+    if case == "anechoic":
+        mix, ys_true = anechoic_mixture(seed)
+        dm = DEMIX(mix, fs=FS_CONV, wlen=WLEN_CONV)
+        dm.comp_parameters(K=3)
+        kw = dict(nbComps=3, init_mixing=dm.mixing(WLEN_CONV // 2 + 1),
+                  freq_basis="erb", n_bands=32)
+    else:
+        mix, ys_true = reverb_mixture(seed)
+        kw = dict(nbComps=4, spatial_rank=2,
+                  init_mixing=principal_directions(ys_true))
+    model = MultiChanNMFConv(mix, fs=FS_CONV, nbNMFComps=6, wlen=WLEN_CONV,
+                             iter_num=NITER_CONV, spatial_hold_frac=0.3,
+                             device=device, **kw)
+    return model, ys_true
+
+
+def conv_init_tree(model, n_frames, seed):
+    """The model's initial mixing with NMF factors for `n_frames` frames
+    drawn from `seed` (the free ones: FB, or the ERB weights FW, and TW),
+    as a parameter tree."""
+    from pyfasst_tpu_torch import convert
+    tree = convert.params_to_numpy(model.params)[0]
+    rng = np.random.default_rng(seed)
+    for c in tree["spec"]:
+        name = "FB" if c["FW"] is None else "FW"
+        c[name] = (0.5 + rng.random(c[name].shape)).astype(np.float32)
+        c["TW"] = (0.5 + rng.random((c["TW"].shape[0], n_frames))
+                   ).astype(np.float32)
+    return tree
+
+
+def phase_conv_batch(device, case, card):
+    """Phase 9 (case "reverb", the configs[2] model, B = 8) or 10
+    ("anechoic", configs[1], B = 4): one clip per seed of CONV_BATCH_SEEDS,
+    each from its own init, through batch_separate (one bucket of padded
+    frames). Gates: every launch of the E-step kernel B wide; every clip within SDR_SLACK of
+    its own B = 1 run of the same init on the same padded frames
+    (batch_separate of that clip alone); and the phase's SDR floor on every
+    clip whose recipe reaches it unbatched (the host API on the unpadded
+    clip, B = 1). The padding's cost, the batch against the unpadded B = 1
+    run, is printed. Returns the variant's launch count and the run's
+    numbers."""
+    import torch
+    from pyfasst_tpu_torch import batch_separate, convert
+    from pyfasst_tpu_torch.ops import cuda_estep
+    from pyfasst_tpu_torch.parallel.batch import _pad_frames, batch_params
+    phase, key = (9, "c") if case == "reverb" else (10, "b")
+    seeds = CONV_BATCH_SEEDS[case]
+    B = len(seeds)
+    t0 = time.perf_counter()
+    clips = [conv_clip(case, sd, device) for sd in seeds]
+    setup_s = time.perf_counter() - t0
+    N = clips[0][0].N
+    Npad = padded_frames(N)
+    trees = [conv_init_tree(m, Npad, sd) for (m, _), sd in zip(clips, seeds)]
+    cfg = clips[0][0].cfg
+    Xs = [m.Xs[0] for m, _ in clips]
+
+    def make_params(F, n_pad, i):
+        return convert.params_from_numpy(trees[i], device=device)
+
+    def sdrs(imgs):
+        return [best_perm_sdr(m._to_time(torch.as_tensor(Y, device=device)),
+                              ys_true)[0]
+                for (m, ys_true), Y in zip(clips, imgs)]
+
+    widths = []
+    kernel = cuda_estep.estep_general
+
+    def spy(x4, *args, **kw):
+        widths.append(int(x4.shape[0]))
+        return kernel(x4, *args, **kw)
+
+    _reset_counts()
+    cuda_estep.estep_general = spy
+    try:
+        t1 = time.perf_counter()
+        imgs, lls = batch_separate(Xs, make_params, cfg, device=device)
+        batch_s = time.perf_counter() - t1      # results are on the host
+    finally:
+        cuda_estep.estep_general = kernel
+    total, counts = _counts()
+    if not np.all(np.isfinite(np.stack(lls))):
+        raise RuntimeError(f"phase {phase}: non-finite loglik in the batch")
+    sdr_b = sdrs(imgs)
+    one = [batch_separate([Xs[i]], lambda F, n, _, i=i: make_params(F, n, i),
+                          cfg, device=device)[0][0] for i in range(B)]
+    sdr1 = sdrs(one)
+    unpadded, b1_s = [], 0.0
+    for (m, ys_true), tree in zip(clips, trees):
+        spec = [dict(c, TW=c["TW"][:, :N]) for c in tree["spec"]]
+        m.params = convert.params_from_numpy(dict(tree, spec=spec),
+                                             device=device)
+        t2 = time.perf_counter()
+        ll = m.estim_param_a_posteriori()
+        ys = m.separated_images()
+        b1_s += time.perf_counter() - t2
+        if not np.all(np.isfinite(ll)):
+            raise RuntimeError(f"phase {phase}: non-finite loglik at B = 1")
+        unpadded.append(best_perm_sdr(ys, ys_true)[0])
+    params_b = batch_params([make_params(0, Npad, i) for i in range(B)])
+    X_b = torch.stack([_pad_frames(x, Npad) for x in Xs])
+    prof = profile_gem(params_b, X_b, cfg)
+
+    def row(v):
+        return " ".join(f"{x:.2f}" for x in v)
+
+    log(f"phase {phase} {case} B={B} (seeds {seeds[0]}-{seeds[-1]}): "
+        f"J={clips[0][0].params.n_spat} F={clips[0][0].F} N={N} padded to "
+        f"{Npad}, {NITER_CONV} iters, launches {total} {counts}, launch "
+        f"widths {sorted(set(widths))}; per-clip min SDR B={B} {row(sdr_b)} | "
+        f"B=1 padded {row(sdr1)} | B=1 unpadded (host API) {row(unpadded)}"
+        f" | B={B} run {batch_s:.2f}s -> xRT {B * DUR_CONV / batch_s:.2f}; B=1 "
+        f"unpadded runs {b1_s:.2f}s -> xRT {B * DUR_CONV / b1_s:.2f}; set-up "
+        f"{setup_s:.2f}s | {card} | {time.perf_counter() - t0:.2f}s")
+    log(_profile_line(f"phase {phase} profile {case} B={B}", prof, card))
+    if total != NITER_CONV or counts[key] != NITER_CONV \
+            or widths != [B] * NITER_CONV:
+        raise RuntimeError(f"phase {phase}: launches {total} {counts}, "
+                           f"widths {sorted(set(widths))} in {NITER_CONV} "
+                           f"iterations (expected {NITER_CONV} of variant "
+                           f"{key}, each B = {B} wide)")
+    floor = SDR_FLOOR[case]
+    if any(abs(a - b) > SDR_SLACK for a, b in zip(sdr_b, sdr1)) or any(
+            a < floor <= u for a, u in zip(sdr_b, unpadded)):
+        raise RuntimeError(f"phase {phase}: per-clip min SDR in the batch "
+                           f"{sdr_b} against B = 1 {sdr1} (slack "
+                           f"{SDR_SLACK} dB) and unpadded {unpadded} (floor "
+                           f"{floor} dB)")
+    return counts[key], {"xrt": B * DUR_CONV / batch_s, "profile": prof}
+
+
+def general_i3_case(device):
+    """bench.py:223-262's general-I3 row on `device`: (mix (1, T, 3)
+    tensor, true images (J, T, 3), initial params)."""
+    import torch
+    from pyfasst_tpu_torch import convert
+    from pyfasst_tpu_torch.tf.stft import _frame_geometry
+    rng = np.random.default_rng(3)
+    n = int(FS * DUR)
+    t = np.arange(n) / FS
+    s1 = np.sin(2 * np.pi * (200 * t + 3 * np.sin(2 * np.pi * 0.5 * t)))
+    s2 = rng.standard_normal(n) * (np.sin(2 * np.pi * 1.3 * t) > 0)
+    ys = np.stack([np.outer(s1, GENERAL_DIRS[0]),
+                   np.outer(s2, GENERAL_DIRS[1])])
+    mix = ys.sum(0).astype(np.float32)
+    scale = np.max(np.abs(mix))
+    mix /= scale
+    F, N = WLEN // 2 + 1, _frame_geometry(n, WLEN, HOP)[2]
+    rngp = np.random.default_rng(0)
+    spat = [{"A": (0.4 + np.abs(rngp.standard_normal((3, 1))))
+             .astype(np.float32), "mix_type": "inst"} for _ in range(J)]
+    spec = [{"FB": (0.5 + rngp.random((F, K))).astype(np.float32),
+             "TW": (0.5 + rngp.random((K, N))).astype(np.float32),
+             "spat_ind": j} for j in range(J)]
+    params = convert.params_from_numpy({"spat": spat, "spec": spec},
+                                       device=device)
+    return (torch.as_tensor(mix, device=device)[None], ys / scale, params)
+
+
+def mono_case():
+    """tests/test_multichannel.py:71's mono fixture: (mix (T,), s1, s2)."""
+    fs, n = 16000, 4 * 16000
+    rng = np.random.default_rng(0)
+    t = np.arange(n) / fs
+    s1 = np.sin(2 * np.pi * 220 * t) * (0.5 + 0.5 * np.sin(
+        2 * np.pi * 1.3 * t))
+    w = rng.standard_normal(n)
+    s2 = (w - np.convolve(w, np.ones(8) / 8, "same")) \
+        * (np.sin(2 * np.pi * 0.7 * t + 1) > 0) * 0.5
+    return (s1 + s2).astype(np.float32), s1, s2
+
+
+def general_runs(device):
+    """Phase 11's two runs on `device`: the general-I3 row (run_gem and
+    separate_sources through chip_smoke.pipeline) and the mono fixture
+    (the host API). Returns their numbers and the I3 inputs."""
+    import torch
+    from pyfasst_tpu_torch import MultiChanNMFInst_FASST
+    from pyfasst_tpu_torch.tf.stft import sine_window
+    from pyfasst_tpu_torch.utils.config import GEMConfig
+    mix, ys_true, params = general_i3_case(device)
+    window = torch.as_tensor(sine_window(WLEN), dtype=torch.float32,
+                             device=device)
+    cfg = GEMConfig(niter=NITER)
+    t0 = time.perf_counter()
+    ys, ll = pipeline(mix, params, cfg, window, mix.shape[1])
+    ys = ys[0].cpu().numpy()
+    ll = ll[0].cpu().numpy()
+    i3_s = time.perf_counter() - t0
+    x = mix[0].cpu().numpy()
+    out = {"I3": {"min_sdr": best_perm_sdr(ys, ys_true)[0],
+                  "residual": float(np.linalg.norm(ys.sum(0) - x)
+                                    / np.linalg.norm(x)),
+                  "finite": bool(np.all(np.isfinite(ll))),
+                  "loglik": (float(ll[0]), float(ll[-1])),
+                  "seconds": i3_s}}
+    mono, s1, s2 = mono_case()
+    t1 = time.perf_counter()
+    m = MultiChanNMFInst_FASST(mono[:, None], fs=16000, nbComps=2,
+                               nbNMFComps=6, wlen=1024, iter_num=NITER_MONO,
+                               seed=0, device=device)
+    ll_m = m.estim_param_a_posteriori()
+    ym = m.separated_images()
+
+    def sdr(a, b):
+        return 10 * np.log10(np.sum(b ** 2)
+                             / max(np.sum((a - b) ** 2), 1e-12))
+
+    out["mono"] = {"min_sdr": float(max(
+        min(sdr(ym[p[0], :, 0], s1), sdr(ym[p[1], :, 0], s2))
+        for p in ((0, 1), (1, 0)))),
+        "finite": bool(np.all(np.isfinite(ll_m))),
+        "seconds": time.perf_counter() - t1}
+    return out, (mix, params, cfg)
+
+
+def cpu_reference_general():
+    """Phase 11's runs on the CPU: the figures CPU_SDR_GENERAL holds."""
+    out, _ = general_runs("cpu")
+    print(json.dumps(out), flush=True)
+
+
+def phase_general(device, card):
+    """Phase 11: the general-I engine on the card. The general-I3 row and
+    the mono fixture: finite loglik, no E-step or spectral kernel launch,
+    the images summing back to the mixture (I3), min SDR within SDR_SLACK
+    of the port's CPU runs; then a profiler window of the I3 loop."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_spectral
+    from pyfasst_tpu_torch.tf.stft import _stft_core, sine_window
+    t0 = time.perf_counter()
+    _reset_counts()
+    out, (mix, params, cfg) = general_runs(device)
+    total, counts = _counts()
+    spectral = dict(cuda_spectral.LAUNCHES)
+    i3, mono = out["I3"], out["mono"]
+    window = torch.as_tensor(sine_window(WLEN), dtype=torch.float32,
+                             device=device)
+    X = _stft_core(mix, window, WLEN, HOP, "fft")
+    prof = profile_gem(params, X, cfg)
+    log(f"phase 11 general-I3: I=3 F={X.shape[1]} N={X.shape[2]} J={J} "
+        f"K={K}, {NITER} iters, loglik {i3['loglik'][0]:.6g} -> "
+        f"{i3['loglik'][1]:.6g}, launches E-step {total} {counts}, spectral "
+        f"{spectral}, residual {i3['residual']:.3e}, min SDR "
+        f"{i3['min_sdr']:.2f} dB (CPU run {CPU_SDR_GENERAL['I3']} dB), "
+        f"pipeline {i3['seconds']:.2f}s -> xRT {DUR / i3['seconds']:.2f} "
+        f"(first run, B=1); mono: {NITER_MONO} iters, min SDR "
+        f"{mono['min_sdr']:.2f} dB (CPU run {CPU_SDR_GENERAL['mono']} dB), "
+        f"{mono['seconds']:.2f}s | {card} | {time.perf_counter() - t0:.2f}s")
+    log(_profile_line(f"phase 11 profile general-I3 B=1 (of {NITER})", prof,
+                      card))
+    if not (i3["finite"] and mono["finite"]):
+        raise RuntimeError("phase 11: non-finite loglik")
+    if total or any(spectral.values()):
+        raise RuntimeError(f"phase 11: kernel launches at I != 2: E-step "
+                           f"{total}, spectral {spectral}")
+    if not i3["residual"] < 5e-2:
+        raise RuntimeError(f"phase 11: images do not sum to the mixture "
+                           f"(residual {i3['residual']:.3e})")
+    for name in ("I3", "mono"):
+        cpu = CPU_SDR_GENERAL[name]
+        if cpu is None or abs(out[name]["min_sdr"] - cpu) > SDR_SLACK:
+            raise RuntimeError(f"phase 11 {name}: min SDR "
+                               f"{out[name]['min_sdr']:.2f} dB not within "
+                               f"{SDR_SLACK} dB of the CPU run ({cpu})")
+    return {"xrt": DUR / i3["seconds"], "profile": prof}
+
+
+def phase_k_big(device):
+    """Phase 12: the bench model at K = K_BIG > cuda_spectral.MAX_K with
+    fuse_spectral on runs through the plain update_spectral (no fb_stats or
+    tw_stats launch) and equals the run with fusion off bit for bit."""
+    import torch
+    from pyfasst_tpu_torch import convert
+    from pyfasst_tpu_torch.ops import cuda_spectral
+    from pyfasst_tpu_torch.ops.gem import run_gem
+    from pyfasst_tpu_torch.tf.stft import _stft_core, sine_window
+    from pyfasst_tpu_torch.utils.config import GEMConfig
+    t0 = time.perf_counter()
+    mix = torch.as_tensor(make_mixture()[0], device=device)[None]
+    window = torch.as_tensor(sine_window(WLEN), dtype=torch.float32,
+                             device=device)
+    X = _stft_core(mix, window, WLEN, HOP, "fft")
+    tree = bench_tree(X.shape[1], X.shape[2], K_=K_BIG)
+    runs = {}
+    for fuse in (True, False):
+        _reset_counts()
+        p, ll = run_gem(convert.params_from_numpy(tree, device=device), X,
+                        GEMConfig(niter=NITER_K_BIG, fuse_spectral=fuse))
+        torch.cuda.synchronize()
+        runs[fuse] = (convert.params_to_numpy(p)[0], ll.cpu().numpy(),
+                      dict(cuda_spectral.LAUNCHES), _counts()[0])
+    (pf, llf, spec_f, est_f), (pu, llu, _, _) = runs[True], runs[False]
+    leaves = [(a[n], b[n]) for part in ("spat", "spec")
+              for a, b in zip(pf[part], pu[part])
+              for n in a if isinstance(a[n], np.ndarray)]
+    same = bool(np.array_equal(llf, llu)) and all(
+        np.array_equal(a, b) for a, b in leaves)
+    log(f"phase 12 K={K_BIG} fuse_spectral: {NITER_K_BIG} iters, spectral "
+        f"launches {spec_f}, E-step launches {est_f}, finite "
+        f"{bool(np.all(np.isfinite(llf)))}, equal to the unfused run bit "
+        f"for bit {same} | {time.perf_counter() - t0:.2f}s")
+    if any(spec_f.values()) or est_f != NITER_K_BIG or not same \
+            or not np.all(np.isfinite(llf)):
+        raise RuntimeError("phase 12: K > MAX_K with fuse_spectral did not "
+                           "take the plain spectral M-step")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1196,6 +1635,10 @@ def main() -> int:
                      "d": phase_ns_inj(device)["d"]}
     fused = phase_fused(device, DUR, NITER, BATCH, card, timing)
     path_launches["e"] = fused["fused+fast_recip"]["counts"]["e"]
+    batch_launches = {"c": phase_conv_batch(device, "reverb", card)[0],
+                      "b": phase_conv_batch(device, "anechoic", card)[0]}
+    phase_general(device, card)
+    phase_k_big(device)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     log(card)
 
@@ -1212,12 +1655,19 @@ def main() -> int:
                                               ms=timing["kernel_ms"]))]
     for key, label in GENERAL_HEADLINE.items():
         path = general[label]["path"]
+        extra = {}
+        if key in batch_launches:
+            bp = general[label]["batch_path"]
+            extra = dict(batch_path_shape=bp["shape"], batch_path_ms=bp["ms"],
+                         batch_path_plain_ms=bp["plain_ms"],
+                         batch_path_bound_ms=bp["bound_ms"],
+                         batch_path_launches=batch_launches[key])
         kernels.append(dict(
             entry(f"estep_general (variant {key}: {label})", GENERAL_SOURCE,
                   GENERAL_REPLACES[key], path_launches[key], general[label]),
             path_shape=path["shape"], path_ms=path["ms"],
-            path_plain_ms=path["plain_ms"], path_bound_ms=path["bound_ms"])
-        )
+            path_plain_ms=path["plain_ms"], path_bound_ms=path["bound_ms"],
+            **extra))
     kernels.append(entry("estep_r1_real with fast_recip (variant e)",
                          KERNEL_SOURCE, GENERAL_REPLACES["e"],
                          path_launches["e"], ef["e"]))

@@ -20,6 +20,20 @@ alike. On the CPU every operation runs in plain PyTorch.
     model = pyfasst_tpu_torch.MultiChanNMFConv(
         "mixture.wav", nbComps=3, nbNMFComps=6, spatial_rank=2,
         init_mixing=dm.mixing(513), device="cuda")
+
+    # checkpoint / resume (the JAX package's .npz layout)
+    model.estim_param_a_posteriori(checkpoint_path="run.npz",
+                                   checkpoint_every=100)
+    start = model.load_checkpoint("run.npz")
+
+    # many clips at once, padded into frame buckets
+    images, logliks = pyfasst_tpu_torch.batch_separate(
+        Xs, make_params, pyfasst_tpu_torch.GEMConfig(niter=400),
+        device="cuda")
+
+Channel counts other than 2 (mono, 3 microphones) run through the general-I
+engine, in plain PyTorch on either device: the JAX package has no kernel
+for it either.
 """
 
 __version__ = "0.1.0"
@@ -28,8 +42,13 @@ __all__ = [
     "AudioObject",
     "DEMIX",
     "FASST",
+    "GEMConfig",
     "MultiChanNMFConv",
     "MultiChanNMFInst_FASST",
+    "batch_separate",
+    "batch_separate_files",
+    "load_params",
+    "save_params",
 ]
 
 _LAZY = {
@@ -38,6 +57,11 @@ _LAZY = {
     "MultiChanNMFInst_FASST": "pyfasst_tpu_torch.models",
     "MultiChanNMFConv": "pyfasst_tpu_torch.models",
     "DEMIX": "pyfasst_tpu_torch.models",
+    "GEMConfig": "pyfasst_tpu_torch.utils.config",
+    "batch_separate": "pyfasst_tpu_torch.parallel.batch",
+    "batch_separate_files": "pyfasst_tpu_torch.parallel.batch",
+    "load_params": "pyfasst_tpu_torch.utils.checkpoint",
+    "save_params": "pyfasst_tpu_torch.utils.checkpoint",
 }
 
 

@@ -10,10 +10,14 @@ Audio I/O and WAV writing stay on the host; the transform, the GEM loop and
 the separation run on `device`, the card ("cuda") unless the caller asks
 for "cpu". A model on "cuda" runs there or raises: it never moves to the
 CPU. Parameters carry a clip axis of size 1 and are replaced wholesale
-after each estimation call.
+after each estimation call. Any channel count runs: I = 2 through the
+packed 2x2 engine and the CUDA kernels, I != 2 through the general-I
+engine (ops/engine_general.py). Checkpoints (save_checkpoint,
+load_checkpoint, estim_param_a_posteriori's checkpoint_path) use the JAX
+package's .npz layout (utils/checkpoint.py).
 
-Not ported yet: the blind estimators (estim_param_blind_*), checkpoint
-save/load (ROADMAP item 8), and front-ends other than the STFT (item 11).
+Not ported yet: the blind estimators (estim_param_blind_*) and front-ends
+other than the STFT (item 11).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from pyfasst_tpu_torch.models.components import FasstParams
 from pyfasst_tpu_torch.ops import wiener
 from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
 from pyfasst_tpu_torch.tf.stft import STFT
+from pyfasst_tpu_torch.utils.checkpoint import load_params, save_params
 from pyfasst_tpu_torch.utils.config import GEMConfig
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -129,22 +134,29 @@ class FASST:
                                  ) -> np.ndarray:
         """Run the GEM loop; returns the per-iteration log-likelihoods.
 
-        checkpoint_every=K runs the loop in chunks of K iterations and
-        checks the log-likelihood after each chunk (one host wait per
-        chunk); the chunked trajectory is exactly the uninterrupted one.
-        Non-finite log-likelihood in a chunk rolls the parameters back to
-        the chunk's start and raises RuntimeError naming the iteration.
-        Saving checkpoints (checkpoint_path) is not ported yet.
+        start_iter > 0 resumes an interrupted run (see load_checkpoint):
+        the annealing schedule is a pure function of the iteration index
+        against the FULL niter, so the resumed trajectory is exactly the
+        uninterrupted one (run it with the same niter as the original);
+        entries before start_iter are left zero.
+
+        checkpoint_path + checkpoint_every=K run the loop in chunks of K
+        iterations, check the log-likelihood after each chunk (one host
+        wait per chunk) and save the parameters after each chunk; with
+        checkpoint_path alone the loop is one chunk, saved at its end. The
+        chunked trajectory is exactly the uninterrupted one. A non-finite
+        log-likelihood in a chunk rolls the parameters back to the last
+        checkpoint (the chunk's start) and raises RuntimeError naming the
+        iteration and the checkpoint.
         """
         if self.params is None:
             raise RuntimeError("model parameters not initialized "
                                "(use a concrete FASST variant)")
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpoint save/load is not ported yet (ROADMAP item 8)")
         cfg = self.cfg if niter is None else \
             GEMConfig(**{**self.cfg.__dict__, "niter": int(niter)})
         every = int(checkpoint_every or 0)
+        if every and not checkpoint_path:
+            raise ValueError("checkpoint_every requires checkpoint_path")
         t0 = time.perf_counter()
         logliks = torch.zeros((1, cfg.niter), dtype=torch.float32,
                               device=self.device)
@@ -158,11 +170,16 @@ class FASST:
             finite = torch.isfinite(logliks[0, s:e])
             if not bool(finite.all()):
                 bad = s + int(torch.argmin(finite.to(torch.int8)))
-                self.params = params
+                self.params = params        # last good (checkpointed) state
                 raise RuntimeError(
                     f"GEM diverged (non-finite log-likelihood) at iteration "
-                    f"{bad}; parameters rolled back to iteration {s}")
+                    f"{bad}; parameters rolled back to iteration {s}"
+                    + (f" (checkpoint: {checkpoint_path})"
+                       if checkpoint_path else ""))
             params = new_params
+            if checkpoint_path:
+                self.params = params
+                self.save_checkpoint(checkpoint_path, iteration=e)
             s = e
         self._gem_seconds = time.perf_counter() - t0
         self.params = params
@@ -203,6 +220,24 @@ class FASST:
         Y = wiener.separate_spatial_filter(self.params, self.Xs,
                                            self._final_sigma())
         return self._write_sources(self._to_time(Y[0]), dir_results, suffix)
+
+    # -- checkpoint / resume ---------------------------------------------------
+    def save_checkpoint(self, path: str, iteration: Optional[int] = None
+                        ) -> str:
+        """Persist the current parameters (utils/checkpoint.py's .npz
+        layout, without the clip axis, as the JAX package writes it)."""
+        it = self.cfg.niter if iteration is None else int(iteration)
+        return save_params(path, self.params, iteration=it)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore parameters onto this model's device and dtype (from a
+        checkpoint of either package); returns the saved iteration index,
+        to pass as estim_param_a_posteriori(start_iter=...) for an exact
+        resume."""
+        params, it, _ = load_params(path, device=self.device,
+                                    dtype=self.dtype)
+        self.params = params
+        return it
 
     def retrieveSubsrcSignals(self) -> np.ndarray:
         """Alias kept for reference API parity: the separated source images."""

@@ -517,7 +517,9 @@ def kernel_eligible(ranks: Tuple[int, ...], real_cov: bool,
     the ROADMAP entry that ports it). Complex mixing, rank 2, mixed ranks,
     noise injection and fast_recip are all computed."""
     if I != 2:
-        return f"I = {I} channels (general-I engine, ROADMAP item 9)"
+        return (f"I = {I} channels (the kernels are the I = 2 E-step; "
+                "gem_step sends other channel counts to the general-I "
+                "engine, ops/engine_general.py)")
     if dtype != torch.float32:
         return (f"dtype {dtype} (the kernels are float32; float64 runs on "
                 "the CPU, ROADMAP kernel queue 1)")

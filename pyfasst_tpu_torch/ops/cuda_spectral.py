@@ -15,7 +15,9 @@ with V = FB TW rebuilt inside the kernel and Vc = max(V, vfloor). Each
 launches its kernel on a CUDA tensor and runs its plain PyTorch version
 (``fb_stats_ref``, ``tw_stats_ref``) on a CPU tensor; there is no fallback
 on CUDA. ``LAUNCHES`` counts the kernels' launches by name. The kernels
-take K <= MAX_K; a larger K raises NotImplementedError on CUDA.
+take K <= MAX_K: ``eligible`` is False for a larger K, so gem_step takes
+the plain update_spectral there, and a direct call raises
+NotImplementedError on CUDA.
 """
 from __future__ import annotations
 
@@ -118,8 +120,8 @@ def tw_stats(xi, FB, TW, vfloor):
 def eligible(params: FasstParams) -> bool:
     """Every spectral component is a plain two-factor free IS-NMF chain (FB
     and TW free, no FW/TB/FB2, NMF constraint), one per spatial source in
-    source order, float32, all of one rank K: the shapes the kernels stack
-    (pallas_spectral.py:192-212)."""
+    source order, float32, all of one rank K <= MAX_K: the shapes the
+    kernels stack (pallas_spectral.py:192-212) and the ranks they take."""
     if len(params.spec) != params.n_spat:
         return False
     K = None
@@ -134,7 +136,7 @@ def eligible(params: FasstParams) -> bool:
             K = c.FB.shape[-1]
         elif c.FB.shape[-1] != K:
             return False
-    return True
+    return K <= MAX_K
 
 
 def fused_spectral_update(params: FasstParams, stats,

@@ -11,19 +11,25 @@ Annealing: the additive noise PSD Sigma_b(f) is interpolated from
 sigma0(f) down to sigma1(f) over the run; it is load-bearing for the
 conditioning of the per-bin 2x2 inverses.
 
-E-step dispatch (gem_step):
-    CPU tensor                      estep.compute_suff_stats
-    CUDA tensor, kernel-eligible    cuda_estep.suff_stats_cuda: variant a
+E-step dispatch (gem_step), as the JAX gem_step takes it:
+    I != 2 channels, any device     engine_general.suff_stats_general, then
+                                    the unfused update_spectral. Plain
+                                    PyTorch on CUDA too: the JAX package's
+                                    general engine is plain XLA, with no
+                                    Pallas kernel to port
+    I = 2, CPU tensor               estep.compute_suff_stats
+    I = 2, CUDA, kernel-eligible    cuda_estep.suff_stats_cuda: variant a
                                     (real rank-1 mixing) or the general
                                     kernel (complex mixing, rank 2, mixed
                                     ranks, 'ann_ns_inj'); fast_recip in
                                     either (variant e)
-    CUDA tensor, anything else      NotImplementedError naming the
+    I = 2, CUDA, anything else      NotImplementedError naming the
                                     ROADMAP entry (float64, J outside 2-4)
 
 Spectral M-step dispatch (gem_step), as the JAX gem_step takes it:
-    CUDA tensor, fuse_spectral,     cuda_spectral.fused_spectral_update:
-    cuda_spectral.eligible          the fb_stats and tw_stats kernels
+    I = 2, CUDA tensor,             cuda_spectral.fused_spectral_update:
+    fuse_spectral,                  the fb_stats and tw_stats kernels
+    cuda_spectral.eligible
     anything else                   mstep.update_spectral (on the CPU
                                     fuse_spectral changes nothing, as in
                                     the JAX package, whose CPU path runs
@@ -38,6 +44,7 @@ import torch
 
 from pyfasst_tpu_torch.models.components import FasstParams
 from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral
+from pyfasst_tpu_torch.ops.engine_general import suff_stats_general
 from pyfasst_tpu_torch.ops.estep import compute_suff_stats
 from pyfasst_tpu_torch.ops.mstep import (
     _as_conv_A, renormalize, update_spatial, update_spectral,
@@ -48,7 +55,7 @@ from pyfasst_tpu_torch.utils.precision import highest_precision
 
 def annealing_endpoints(X, cfg: GEMConfig):
     """sigma0, sigma1 (B, F) as fractions of the mean per-frequency power of
-    the mixture STFT X (B, F, N, 2)."""
+    the mixture STFT X (B, F, N, I)."""
     return endpoints_from_power(torch.mean(X.abs() ** 2, dim=(-2, -1)), cfg)
 
 
@@ -86,10 +93,6 @@ def _estep(params, X, v, sigma, cfg: GEMConfig, x4):
     noise_inject = cfg.annealing == AnnealingMode.ANN_NS_INJ
     dev = X.device.type
     if dev == "cpu":
-        if X.shape[-1] != 2:
-            raise NotImplementedError(
-                f"I = {X.shape[-1]} channels: the general-I engine is not "
-                "ported yet (ROADMAP item 9)")
         Rj = spatial_covs(params, F)
         return compute_suff_stats(X, v, Rj, sigma, ranks, eps=cfg.eps,
                                   noise_inject=noise_inject, A_conv=A_conv)
@@ -116,10 +119,24 @@ def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,
     """One GEM iteration; returns updated params and the (B,) step
     log-likelihood.
 
-    X is the complex mixture STFT (B, F, N, 2). x4 optionally carries
+    X is the complex mixture STFT (B, F, N, I). x4 optionally carries
     cuda_estep.pack_x4(X), hoisted out of the loop by run_gem.
     """
     v = params.all_source_powers()                    # (B, J, F, N)
+    if X.shape[-1] != 2:
+        # the general-I engine, on either device, and the unfused spectral
+        # M-step (pyfasst_tpu/ops/gem.py:92-103)
+        F = X.shape[1]
+        stats = suff_stats_general(
+            X, v, tuple(_as_conv_A(c, F) for c in params.spat), sigma,
+            tuple(c.rank for c in params.spat), eps=cfg.eps,
+            noise_inject=cfg.annealing == AnnealingMode.ANN_NS_INJ)
+        params = update_spatial(params, stats, sigma,
+                                enabled=spatial_enabled)
+        params = update_spectral(params, stats, eps=cfg.eps, v=v)
+        if cfg.renormalize:
+            params = renormalize(params)
+        return params, stats.loglik
     stats = _estep(params, X, v, sigma, cfg, x4)
     params = update_spatial(params, stats, sigma, enabled=spatial_enabled)
     if (cfg.fuse_spectral and X.device.type == "cuda"
@@ -140,7 +157,7 @@ def run_gem(params: FasstParams, X, cfg: GEMConfig, start_iter: int = 0,
             ) -> Tuple[FasstParams, torch.Tensor]:
     """Run GEM iterations [start_iter, end_iter or cfg.niter).
 
-    X is the complex mixture STFT (B, F, N, 2). Returns (params, logliks)
+    X is the complex mixture STFT (B, F, N, I). Returns (params, logliks)
     with logliks a (B, cfg.niter) float32 tensor on X's device, entries
     outside the executed range left as they were (zero in a new tensor;
     pass `logliks` to fill one across chunks). The annealing schedule is a

@@ -111,7 +111,9 @@ def update_spatial(params: FasstParams, stats: SuffStats, sigma,
             boost = torch.sqrt(floor2 / torch.clamp(r2, min=1e-38))
             boost = torch.clamp(boost, min=1.0).to(A_new.real.dtype)
             A_new = A_new * boost[..., None, None]
-        A_new = A_new.to(comp.A.dtype)
+        # contiguous, as a loaded checkpoint's A is: a resumed run then
+        # repeats the uninterrupted one's products bit for bit
+        A_new = A_new.to(comp.A.dtype).contiguous()
         new_spat[j] = comp.replace(A=A_new)
         A_all[j] = _as_conv_A(new_spat[j], F)         # Gauss-Seidel refresh
     return params.replace(spat=tuple(new_spat))

@@ -1,7 +1,8 @@
 """Multichannel Wiener separation.
 
-Port of pyfasst_tpu/ops/wiener.py, with a leading clip axis B.
-Posterior-mean source images:
+Port of pyfasst_tpu/ops/wiener.py, with a leading clip axis B. I = 2 takes
+the packed 2x2 forms below; any other channel count the general-I engine
+(ops/engine_general.py). Posterior-mean source images:
 
     y^_j(f,n) = v_j(f,n) R_j(f) Sigma_x(f,n)^-1 x(f,n)
 
@@ -14,6 +15,9 @@ import torch
 
 from pyfasst_tpu_torch.models.components import FasstParams
 from pyfasst_tpu_torch.ops import herm
+from pyfasst_tpu_torch.ops.engine_general import (
+    separate_spatial_filter_general, separate_sources_general,
+)
 from pyfasst_tpu_torch.ops.estep import (
     cross_terms, mixture_cov, stable_mixture_det,
 )
@@ -30,19 +34,13 @@ def _herm_adj(P):
                        dim=-1)
 
 
-def _require_stereo(X):
-    if X.shape[-1] != 2:
-        raise NotImplementedError(
-            f"I = {X.shape[-1]} channels: the general-I engine is not "
-            "ported yet (ROADMAP item 9)")
-
-
 @highest_precision
 def separate_sources(params: FasstParams, X, sigma):
     """Wiener posterior-mean source images y^_j = v_j R_j Sigma_x^-1 x.
 
-    X: (B, F, N, 2) complex mixture STFT, sigma (B, F). Returns
-    (B, J, F, N, 2) complex.
+    X: (B, F, N, I) complex mixture STFT, sigma (B, F). Returns
+    (B, J, F, N, I) complex. I != 2 takes the general-I engine
+    (engine_general.separate_sources_general).
 
     Float32 numerics: computing R_j Sigma_x^-1 naively multiplies R_j by a
     noisy adjugate; near the annealed noise floor the (exactly zero for
@@ -56,7 +54,8 @@ def separate_sources(params: FasstParams, X, sigma):
     with det(R_j) = X_jj / 2 from the Lagrange cross terms and det(Sigma_x)
     from the nonnegative-monomial expansion.
     """
-    _require_stereo(X)
+    if X.shape[-1] != 2:
+        return separate_sources_general(params, X, sigma)
     F = X.shape[1]
     J = params.n_spat
     v = params.all_source_powers()                 # (B, J, F, N)
@@ -89,9 +88,11 @@ def separate_spatial_filter(params: FasstParams, X, sigma,
                             det_floor: float = 1e-30):
     """PSD-independent spatial filtering: G_j = R_j (sum_j' R_j' + sigma I)^-1.
 
-    One filter per source per frequency. Returns (B, J, F, N, 2) complex.
+    One filter per source per frequency. Returns (B, J, F, N, I) complex;
+    I != 2 takes engine_general.separate_spatial_filter_general.
     """
-    _require_stereo(X)
+    if X.shape[-1] != 2:
+        return separate_spatial_filter_general(params, X, sigma)
     F = X.shape[1]
     Rj = spatial_covs(params, F)                   # (B, J, F, 4)
     Stot = herm.add_noise_diag(torch.sum(Rj, dim=1), sigma)

@@ -499,3 +499,118 @@ def test_graph_capture_and_replay_launch_counts(dev):
     calls()
     assert cuda_estep.LAUNCHES == launches + 1
     assert cuda_spectral.LAUNCHES["fb_stats"] == spectral["fb_stats"] + 1
+
+
+# -- checkpoint/resume, batch separation, the general-I engine ------------------
+
+def _mix3(rng, n=8000, channels=3):
+    t = np.arange(n) / 16000
+    s1 = np.sin(2 * np.pi * 440 * t)
+    s2 = rng.standard_normal(n) * (np.sin(2 * np.pi * 3 * t) > 0)
+    return 0.3 * (np.outer(s1, [0.9, 0.5, 0.2][:channels])
+                  + np.outer(s2, [0.2, 0.6, 0.95][:channels]))
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+def test_general_engine_on_cuda_matches_cpu(dev, channels):
+    """I = 3 and mono run on the card in plain PyTorch (no kernel launch)
+    and agree with the CPU run at this file's bars."""
+    mix = _mix3(np.random.default_rng(channels), channels=channels)
+    kw = dict(fs=16000, nbComps=2, nbNMFComps=4, wlen=256, iter_num=10)
+    cpu = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, device="cpu", **kw)
+    gpu = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, device=dev, **kw)
+    gpu.params = convert.params_from_numpy(
+        convert.params_to_numpy(cpu.params), device=dev)
+    gpu.cfg = dataclasses.replace(gpu.cfg, fuse_spectral=True)
+    launches = cuda_estep.LAUNCHES
+    spectral = dict(cuda_spectral.LAUNCHES)
+    ll_gpu = gpu.estim_param_a_posteriori()
+    assert cuda_estep.LAUNCHES == launches
+    assert cuda_spectral.LAUNCHES == spectral
+    assert gpu.params.spec[0].TW.device.type == "cuda"
+    ll_cpu = cpu.estim_param_a_posteriori()
+    np.testing.assert_allclose(ll_gpu, ll_cpu, rtol=1e-4)
+    y_gpu, y_cpu = gpu.separated_images(), cpu.separated_images()
+    assert y_gpu.shape == (2, 8000, channels)
+    assert np.max(np.abs(y_gpu - y_cpu)) < 1e-3 * np.max(np.abs(y_cpu))
+
+
+def test_conv_batch_separate_on_cuda_matches_single_clips(dev):
+    """A B = 3 bucket of the conv model against three B = 1 buckets of the
+    same clips (one length, no padding): 10 launches of the kernel in each
+    run, B = 3 and B = 1 wide."""
+    from pyfasst_tpu_torch.parallel.batch import batch_separate
+    rng = np.random.default_rng(11)
+    F, N = 33, 64
+    Xs = [(rng.standard_normal((F, N, 2))
+           + 1j * rng.standard_normal((F, N, 2))).astype(np.complex64)
+          for _ in range(3)]
+    trees = [_tree(np.random.default_rng(20 + i), F, N, mix="conv")
+             for i in range(3)]
+
+    def make_params(F_, Npad, i):
+        return convert.params_from_numpy(trees[i])
+
+    cfg = GEMConfig(niter=10)
+    launches = cuda_estep.LAUNCHES
+    imgs, lls = batch_separate(Xs, make_params, cfg, device=dev,
+                               granularity=N)
+    assert cuda_estep.LAUNCHES == launches + 10
+    for i in range(3):
+        one, ll1 = batch_separate([Xs[i]], lambda F_, n, _: make_params(
+            F_, n, i), cfg, device=dev, granularity=N)
+        np.testing.assert_allclose(lls[i], ll1[0], rtol=1e-4)
+        assert np.max(np.abs(imgs[i] - one[0])) < 1e-3 * np.max(
+            np.abs(one[0]))
+
+
+def test_host_api_resume_on_cuda_is_bit_exact(dev, tmp_path):
+    """A run cut off after its checkpoint at iteration 6 and resumed by a
+    new model equals the uninterrupted run bit for bit on the card."""
+    mix = _mix3(np.random.default_rng(5), channels=2)
+    kw = dict(fs=16000, nbComps=2, nbNMFComps=4, wlen=256, iter_num=12,
+              device=dev)
+    straight = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, **kw)
+    ll_ref = straight.estim_param_a_posteriori()
+
+    class Stopped(Exception):
+        pass
+
+    first = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, **kw)
+    save = first.save_checkpoint
+
+    def save_then_stop(path, iteration=None):
+        save(path, iteration)
+        if iteration == 6:
+            raise Stopped()
+
+    first.save_checkpoint = save_then_stop
+    ck = str(tmp_path / "ck.npz")
+    with pytest.raises(Stopped):
+        first.estim_param_a_posteriori(checkpoint_path=ck,
+                                       checkpoint_every=3)
+    resumed = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, **kw)
+    assert resumed.load_checkpoint(ck) == 6
+    assert resumed.params.spat[0].A.device.type == "cuda"
+    ll = resumed.estim_param_a_posteriori(start_iter=6)
+    np.testing.assert_array_equal(ll[6:], ll_ref[6:])
+    for a, b in zip(convert.params_to_numpy(straight.params)[0]["spec"],
+                    convert.params_to_numpy(resumed.params)[0]["spec"]):
+        np.testing.assert_array_equal(a["TW"], b["TW"])
+        np.testing.assert_array_equal(a["FB"], b["FB"])
+
+
+def test_fuse_spectral_above_max_k_takes_the_plain_step(dev):
+    """K = 40 > MAX_K with fuse_spectral: no spectral kernel launch, and
+    the unfused run's numbers bit for bit."""
+    rng = np.random.default_rng(6)
+    params = convert.params_from_numpy(_tree(rng, 17, 30, K=40), device=dev)
+    X = _X(rng, 17, 30, dev)
+    spectral = dict(cuda_spectral.LAUNCHES)
+    p_f, ll_f = gem.run_gem(params, X, GEMConfig(niter=3,
+                                                 fuse_spectral=True))
+    assert cuda_spectral.LAUNCHES == spectral
+    p_u, ll_u = gem.run_gem(params, X, GEMConfig(niter=3))
+    assert torch.equal(ll_f, ll_u)
+    for a, b in zip(p_f.spec, p_u.spec):
+        assert torch.equal(a.TW, b.TW) and torch.equal(a.FB, b.FB)

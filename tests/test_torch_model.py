@@ -115,33 +115,56 @@ def test_model_writes_wavs(both_models, tmp_path):
 
 
 def test_model_chunked_estimation_is_exact(tmp_path):
+    """Chunks of 4 iterations, each saved to a checkpoint, give the
+    uninterrupted run's logliks bit for bit; chunks need a checkpoint path,
+    as in the JAX package."""
     wav = _write_mixture(str(tmp_path / "m.wav"), seconds=0.25, seed=1)
+    ck = str(tmp_path / "ck.npz")
     lls = []
     for every in (None, 4):
         m = pyfasst_tpu_torch.MultiChanNMFInst_FASST(
             wav, nbComps=2, nbNMFComps=3, wlen=256, iter_num=10,
             device="cpu")
-        lls.append(m.estim_param_a_posteriori(checkpoint_every=every))
+        lls.append(m.estim_param_a_posteriori(
+            checkpoint_path=ck if every else None, checkpoint_every=every))
     np.testing.assert_array_equal(lls[0], lls[1])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        m.estim_param_a_posteriori(checkpoint_path=str(tmp_path / "ck"))
+    assert m.load_checkpoint(ck) == 10
+    with pytest.raises(ValueError, match="requires checkpoint_path"):
+        m.estim_param_a_posteriori(checkpoint_every=4)
 
 
 def test_port_imports_no_jax(tmp_path):
-    """A separation through the port (the inst model, and the conv model
-    with DEMIX and the ERB basis) loads neither jax nor pyfasst_tpu."""
+    """A separation through the port (the inst model with a checkpointed
+    run, the conv model with DEMIX and the ERB basis, a 3-channel model,
+    batch_separate) loads neither jax nor pyfasst_tpu."""
     code = """
 import sys
 import numpy as np
+import torch
 import pyfasst_tpu_torch
+from pyfasst_tpu_torch import convert
 rng = np.random.default_rng(0)
 x = rng.standard_normal((4000, 2)) * 0.1
 m = pyfasst_tpu_torch.MultiChanNMFInst_FASST(x, fs=16000, nbComps=2,
                                              nbNMFComps=2, wlen=256,
                                              iter_num=3, device="cpu")
-ll = m.estim_param_a_posteriori()
+ll = m.estim_param_a_posteriori(checkpoint_path="ck.npz",
+                                checkpoint_every=2)
+assert m.load_checkpoint("ck.npz") == 3
 ys = m.separated_images()
 assert ys.shape == (2, 4000, 2) and np.all(np.isfinite(ll))
+m3 = pyfasst_tpu_torch.MultiChanNMFInst_FASST(
+    rng.standard_normal((4000, 3)) * 0.1, fs=16000, nbComps=2, nbNMFComps=2,
+    wlen=256, iter_num=3, device="cpu")
+assert np.all(np.isfinite(m3.estim_param_a_posteriori()))
+assert m3.separated_images().shape == (2, 4000, 3)
+imgs, lls = pyfasst_tpu_torch.batch_separate(
+    [m.Xs[0], m.Xs[0][:, :20]], lambda F, N, i: convert.params_from_numpy(
+        {"spat": [{"A": np.ones((2, 1))}, {"A": np.eye(2)[:, :1] + 0.1}],
+         "spec": [{"FB": np.ones((F, 2)), "TW": np.ones((2, N)),
+                   "spat_ind": j} for j in range(2)]}),
+    pyfasst_tpu_torch.GEMConfig(niter=2), device="cpu", granularity=16)
+assert imgs[1].shape == (2, 129, 20, 2)
 dm = pyfasst_tpu_torch.DEMIX(x, fs=16000, wlen=256)   # DEMIX and its STFT
 dm.comp_parameters(K=2)
 c = pyfasst_tpu_torch.MultiChanNMFConv(x, fs=16000, nbComps=2, nbNMFComps=2,
