@@ -26,6 +26,13 @@ alike. On the CPU every operation runs in plain PyTorch.
                                    checkpoint_every=100)
     start = model.load_checkpoint("run.npz")
 
+    # other front-ends, and the discrete-state and source-filter models
+    model = pyfasst_tpu_torch.MultiChanNMFInst_FASST(
+        "mixture.wav", transform=pyfasst_tpu_torch.ERBLetTransform(
+            fs=44100, n_bands=48, device="cuda"), device="cuda")
+    hmm = pyfasst_tpu_torch.MultiChanHMM("mixture.wav", nbStates=6,
+                                         sparsity="HMM", device="cuda")
+
     # many clips at once, padded into frame buckets
     images, logliks = pyfasst_tpu_torch.batch_separate(
         Xs, make_params, pyfasst_tpu_torch.GEMConfig(niter=400),
@@ -41,14 +48,24 @@ __version__ = "0.1.0"
 __all__ = [
     "AudioObject",
     "DEMIX",
+    "ERBLetTransform",
+    "ERBTransform",
     "FASST",
     "GEMConfig",
+    "MelBank",
+    "MinQTransfo",
+    "MultiChanHMM",
     "MultiChanNMFConv",
     "MultiChanNMFInst_FASST",
+    "MultiRateERBLet",
+    "STFT",
+    "SeparateLeadStereoTF",
     "batch_separate",
     "batch_separate_files",
     "load_params",
+    "multiChanSourceF0Filter",
     "save_params",
+    "wpe_dereverb",
 ]
 
 _LAZY = {
@@ -56,7 +73,17 @@ _LAZY = {
     "FASST": "pyfasst_tpu_torch.models",
     "MultiChanNMFInst_FASST": "pyfasst_tpu_torch.models",
     "MultiChanNMFConv": "pyfasst_tpu_torch.models",
+    "MultiChanHMM": "pyfasst_tpu_torch.models",
+    "multiChanSourceF0Filter": "pyfasst_tpu_torch.models",
+    "SeparateLeadStereoTF": "pyfasst_tpu_torch.models.lead",
     "DEMIX": "pyfasst_tpu_torch.models",
+    "STFT": "pyfasst_tpu_torch.tf",
+    "ERBLetTransform": "pyfasst_tpu_torch.tf",
+    "MultiRateERBLet": "pyfasst_tpu_torch.tf",
+    "MinQTransfo": "pyfasst_tpu_torch.tf",
+    "ERBTransform": "pyfasst_tpu_torch.tf",
+    "MelBank": "pyfasst_tpu_torch.tf",
+    "wpe_dereverb": "pyfasst_tpu_torch.tf",
     "GEMConfig": "pyfasst_tpu_torch.utils.config",
     "batch_separate": "pyfasst_tpu_torch.parallel.batch",
     "batch_separate_files": "pyfasst_tpu_torch.parallel.batch",

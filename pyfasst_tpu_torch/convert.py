@@ -5,8 +5,12 @@ the clip axis, in the JAX package's shapes:
 
     {"spat": [{"A": ndarray, "mix_type": "inst", "free": True}, ...],
      "spec": [{"FB": ndarray, "TW": ndarray, "FW": None, "TB": None,
+               "trans": None, "FB2": None, "TW2": None,
                "spat_ind": 0, "free": (True, False, True, False),
-               "constraint": "NMF"}, ...]}
+               "free2": (False, True), "constraint": "NMF",
+               "decode": "soft"}, ...]}
+
+Missing entries take the SpectralComp defaults.
 
 Any object with the same attributes (for instance a JAX FasstParams after
 ``jax.tree.map(np.asarray, params)``) is read the same way, so the tests can
@@ -26,8 +30,8 @@ from pyfasst_tpu_torch.models.components import (
 
 _SPAT_ARRAYS = ("A",)
 _SPAT_STATIC = ("mix_type", "free")
-_SPEC_ARRAYS = ("FB", "TW", "FW", "TB", "FB2", "TW2")
-_SPEC_STATIC = ("spat_ind", "free", "constraint")
+_SPEC_ARRAYS = ("FB", "TW", "FW", "TB", "trans", "FB2", "TW2")
+_SPEC_STATIC = ("spat_ind", "free", "free2", "constraint", "decode")
 
 
 def _get(obj, name, default=None):

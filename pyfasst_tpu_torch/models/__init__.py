@@ -15,6 +15,8 @@ _LAZY = {
     "FASST": "pyfasst_tpu_torch.models.fasst",
     "MultiChanNMFInst_FASST": "pyfasst_tpu_torch.models.variants",
     "MultiChanNMFConv": "pyfasst_tpu_torch.models.variants",
+    "MultiChanHMM": "pyfasst_tpu_torch.models.variants",
+    "multiChanSourceF0Filter": "pyfasst_tpu_torch.models.variants",
     "DEMIX": "pyfasst_tpu_torch.models.demix",
 }
 

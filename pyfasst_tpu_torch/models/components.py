@@ -5,6 +5,7 @@ B (the JAX package vmaps over clips instead); the host API uses B = 1:
 
     SpatialComp.A    'inst': real (B, I, R); 'conv': complex (B, F, I, R)
     SpectralComp.FB  (B, F, L)    FW (B, L, K)    TW (B, K, M)    TB (B, M, N)
+                 trans (B, Q, Q) or (B, Q)    FB2 (B, F, G)   TW2 (B, G, N)
 
 Structure (mixing type, freedom flags, constraint, spatial index) is plain
 Python. The dataclasses are frozen; updates build new ones with ``replace``.
@@ -79,20 +80,27 @@ class SpectralComp:
 
     FW and TB may be None, meaning identity. `free` flags which factors the
     M-step updates. `constraint` selects the TW update: NMF (multiplicative)
-    or GMM/HMM (discrete states, not ported yet). FB2/TW2 hold the optional
-    multiplicative second chain of source-filter models, whose updates are
-    not ported yet.
+    or GMM/HMM (discrete states, ops/hmm.py: TW holds the per-state gains;
+    `trans` is the (B, Q, Q) transition matrix for HMM or the (B, Q) prior
+    for GMM, never re-estimated; `decode` is "soft" (forward-backward
+    posteriors) or "viterbi" (the MAP path, HMM only)). FB2/TW2 hold the
+    optional multiplicative second chain of source-filter (SIMM) models,
+    v = (FB @ FW @ TW @ TB) * (FB2 @ TW2); `free2` flags which of FB2, TW2
+    the M-step updates.
     """
 
     FB: torch.Tensor
     TW: torch.Tensor
     FW: Optional[torch.Tensor] = None
     TB: Optional[torch.Tensor] = None
+    trans: Optional[torch.Tensor] = None
     FB2: Optional[torch.Tensor] = None
     TW2: Optional[torch.Tensor] = None
     spat_ind: int = 0
     free: Tuple[bool, bool, bool, bool] = (True, False, True, False)
+    free2: Tuple[bool, bool] = (False, True)
     constraint: str = NMF
+    decode: str = "soft"
 
     def replace(self, **kw) -> "SpectralComp":
         return dataclasses.replace(self, **kw)
@@ -149,6 +157,15 @@ class FasstParams:
 
 # -- initializers --------------------------------------------------------------
 
+def uniform_init(generator: torch.Generator, shape, dtype=torch.float32,
+                 device="cpu", batch: int = 1) -> torch.Tensor:
+    """0.5 + U[0, 1) of shape (batch,) + shape, drawn in float64 from the
+    CPU `generator` (the same numbers on every device), then cast."""
+    u = torch.rand((batch,) + tuple(shape), generator=generator,
+                   dtype=torch.float64)
+    return (0.5 + u).to(dtype=dtype, device=device)
+
+
 def init_nmf_comp(generator: torch.Generator, F: int, N: int, n_nmf: int,
                   spat_ind: int, dtype=torch.float32, device="cpu",
                   batch: int = 1,
@@ -165,9 +182,7 @@ def init_nmf_comp(generator: torch.Generator, F: int, N: int, n_nmf: int,
     packages, hand both the same parameters (convert.params_from_numpy).
     """
     def uniform(*shape):
-        u = torch.rand((batch,) + shape, generator=generator,
-                       dtype=torch.float64)
-        return (0.5 + u).to(dtype=dtype, device=device)
+        return uniform_init(generator, shape, dtype, device, batch)
 
     if fixed_FB is None:
         return SpectralComp(FB=uniform(F, n_nmf), TW=uniform(n_nmf, N),

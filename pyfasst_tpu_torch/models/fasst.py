@@ -16,8 +16,13 @@ engine (ops/engine_general.py). Checkpoints (save_checkpoint,
 load_checkpoint, estim_param_a_posteriori's checkpoint_path) use the JAX
 package's .npz layout (utils/checkpoint.py).
 
-Not ported yet: the blind estimators (estim_param_blind_*) and front-ends
-other than the STFT (item 11).
+The front-end is pluggable, as in the JAX package: the STFT by default,
+`tf_method="erblet"` for the perfect-reconstruction ERBlet transform, or
+any object with computeTransform / invertTransform passed as `transform`
+(tf.erblet.ERBLetTransform, tf.minqt.MinQTransfo, tf.filterbank.
+ERBTransform).
+
+Not ported yet: the blind estimators (estim_param_blind_*).
 """
 from __future__ import annotations
 
@@ -31,7 +36,10 @@ import torch
 from pyfasst_tpu_torch.audio import AudioObject
 from pyfasst_tpu_torch.models.components import FasstParams
 from pyfasst_tpu_torch.ops import wiener
-from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
+from pyfasst_tpu_torch.ops.gem import (
+    annealing_endpoints, observed_covariance, run_gem,
+)
+from pyfasst_tpu_torch.tf.erblet import ERBLetTransform
 from pyfasst_tpu_torch.tf.stft import STFT
 from pyfasst_tpu_torch.utils.checkpoint import load_params, save_params
 from pyfasst_tpu_torch.utils.config import GEMConfig
@@ -81,12 +89,17 @@ class FASST:
         self.dtype = torch.float64 if dtype == "float64" else torch.float32
         self.np_dtype = np.float64 if dtype == "float64" else np.float32
 
-        if transform is not None or tf_method != "fft":
-            raise NotImplementedError(
-                "only the STFT front-end (tf_method='fft') is ported yet "
-                "(ROADMAP item 11)")
-        self.tft = STFT(wlen=wlen, hop=hop, fs=self.fs, method=tf_method,
-                        device=self.device)
+        # Any object with computeTransform((T, I)) -> complex (F, N, I) and
+        # invertTransform(Y, nsamples) works; the GEM engine sees only the
+        # (F, N, I) plane. Features that map linear STFT bins (freq_basis,
+        # the F0 dictionaries) guard through `stft_wlen`.
+        if transform is not None:
+            self.tft = transform
+        elif tf_method == "erblet":
+            self.tft = ERBLetTransform(fs=self.fs, device=self.device)
+        else:
+            self.tft = STFT(wlen=wlen, hop=hop, fs=self.fs, method=tf_method,
+                            device=self.device)
         self.Xs = None       # (1, F, N, I) complex tensor on self.device
         self.comp_transf_Cx()
 
@@ -111,6 +124,25 @@ class FASST:
     def nchannels(self) -> int:
         return self.audio.channels
 
+    @property
+    def stft_wlen(self) -> int:
+        """Window length of the STFT front-end.
+
+        Features that map LINEAR rfft bins -- ERB/Mel `freq_basis` factors
+        (tf/filterbank.spectral_basis) and the WF0 comb dictionaries
+        (variants.generate_WF0*) -- are meaningless on an already
+        frequency-warped front-end (erblet/minqt); they guard through this
+        property so the failure is a clear error at construction.
+        """
+        wlen = getattr(self.tft, "wlen", None)
+        if wlen is None or getattr(self.tft, "name", "stft") != "stft":
+            name = getattr(self.tft, "name", type(self.tft).__name__)
+            raise ValueError(
+                "freq_basis / F0-dictionary features map linear STFT bins "
+                f"and require the STFT front-end; the '{name}' transform "
+                "is already frequency-warped")
+        return int(wlen)
+
     def comp_transf_Cx(self) -> None:
         """Analysis transform of the mixture.
 
@@ -121,10 +153,21 @@ class FASST:
         data = self.audio.data.astype(self.np_dtype)
         if data.shape[1] < 1:
             raise ValueError("mixture has no channels")
-        X = self.tft.computeTransform(data)            # (F, N, I) complex
+        X = torch.as_tensor(self.tft.computeTransform(data)).to(
+            self.device)                               # (F, N, I) complex
         mean_pow = float(torch.mean(X.abs() ** 2))
         self._scale = np.sqrt(max(mean_pow, 1e-30))
         self.Xs = (X / self._scale)[None]
+
+    @property
+    def Cx(self) -> torch.Tensor:
+        """Packed (1, F, N, 4) empirical mixture covariance, computed on
+        demand (an inspection and parity convenience; the GEM engine reads
+        Xs). Stereo only; for other channel counts form
+        Xs[..., :, None] * Xs[..., None, :].conj() directly."""
+        if self.Xs.shape[-1] != 2:
+            raise ValueError("packed Cx is defined for stereo input only")
+        return observed_covariance(self.Xs)
 
     # -- estimation ----------------------------------------------------------
     def estim_param_a_posteriori(self, niter: Optional[int] = None,

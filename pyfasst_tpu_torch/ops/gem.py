@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from pyfasst_tpu_torch.models.components import FasstParams
-from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral
+from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral, herm
 from pyfasst_tpu_torch.ops.engine_general import suff_stats_general
 from pyfasst_tpu_torch.ops.estep import compute_suff_stats
 from pyfasst_tpu_torch.ops.mstep import (
@@ -51,6 +51,13 @@ from pyfasst_tpu_torch.ops.mstep import (
 )
 from pyfasst_tpu_torch.utils.config import AnnealingMode, GEMConfig
 from pyfasst_tpu_torch.utils.precision import highest_precision
+
+
+def observed_covariance(X):
+    """Packed empirical covariance Rxx(f,n) = x x^H, (..., F, N, 4), of a
+    stereo STFT (..., F, N, 2). An inspection convenience: the E-step
+    works on X directly."""
+    return herm.herm_from_outer(X[..., 0], X[..., 1])
 
 
 def annealing_endpoints(X, cfg: GEMConfig):

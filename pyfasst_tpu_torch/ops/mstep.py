@@ -14,10 +14,14 @@ Port of pyfasst_tpu/ops/mstep.py, with a leading clip axis B:
     posterior PSD xi_j, factors updated sequentially with V_j refreshed
     after each update.
 
+  - source-filter (SIMM) components, v = chain1 * (FB2 @ TW2): each
+    chain's multiplicative updates weighted by the other chain's envelope.
+
+  - GMM/HMM components: free FB/FW learn by their NMF rules, then the
+    discrete-state E-step (ops/hmm.py) replaces the TW update.
+
 The solves use torch.linalg.solve_ex(check_errors=False): it does not
 check its result on the host, so the GEM loop never waits for the device.
-The SIMM (source-filter) and GMM/HMM branches are not ported yet (ROADMAP
-item 10) and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import torch
 from pyfasst_tpu_torch.models.components import (
     INST, NMF, FasstParams, SpatialComp, SpectralComp,
 )
-from pyfasst_tpu_torch.ops import herm
+from pyfasst_tpu_torch.ops import herm, hmm
 from pyfasst_tpu_torch.ops.estep import SuffStats
 
 
@@ -181,6 +185,67 @@ def _nmf_factor_updates(comp: SpectralComp, P, V, eps: float
     return comp, V
 
 
+def _simm_factor_updates(comp: SpectralComp, P, V, eps: float
+                         ) -> Tuple[SpectralComp, torch.Tensor]:
+    """Multiplicative source-filter component: v = chain1 * (FB2 @ TW2).
+
+    IS-NMF multiplicative updates where each chain's gradient is weighted by
+    the OTHER chain's envelope (cf. Durrieu's SIMM; models/lead.py uses the
+    same rules standalone).
+    """
+    def mul_upd(factor, num_term, den_term):
+        return _mul_upd(factor, num_term, den_term, eps)
+
+    vk = comp.power()
+    v_floor = 1e-12 * torch.mean(P, dim=(-2, -1), keepdim=True) + eps
+    # chain1 factors (standard rules on the envelope-weighted residual)
+    for idx in range(4):
+        if not comp.free[idx]:
+            continue
+        Vc = torch.maximum(V, v_floor)
+        E2 = comp.FB2 @ comp.TW2
+        num = (P / (Vc * Vc)) * E2
+        den = (1.0 / Vc) * E2
+        W = comp.freq_pattern()
+        H = comp.time_activation()
+        if idx == 0:
+            rest = H if comp.FW is None else comp.FW @ H
+            comp = comp.replace(FB=mul_upd(comp.FB, num @ rest.mT,
+                                           den @ rest.mT))
+        elif idx == 1:
+            comp = comp.replace(FW=mul_upd(comp.FW, (comp.FB.mT @ num) @ H.mT,
+                                           (comp.FB.mT @ den) @ H.mT))
+        elif idx == 2:
+            lhs_n, lhs_d = W.mT @ num, W.mT @ den
+            if comp.TB is not None:
+                lhs_n, lhs_d = lhs_n @ comp.TB.mT, lhs_d @ comp.TB.mT
+            comp = comp.replace(TW=mul_upd(comp.TW, lhs_n, lhs_d))
+        else:
+            G = W @ comp.TW
+            comp = comp.replace(TB=mul_upd(comp.TB, G.mT @ num, G.mT @ den))
+        vk_new = comp.power()
+        V = V - vk + vk_new
+        vk = vk_new
+    # chain2 factors (weighted by chain1's product)
+    for idx2 in range(2):
+        if not comp.free2[idx2]:
+            continue
+        Vc = torch.maximum(V, v_floor)
+        C1 = comp.freq_pattern() @ comp.time_activation()
+        num = (P / (Vc * Vc)) * C1
+        den = (1.0 / Vc) * C1
+        if idx2 == 0:
+            comp = comp.replace(FB2=mul_upd(comp.FB2, num @ comp.TW2.mT,
+                                            den @ comp.TW2.mT))
+        else:
+            comp = comp.replace(TW2=mul_upd(comp.TW2, comp.FB2.mT @ num,
+                                            comp.FB2.mT @ den))
+        vk_new = comp.power()
+        V = V - vk + vk_new
+        vk = vk_new
+    return comp, V
+
+
 def update_spectral(params: FasstParams, stats: SuffStats,
                     eps: float = 1e-30, v=None) -> FasstParams:
     """One spectral M-step: every free factor of every component.
@@ -202,15 +267,20 @@ def update_spectral(params: FasstParams, stats: SuffStats,
                 V = V + spec[i].power()
         for i in idxs:
             comp = spec[i]
-            if comp.FB2 is not None:
-                raise NotImplementedError(
-                    "source-filter (SIMM) spectral updates are not ported "
-                    "yet (ROADMAP item 10)")
-            if comp.constraint != NMF:
-                raise NotImplementedError(
-                    f"{comp.constraint} spectral updates are not ported yet "
-                    "(ROADMAP item 10)")
-            comp, V = _nmf_factor_updates(comp, P, V, eps)
+            if comp.FB2 is not None:   # multiplicative source-filter (SIMM)
+                comp, V = _simm_factor_updates(comp, P, V, eps)
+            elif comp.constraint == NMF:
+                comp, V = _nmf_factor_updates(comp, P, V, eps)
+            else:
+                # GMM / HMM: the discrete-state E-step replaces the TW
+                # update, but free FB/FW (the state spectral templates)
+                # still learn by their NMF rules
+                if comp.free[0] or comp.free[1]:
+                    nmf_free = (comp.free[0], comp.free[1], False, False)
+                    comp, V = _nmf_factor_updates(
+                        comp.replace(free=nmf_free), P, V, eps)
+                    comp = comp.replace(free=spec[i].free)
+                comp, V = hmm.state_factor_update(comp, P, V, eps)
             spec[i] = comp
     return params.replace(spec=tuple(spec))
 
@@ -252,14 +322,19 @@ def renormalize(params: FasstParams) -> FasstParams:
 
 
 def _scale_first_free(comp: SpectralComp, s) -> SpectralComp:
-    """Multiply the first free factor by the per-clip scale s (B,). (The
-    JAX package's fallback to a source-filter second chain waits for the
-    SIMM updates, ROADMAP item 10.)"""
+    """Multiply the first free factor by the per-clip scale s (B,); with no
+    free factor in the first chain, a source-filter component's first free
+    factor of the second (FB2, TW2)."""
     names = ("FB", "FW", "TW", "TB")
     for idx, name in enumerate(names):
         factor = getattr(comp, name)
         if comp.free[idx] and factor is not None:
             return comp.replace(**{name: factor * s[:, None, None]})
+    if comp.FB2 is not None:
+        for idx2, name in enumerate(("FB2", "TW2")):
+            if comp.free2[idx2]:
+                return comp.replace(
+                    **{name: getattr(comp, name) * s[:, None, None]})
     return comp
 
 

@@ -1,17 +1,23 @@
-"""ERB / Mel triangle filterbanks as fixed spectral bases.
+"""ERB / Mel triangle filterbanks: fixed spectral bases and a front-end.
 
-Port of pyfasst_tpu/tf/filterbank.py (``spectral_basis`` and the banks
-under it). It is NumPy and runs on the host: the bank is built once per
-model and handed to the model as the fixed FB factor (F x B) of each NMF
-component, with the free pattern weights FW on the band grid. The
-``ERBTransform`` and ``MelBank`` front-ends are not ported yet (ROADMAP
-item 11).
+Port of pyfasst_tpu/tf/filterbank.py. The banks are NumPy and built on the
+host once per model: ``spectral_basis`` hands one to the model as the fixed
+FB factor (F x B) of each NMF component, with the free pattern weights FW
+on the band grid. ``ERBTransform`` is an analysis/synthesis front-end over
+the port's STFT: the bank and its least-squares dual (NumPy ``pinv`` on the
+host, as the JAX class computes it) are applied as tensor products on the
+spectra's device. ``MelBank`` applies a Mel bank to a power spectrogram.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
+
+from pyfasst_tpu_torch.tf.stft import STFT
+from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE
+from pyfasst_tpu_torch.utils.precision import highest_precision
 
 
 # -- frequency scales ---------------------------------------------------------
@@ -94,3 +100,67 @@ def spectral_basis(kind: str, n_bands: int, F: int, fs: int, wlen: int,
         raise ValueError(f"unknown filterbank kind: {kind!r}")
     bank = bank / np.maximum(bank.sum(axis=1, keepdims=True), 1e-12)
     return bank.T.copy()  # (F, B)
+
+
+@highest_precision
+def _along_freq(M: np.ndarray, X: torch.Tensor) -> torch.Tensor:
+    """The matrix M (G, F) applied along the frequency axis of spectra
+    (F, N) or (..., F, N, I): (G, N) or (..., G, N, I), in X's dtype on X's
+    device."""
+    Mt = torch.as_tensor(M, dtype=X.dtype, device=X.device)
+    if X.ndim == 2:
+        return Mt @ X
+    return torch.einsum("gf,...fni->...gni", Mt, X)
+
+
+class MelBank:
+    """Thin object wrapper over mel_filterbank (kept for API discovery):
+    calling it applies the (B, F) bank to a power spectrogram (F, N[, I]),
+    a tensor (on its device) or an array (on the host)."""
+
+    def __init__(self, n_bands: int, F: int, fs: int, wlen: int, **kw):
+        self.bank = mel_filterbank(n_bands, F, fs, wlen, **kw)
+
+    def __call__(self, power_spec):
+        if isinstance(power_spec, torch.Tensor):
+            return _along_freq(self.bank, power_spec)
+        return self.bank @ power_spec
+
+
+class ERBTransform:
+    """ERB-scale analysis front-end over the port's STFT.
+
+    computeTransform / invertTransform, as the reference's transform
+    objects. Analysis maps the STFT to B ERB bands through the filterbank;
+    synthesis uses the least-squares dual (pinv), so invert(compute(x))
+    reconstructs the band-limited projection. Spectra live on `device` (the
+    card unless the caller asks for "cpu"); invertTransform also takes
+    leading axes, (..., B, N, I).
+    """
+
+    name = "erb"
+
+    def __init__(self, n_bands: int = 80, wlen: int = 1024,
+                 hop: Optional[int] = None, fs: int = 44100,
+                 fmin: float = 20.0, fmax: Optional[float] = None,
+                 device=DEFAULT_DEVICE):
+        self.stft = STFT(wlen=wlen, hop=hop, fs=fs, device=device)
+        self.device = self.stft.device
+        self.n_bands = int(n_bands)
+        self.bank = erb_filterbank(n_bands, self.stft.F, fs, wlen,
+                                   fmin=fmin, fmax=fmax)  # (B, F)
+        self.dual = np.linalg.pinv(self.bank)             # (F, B)
+        self.F = self.n_bands
+
+    def computeTransform(self, data) -> torch.Tensor:
+        """(T[, I]) -> complex (B, N[, I])."""
+        return _along_freq(self.bank, self.stft.computeTransform(data))
+
+    def invertTransform(self, Xb, nsamples: Optional[int] = None):
+        if not isinstance(Xb, torch.Tensor):
+            Xb = torch.as_tensor(np.asarray(Xb), device=self.device)
+        return self.stft.invertTransform(_along_freq(self.dual, Xb),
+                                         nsamples)
+
+    forward = computeTransform
+    inverse = invertTransform

@@ -1,8 +1,11 @@
 """STFT / inverse STFT with weighted overlap-add (WOLA).
 
-Port of pyfasst_tpu/tf/stft.py (the "fft" method; block streaming is not
-ported yet). Framing is ``Tensor.unfold`` plus a batched rfft; synthesis is
-an overlap-add of shifted dense adds.
+Port of pyfasst_tpu/tf/stft.py (block streaming is not ported yet).
+Framing is ``Tensor.unfold``. The "fft" method (the default) takes a batched
+rfft of the frames; the "matmul" method two real full-float32 products with
+the DFT's cosine and sine matrices, as the JAX package's GEMM-native path
+does (a parity target, not a fast path: cuFFT is the fast one). Synthesis
+is an overlap-add of shifted dense adds.
 
 Reconstruction is exact (not just COLA-approximate): the inverse divides by
 the per-sample window-energy sum sum_k w^2[t - k*hop], so any window/hop
@@ -71,19 +74,40 @@ def _ola_norm(window: torch.Tensor, n_frames: int, wlen: int, hop: int,
     return torch.clamp(wsum, min=1e-12)
 
 
+def _dft_matrices(wlen: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real/imag rfft matrices (float64) for the matmul path:
+    X = frames @ (C - iS)."""
+    f = np.arange(wlen // 2 + 1)
+    t = np.arange(wlen)
+    ang = 2.0 * np.pi * np.outer(t, f) / wlen
+    return np.cos(ang), np.sin(ang)
+
+
+def _frames(x: torch.Tensor, wlen: int, hop: int) -> torch.Tensor:
+    """Unwindowed frames of a signal (nsamples,) or (..., nsamples, I),
+    padded as _frame_geometry says: (N, wlen) or (..., I, N, wlen), time
+    last (a view of the padded signal, the port's form of the JAX
+    package's _frame_by_reshape)."""
+    nsamples = x.shape[0] if x.ndim == 1 else x.shape[-2]
+    pad_front, pad_back, _, _ = _frame_geometry(nsamples, wlen, hop)
+    xt = x if x.ndim == 1 else x.transpose(-1, -2)       # time last
+    xp = torch.nn.functional.pad(xt, (pad_front, pad_back))
+    return xp.unfold(-1, wlen, hop)
+
+
 @highest_precision
 def _stft_core(x: torch.Tensor, window: torch.Tensor, wlen: int, hop: int,
                method: str = "fft") -> torch.Tensor:
     """(nsamples,) -> (F, N); (..., nsamples, I) -> (..., F, N, I)."""
-    if method != "fft":
-        raise NotImplementedError(
-            f"STFT method {method!r} is not ported; use 'fft'")
-    nsamples = x.shape[0] if x.ndim == 1 else x.shape[-2]
-    pad_front, pad_back, n_frames, _ = _frame_geometry(nsamples, wlen, hop)
-    xt = x if x.ndim == 1 else x.transpose(-1, -2)       # time last
-    xp = torch.nn.functional.pad(xt, (pad_front, pad_back))
-    frames = xp.unfold(-1, wlen, hop) * window           # (..., N, wlen)
-    X = torch.fft.rfft(frames, dim=-1)                   # (..., N, F)
+    frames = _frames(x, wlen, hop) * window              # (..., N, wlen)
+    if method == "matmul":
+        C, S = (torch.as_tensor(m, dtype=x.dtype, device=x.device)
+                for m in _dft_matrices(wlen))
+        X = torch.complex(frames @ C, -(frames @ S))     # (..., N, F)
+    elif method == "fft":
+        X = torch.fft.rfft(frames, dim=-1)               # (..., N, F)
+    else:
+        raise ValueError(f"unknown STFT method {method!r}")
     if x.ndim == 1:
         return X.transpose(0, 1)                          # (F, N)
     return X.permute(*range(X.ndim - 3), -1, -2, -3)     # (..., F, N, I)

@@ -26,9 +26,6 @@ from pyfasst_tpu_torch.models.components import (
 )
 
 _FACTORS = ("FB", "FW", "TW", "TB", "trans", "FB2", "TW2")
-# fields of the JAX package's SpectralComp that the port does not carry;
-# written with the JAX package's defaults
-_FREE2, _DECODE = (False, True), "soft"
 
 
 def save_params(path: str, params: FasstParams, iteration: int = 0,
@@ -69,8 +66,8 @@ def save_params(path: str, params: FasstParams, iteration: int = 0,
                 present.append(name)
         meta["spec"].append({
             "spat_ind": c.spat_ind, "free": list(c.free),
-            "free2": list(_FREE2), "constraint": c.constraint,
-            "decode": _DECODE, "present": present,
+            "free2": list(c.free2), "constraint": c.constraint,
+            "decode": c.decode, "present": present,
         })
     arrays["__meta__"] = np.frombuffer(
         json.dumps(meta).encode(), dtype=np.uint8)
@@ -90,8 +87,6 @@ def load_params(path: str, device="cpu", dtype: Optional[torch.dtype] = None
     arrays), the stacked B otherwise. dtype None keeps each leaf's dtype
     (real stays real, complex stays complex); a real dtype converts real
     leaves to it and complex ones to the complex dtype of that precision.
-    A checkpoint of a GMM/HMM model (transition factors) raises
-    NotImplementedError.
     """
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
@@ -112,15 +107,12 @@ def load_params(path: str, device="cpu", dtype: Optional[torch.dtype] = None
                  for j, m in enumerate(meta["spat"]))
     spec = []
     for k, m in enumerate(meta["spec"]):
-        if "trans" in m["present"]:
-            raise NotImplementedError(
-                f"{path}: spectral component {k} carries HMM/GMM state "
-                "transitions; discrete-state models are not ported yet "
-                "(ROADMAP item 10)")
         kw = {name: up(arrays[f"spec_{k}_{name}"]) for name in m["present"]}
         spec.append(SpectralComp(spat_ind=m["spat_ind"],
                                  free=tuple(m["free"]),
-                                 constraint=m["constraint"], **kw))
+                                 free2=tuple(m.get("free2", (False, True))),
+                                 constraint=m["constraint"],
+                                 decode=m.get("decode", "soft"), **kw))
     extra = meta.get("extra", {})
     for name in meta.get("extra_array_names", []):
         extra[name] = arrays[f"xtr_{name}"]

@@ -137,8 +137,13 @@ def test_load_converts_dtype_and_refuses_state_models(tmp_path):
         trans=jnp.full((3, 3), 1.0 / 3), constraint="HMM"),
         jparams.spec[1]))
     jckpt.save_params(path, hmm)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tckpt.load_params(path)
+    # state models load since the discrete-state port: trans with its
+    # clip axis, the constraint and decode fields as written
+    params, _, _ = tckpt.load_params(path)
+    assert params.spec[0].constraint == "HMM"
+    assert params.spec[0].decode == "soft"
+    np.testing.assert_array_equal(params.spec[0].trans[0].numpy(),
+                                  np.full((3, 3), 1.0 / 3, np.float32))
 
 
 def _tiny_model(tmp_path, nan_bin=False):

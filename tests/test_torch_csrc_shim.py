@@ -94,12 +94,14 @@ def _rel(got, want):
 
 # N = 1, 31, 33: one frame, one short of and one past a warp's tile of 32;
 # 45 and 129: a second tile and a fifth (a second turn of warp 0), ragged;
-# 200: every warp twice, the last tile ragged
+# 200: every warp twice, the last tile ragged; 20011: a long ragged row,
+# as the ERBlet plane's (F = 48, N = 98304) gives each lane hundreds of
+# frames to sum before the butterfly
 @pytest.mark.parametrize("B,J,F,N,flag", [
     (1, 2, 3, 1, ""), (1, 2, 2, 31, "fast_recip"), (2, 2, 2, 33, "no_ll"),
     (1, 2, 3, 45, ""), (1, 2, 2, 200, ""), (1, 2, 1, 129, "fast_recip"),
     (1, 3, 2, 7, ""), (1, 3, 2, 33, "fast_recip"), (1, 3, 2, 70, "no_ll"),
-    (2, 3, 1, 129, "")])
+    (2, 3, 1, 129, ""), (1, 2, 3, 20011, "")])
 def test_estep_r1_real_source_matches_plain_version(lib, B, J, F, N, flag):
     rng = np.random.default_rng(B * F * N + J)
     x4 = _t(rng.standard_normal((B, 4, F, N)))

@@ -65,12 +65,14 @@ def _rel(got, want):
     return float(((got - want).abs() / (want.abs() + floor)).max())
 
 
-# the last six cross the kernel's tiles of 32 frames: N = 1, 31, 33 and 7
+# the next six cross the kernel's tiles of 32 frames: N = 1, 31, 33 and 7;
+# the last is the ERBlet plane's few long rows (F = 48), its N ragged
 @pytest.mark.parametrize("B,J,F,N", [(2, 2, 33, 70), (1, 2, 9, 2500),
                                      (2, 3, 17, 40), (8, 2, 513, 863),
                                      (2, 2, 5, 1), (1, 2, 13, 31),
                                      (2, 2, 13, 33), (1, 2, 3, 7),
-                                     (1, 3, 13, 31), (2, 3, 9, 33)])
+                                     (1, 3, 13, 31), (2, 3, 9, 33),
+                                     (1, 2, 48, 98299)])
 def test_kernel_matches_plain_version(dev, B, J, F, N):
     rng = np.random.default_rng(B * F * N)
     x4 = torch.as_tensor(rng.standard_normal((B, 4, F, N)),
@@ -614,3 +616,66 @@ def test_fuse_spectral_above_max_k_takes_the_plain_step(dev):
     assert torch.equal(ll_f, ll_u)
     for a, b in zip(p_f.spec, p_u.spec):
         assert torch.equal(a.TW, b.TW) and torch.equal(a.FB, b.FB)
+
+
+# -- front-ends and state models (ROADMAP items 10 and 11) -------------------
+
+def test_erblet_and_minqt_on_cuda_match_cpu(dev):
+    """The warped front-ends on the card: analysis and synthesis within
+    1e-5 of the CPU runs' peak (cuFFT against pocketfft), and the ERBlet's
+    gather synthesis the same bits on every run (no atomics)."""
+    from pyfasst_tpu_torch.tf import ERBLetTransform, MinQTransfo
+    x = np.random.default_rng(20).standard_normal((24000, 2)).astype(
+        np.float32)
+    for make in (lambda d: ERBLetTransform(fs=16000, n_bands=48, device=d),
+                 lambda d: MinQTransfo(fs=16000, wlen=1024, n_bins=48,
+                                       fmin=60, fmax=7000, device=d)):
+        cpu, gpu = make("cpu"), make(dev)
+        Cc, Cg = cpu.computeTransform(x), gpu.computeTransform(x)
+        assert Cg.device.type == "cuda"
+        err = float((Cg.cpu() - Cc).abs().max() / Cc.abs().max())
+        assert err < 1e-5, err
+        yc, yg = cpu.invertTransform(Cc), gpu.invertTransform(Cc.to(dev))
+        assert float((yg.cpu() - yc).abs().max() / yc.abs().max()) < 1e-5
+        assert torch.equal(gpu.invertTransform(Cc.to(dev)), yg)
+
+
+def _switch_mix(seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(8000) / 8000
+    s1 = np.where(np.sin(2 * np.pi * 2 * t) > 0, np.sin(2 * np.pi * 300 * t),
+                  np.sin(2 * np.pi * 900 * t))
+    s2 = 0.3 * rng.standard_normal(t.size)
+    return (np.outer(s1, [0.9, 0.35])
+            + np.outer(s2, [0.35, 0.9])).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["HMM", "GMM", "viterbi", "simm"])
+def test_state_models_on_cuda_match_cpu(dev, kind):
+    """MultiChanHMM (soft, GMM, viterbi) and the source-filter model on the
+    card through kernel 1a, against the CPU run of the same parameters."""
+    from pyfasst_tpu_torch import MultiChanHMM, multiChanSourceF0Filter
+    mix = _switch_mix(21)
+    kw = dict(fs=8000, nbComps=2, iter_num=10, sigma_end_frac=1e-4)
+    if kind == "simm":
+        def make(d):
+            return multiChanSourceF0Filter(mix, nbNMFComps=3, wlen=512,
+                                           n_f0=30, f0_min=100, f0_max=600,
+                                           n_filter_bands=8, device=d, **kw)
+    else:
+        def make(d):
+            return MultiChanHMM(mix, nbStates=3, wlen=256,
+                                sparsity="GMM" if kind == "GMM" else "HMM",
+                                decode="viterbi" if kind == "viterbi"
+                                else "soft", self_trans=0.95, device=d,
+                                **kw)
+    cpu, gpu = make("cpu"), make(dev)
+    gpu.params = convert.params_from_numpy(
+        convert.params_to_numpy(cpu.params), device=dev)
+    launches = cuda_estep.VARIANT_LAUNCHES["a"]
+    ll_gpu = gpu.estim_param_a_posteriori()
+    assert cuda_estep.VARIANT_LAUNCHES["a"] == launches + 10
+    ll_cpu = cpu.estim_param_a_posteriori()
+    np.testing.assert_allclose(ll_gpu, ll_cpu, rtol=1e-4)
+    y_gpu, y_cpu = gpu.separated_images(), cpu.separated_images()
+    assert np.max(np.abs(y_gpu - y_cpu)) < 1e-3 * np.max(np.abs(y_cpu))

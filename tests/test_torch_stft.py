@@ -92,5 +92,9 @@ def test_object_api_shapes():
     y = tr.invertTransform(X).numpy()
     assert y.shape == (n, 2)
     assert np.linalg.norm(y - x) / np.linalg.norm(x) < 1e-6
-    with pytest.raises(NotImplementedError):
-        stft(x, wlen=256, method="matmul")
+    # the "matmul" method gives the "fft" method's spectra
+    Xm = STFT(wlen=1024, hop=512, fs=FS, method="matmul",
+              device="cpu").computeTransform(x)
+    assert float((Xm - X).abs().max()) < 2e-6 * float(X.abs().max())
+    with pytest.raises(ValueError, match="method"):
+        stft(x, wlen=256, method="dft")
