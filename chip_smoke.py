@@ -26,8 +26,9 @@ Phases (each prints one line with its numbers and seconds):
      a ragged one; the spectral kernels fb_stats and tw_stats at the bench
      shapes (J=2, K=8), the JAX suite's (37, 95), (130, 300) and J=3,
      K=4 (70, 211), and across their tiles, strips, batches and chunks with
-     K=16 and 32 (SPECTRAL_SHAPES), two runs bit for bit; and variant a at
-     phase 13's shape (1, 48, 98304), timed;
+     K=16 and 32 (SPECTRAL_SHAPES), two runs bit for bit; variant a at
+     phase 13's shape (1, 48, 98304), timed; and variant b at J=2 and
+     phase 15's block shape (1, 513, 64), two runs bit for bit, timed;
   3. the host API: MultiChanNMFInst_FASST on a 10 s stereo WAV, 500 GEM
      iterations, WAVs written; the kernel must carry every E-step and the
      separation must reach 60 dB SDR;
@@ -93,7 +94,20 @@ Phases (each prints one line with its numbers and seconds):
      min SDR within 1 dB of the port's CPU run (the Viterbi row: at least
      20 dB and 20 dB above the equal-K NMF, see CPU_SDR_SLICE), a
      profiler window of the HMM (kernels per iteration: the
-     forward-backward recursion's).
+     forward-backward recursion's);
+  15. the long-form rows of tools/validate_hw.py (16 kHz, wlen 1024, 64
+     frames per block, J = 2, K = 8, 6 inner iterations), on the card and
+     then through the port's CPU run of the same recipe: the 120 s stereo
+     stream through the host-driven online_block loop (two passes) and
+     through separate_streaming(init="blind") (DEMIX on its first 12 s),
+     variant b launched 7 times per block step of each; an
+     estimate_blocks cut of the stream resumed from its checkpoint, equal
+     to the uninterrupted run bit for bit; the 60 s diffuse stream with
+     spatial_rank=-1 (no E-step launch) and its rank-1 twin; and the
+     blind mono row (estim_param_blind_mono, 300 iterations, no launch):
+     every min SDR within 1 dB of the CPU run; the streams' xRT, a
+     profiler window of 10 block steps and the bounded path's peak
+     device memory beside the full plane's bytes.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -243,9 +257,28 @@ NITER_MONO = 200
 CPU_SDR_GENERAL = {"I3": 80.18, "mono": 2.52}
 # phase 12: an NMF rank above cuda_spectral.MAX_K
 K_BIG, NITER_K_BIG = 40, 20
+# phase 15: the long-form rows of tools/validate_hw.py at 16 kHz, wlen 1024:
+# scenario_streaming (:677-806, seed 112: 120 s of two panned dense-band
+# noises; 64 frames per block, J = 2, K = 8, forgetting 0.95, 6 inner
+# iterations; the host-driven online_block loop from the default init, and
+# separate_streaming(init="blind") with its 12 s DEMIX prefix), its
+# estimate_blocks cut and resume, scenario_streaming_fullrank (:809-865,
+# seed 113: 60 s of diffuse rank-2 sources, spatial_rank=-1 and 1 on the
+# same file) and the mono row of scenario_general_I (:626-640, seed 110:
+# estim_param_blind_mono, K = 6, 300 iterations). Not cut. Each row's min
+# SDR must lie within SDR_SLACK of the port's CPU run of the same recipe,
+# made in the same phase
+SEED_STREAM, SEED_STREAM_FR, SEED_MONO = 112, 113, 110
+DUR_STREAM, DUR_STREAM_FR = 120.0, 60.0
+NB_STREAM, K_STREAM, INNER_STREAM, FORGET_STREAM = 64, 8, 6, 0.95
+NOISE_STREAM = 1e-3                # the host loop's sigma: validate_hw's
+STREAM_CUT, STREAM_CK_EVERY = 20, 10
+NITER_BLIND_MONO = 300
+# variant b's shape on the streaming path: one block of one clip
+STREAM_SHAPE = (1, 2, WLEN_CONV // 2 + 1, NB_STREAM)
 # general E-step instantiations the paths take: (J, rmax, real_cov, ns_inj)
 GENERAL_PATH_INSTANCES = {"b": (3, 1, 0, 0), "c": (4, 2, 0, 0),
-                          "d": (3, 1, 0, 1)}
+                          "d": (3, 1, 0, 1), "b stream": (2, 1, 0, 0)}
 
 
 def log(msg: str) -> None:
@@ -575,6 +608,17 @@ def _rel_err(got, want):
     return float(((got - want).abs() / (want.abs() + floor)).max())
 
 
+def _estep_errors(got, want):
+    """(errors by output name, the largest absolute error) of an E-step
+    kernel's (xi, txs, tss, t4, t7, ll) against its plain version's: each
+    output relative per element (_rel_err), the loglik relative."""
+    errs = {n: _rel_err(g, w) for n, g, w in zip(
+        ("xi", "txs", "tss", "t4", "t7"), got, want)}
+    ll_g, ll_w = -got[5].sum(-1), -want[5].sum(-1)
+    errs["loglik"] = float(((ll_g - ll_w).abs() / ll_w.abs()).max())
+    return errs, max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
 def count_ops(fn, *args, **kw) -> int:
     """Arithmetic operations of one call of a plain version, counted while
     it runs: each elementwise operation counts its output's elements, each
@@ -695,7 +739,6 @@ def phase_kernel_vs_plain(device):
     import torch
     from pyfasst_tpu_torch.ops import cuda_estep
     t0 = time.perf_counter()
-    names = ("xi", "txs", "tss", "t4", "t7")
     main_abs = 0.0
     erb = None
     for (B, J_, F, N) in R1_SHAPES + (ERB_SHAPE,):
@@ -708,11 +751,7 @@ def phase_kernel_vs_plain(device):
                                                 no_ll=flag == "no_ll")
             again = cuda_estep.estep_r1_real(**inp, **kw)
             torch.cuda.synchronize()
-            errs = {n: _rel_err(g, w) for n, g, w in zip(names, got, want)}
-            ll_g, ll_w = -got[5].sum(-1), -want[5].sum(-1)
-            errs["loglik"] = float(((ll_g - ll_w).abs() / ll_w.abs()).max())
-            abs_err = max(float((g - w).abs().max())
-                          for g, w in zip(got, want))
+            errs, abs_err = _estep_errors(got, want)
             xi_bits = bool(torch.equal(got[0], want[0]))
             if B == BATCH:
                 main_abs = abs_err
@@ -784,7 +823,6 @@ def phase_general_vs_plain(device):
     import torch
     from pyfasst_tpu_torch.ops import cuda_estep
     t0 = time.perf_counter()
-    names = ("xi", "txs", "tss", "t4", "t7")
     path_shape = (1, 513, conv_frames())
     out = {}
     for key, label, J_, ranks, real, ns in GENERAL_CASES:
@@ -802,11 +840,7 @@ def phase_general_vs_plain(device):
             got = cuda_estep.estep_general(*inp, ranks, **kw)
             want = cuda_estep.estep_ref(*inp, ranks, **kw)
             torch.cuda.synchronize()
-            errs = {n: _rel_err(g, w) for n, g, w in zip(names, got, want)}
-            ll_g, ll_w = -got[5].sum(-1), -want[5].sum(-1)
-            errs["loglik"] = float(((ll_g - ll_w).abs() / ll_w.abs()).max())
-            abs_err = max(float((g - w).abs().max())
-                          for g, w in zip(got, want))
+            errs, abs_err = _estep_errors(got, want)
             timing = ""
             if (B, F, N) in timed:
                 kern, plain = _turns(
@@ -855,7 +889,6 @@ def phase_variants_ef(device):
     import torch
     from pyfasst_tpu_torch.ops import cuda_estep
     t0 = time.perf_counter()
-    names = ("xi", "txs", "tss", "t4", "t7")
     out = {}
     f_before = cuda_estep.VARIANT_LAUNCHES["f"]
     for label, kern_name, J_, ranks, real, ns in EF_CASES:
@@ -876,13 +909,7 @@ def phase_variants_ef(device):
                 got = kernel(*inp, *args, **kw, **{flag: True})
                 want = plain(*inp, *args, **kw, no_ll=flag == "no_ll")
                 torch.cuda.synchronize()
-                errs = {n: _rel_err(g, w) for n, g, w in zip(names, got,
-                                                             want)}
-                ll_g, ll_w = -got[5].sum(-1), -want[5].sum(-1)
-                errs["loglik"] = float(((ll_g - ll_w).abs()
-                                        / ll_w.abs()).max())
-                abs_err = max(float((g - w).abs().max())
-                              for g, w in zip(got, want))
+                errs, abs_err = _estep_errors(got, want)
                 timing = ""
                 if B == BATCH:
                     ms, plain_ms = map(statistics.median, _turns(
@@ -1204,23 +1231,15 @@ def phase_batch(device, dur, niter, batch, card):
             "pipeline_ms": statistics.median(ms)}
 
 
-def profile_gem(params, X, cfg, start=60, stop=80):
-    """GEM iterations [start, stop) of one run, per iteration: wall ms (to
-    the last kernel's end), host enqueue ms (the loop's return, before the
-    device finishes), and, from torch.profiler, the device's busy ms (the
-    sum of its kernels' times) and kernel count (memsets and copies
-    included). After one unprofiled pass over the same window."""
+def _profile(window, n):
+    """Per step of window() (n steps): wall ms (to the last kernel's end),
+    host enqueue ms (window's return, before the device finishes), and,
+    from torch.profiler, the device's busy ms (the sum of its kernels'
+    times) and kernel count (memsets and copies included). After one
+    unprofiled pass over the same window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
-    sig = annealing_endpoints(X, cfg)
-    n = stop - start
-
-    def window():
-        return run_gem(params, X, cfg, start_iter=start, end_iter=stop,
-                       sigma_endpoints=sig)
-
     window()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1239,8 +1258,26 @@ def profile_gem(params, X, cfg, start=60, stop=80):
             "kernels": len(dev) / n if dev else None}
 
 
-def _profile_line(label, prof, card):
-    return (f"{label}, iterations 60-80, per iteration: wall "
+def gem_window(params, X, cfg, start=60, stop=80):
+    """(window, steps): GEM iterations [start, stop) of one run."""
+    from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
+    sig = annealing_endpoints(X, cfg)
+
+    def window():
+        return run_gem(params, X, cfg, start_iter=start, end_iter=stop,
+                       sigma_endpoints=sig)
+
+    return window, stop - start
+
+
+def profile_gem(params, X, cfg, start=60, stop=80):
+    """GEM iterations [start, stop) of one run, per iteration (_profile)."""
+    return _profile(*gem_window(params, X, cfg, start, stop))
+
+
+def _profile_line(label, prof, card,
+                  window="iterations 60-80, per iteration"):
+    return (f"{label}, {window}: wall "
             f"{prof['wall_ms']:.3f} ms, host enqueue {prof['enqueue_ms']:.3f}"
             f" ms, device busy "
             + (f"{prof['busy_ms']:.4f} ms ({prof['kernels']:.1f} kernels)"
@@ -1928,7 +1965,9 @@ def phase_hmm(device, card):
     enqueues ~10 per frame and pass). Returns the launches and profile."""
     t0 = time.perf_counter()
     out, model = hmm_runs(device)
-    prof = profile_gem(model.params, model.Xs, model.cfg)
+    # 5 iterations, not 20 (cut for the run's time): each enqueues ~9,270
+    # kernels, so the window still holds ~46,000 device events
+    prof = profile_gem(model.params, model.Xs, model.cfg, stop=65)
     niter = {"hmm": NITER_HMM, "hmm_hard": NITER_HMM, "nmf_hard": NITER_HMM,
              "simm": NITER_SIMM, "lead": 0}
     parts = []
@@ -1949,7 +1988,7 @@ def phase_hmm(device, card):
         + f"; hard row N={out['hmm_hard']['N']} | {card} | "
         f"{time.perf_counter() - t0:.2f}s")
     log(_profile_line(f"phase 14 profile configs[3] HMM B=1 (of {NITER_HMM})",
-                      prof, card))
+                      prof, card, "iterations 60-65, per iteration"))
     for name, r in out.items():
         if name != "hmm_hard":
             _within_cpu(14, name, r["min_sdr"])
@@ -1959,6 +1998,382 @@ def phase_hmm(device, card):
                            f"equal-K NMF {nmf:.2f} dB (needs {HARD_FLOOR} "
                            f"dB and {HARD_MARGIN} dB above the NMF)")
     return {k: r["counts"][1]["a"] for k, r in out.items()}, prof
+
+
+# -- phase 15: streaming separation and the blind mono init -------------------
+
+def stream_kernel_check(device):
+    """Variant b at the streaming path's shape STREAM_SHAPE (J = 2, complex
+    rank-1 mixing, one block of 64 frames): against its plain version at
+    the E-step bars and two runs bit for bit; kernel and plain timed in
+    turns, with the bound and the float32 floor without FMA."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_estep
+    B, J_, F, N = STREAM_SHAPE
+    ranks = (1,) * J_
+    inp = _general_inputs(B, J_, F, N, ranks, False, seed=F * N + J_,
+                          device=device)
+    kw = dict(ns_inj=False, real_cov=False)
+
+    def kernel():
+        return cuda_estep.estep_general(*inp, ranks, **kw)
+
+    def plain():
+        return cuda_estep.estep_ref(*inp, ranks, **kw)
+
+    got, want, again = kernel(), plain(), kernel()
+    torch.cuda.synchronize()
+    errs, abs_err = _estep_errors(got, want)
+    kern, ref = _turns(kernel, plain)
+    ops = general_ops(inp, ranks, **kw)
+    b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
+    nums = {"shape": list(STREAM_SHAPE), "max_abs_err": abs_err,
+            "ms": statistics.median(kern), "plain_ms": statistics.median(ref),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3}
+    log(f"phase 2 b complex J=2 rank 1 at the streaming shape B,J,F,N="
+        f"{STREAM_SHAPE}: " + " ".join(f"{n} {e:.2e}<={TOL[n]:.0e}"
+                                       for n, e in errs.items())
+        + f" | max_abs_err {abs_err:.3e} | kernel {nums['ms']:.4f} ms (min "
+        f"{min(kern):.4f}), plain {nums['plain_ms']:.3f} ms (min "
+        f"{min(ref):.3f}), medians in turns | bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} Gop; without FMA "
+        f"{nums['nofma_floor_ms']:.4f} ms) | {B * F} blocks")
+    bad = [n for n, e in errs.items() if not e <= TOL[n]]
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        bad.append("two runs differ")
+    if bad:
+        raise RuntimeError(f"variant b disagrees with its plain version at "
+                           f"the streaming shape {STREAM_SHAPE}: {bad}")
+    return nums
+
+
+def stream_mixture(seed=SEED_STREAM):
+    """scenario_streaming's mixture, scaled as the recipe scales it:
+    (mix (T, 2), true images (2, T, 2))."""
+    rng = np.random.default_rng(seed)
+    n = int(FS_CONV * DUR_STREAM)
+    s1, s2 = band_sources(rng, n, ["band:0.02-0.3", "band:0.25-0.8"])
+    A = np.array([[0.95, 0.31], [0.31, 0.95]])
+    ys = np.stack([np.outer(s1, A[:, 0]), np.outer(s2, A[:, 1])])
+    mix = ys.sum(0)
+    return (mix / (np.max(np.abs(mix)) * 1.05),
+            ys / (np.max(np.abs(ys.sum(0))) * 1.05))
+
+
+def stream_fullrank_mixture(seed=SEED_STREAM_FR):
+    """scenario_streaming_fullrank's mixture: each source two decorrelated
+    same-band signals at two pannings (rank-2 per bin)."""
+    rng = np.random.default_rng(seed)
+    n = int(FS_CONV * DUR_STREAM_FR)
+    s1a, s1b = band_sources(rng, n, ["band:0.02-0.3", "band:0.02-0.3"])
+    s2a, s2b = band_sources(rng, n, ["band:0.25-0.8", "band:0.25-0.8"])
+    pans = ((np.array([0.95, 0.31]), np.array([0.55, -0.45])),
+            (np.array([0.31, 0.95]), np.array([-0.45, 0.55])))
+    ys = np.stack([np.outer(a, p[0]) + 0.6 * np.outer(b, p[1])
+                   for (a, b), p in zip(((s1a, s1b), (s2a, s2b)), pans)])
+    sc = np.max(np.abs(ys.sum(0))) * 1.05
+    return ys.sum(0) / sc, ys / sc
+
+
+def blind_mono_mixture(seed=SEED_MONO):
+    """scenario_general_I's mono row (its rng draws the 3-channel row's
+    sources first): (mix (T, 1) float32, true images (2, T, 1))."""
+    rng = np.random.default_rng(seed)
+    n = int(FS_CONV * DUR_CONV)
+    band_sources(rng, n, ["harm", "noise_hi"])
+    s1, s2 = band_sources(rng, n, ["harm", "noise_lo"])
+    ys = np.stack([s1[:, None], s2[:, None]])
+    return ys.sum(0).astype(np.float32), ys
+
+
+def stream_host_loop(path, ys_true, device):
+    """scenario_streaming's first row on `device`: the full blocks of the
+    WAV through the host-driven online_block loop from the default
+    directions (pass 1), then again under the frozen parameters with each
+    block Wiener-separated (pass 2); the separated blocks inverted once and
+    scored inside the streamed region. Returns its numbers and the inputs
+    of profile_stream."""
+    import torch
+    from pyfasst_tpu_torch.models.components import (
+        CONV, FasstParams, SpatialComp, SpectralComp, init_inst_mixing,
+    )
+    from pyfasst_tpu_torch.ops.online import online_block, online_init
+    from pyfasst_tpu_torch.ops.wiener import separate_sources
+    from pyfasst_tpu_torch.tf.stft import STFT
+    tft = STFT(wlen=WLEN_CONV, fs=FS_CONV, device=device)
+    F, Nb = tft.F, NB_STREAM
+    A0 = torch.stack([
+        torch.as_tensor(a.numpy()[:, 0]).to(torch.complex64).expand(F, 2)
+        for a in init_inst_mixing(None, 2, 1, J)]).to(device)[None]
+    rng = np.random.default_rng(7)
+    FB0 = torch.as_tensor((0.5 + rng.random((J, F, K_STREAM)))
+                          .astype(np.float32), device=device)[None]
+    TW0 = torch.as_tensor((0.5 + rng.random((J, K_STREAM, Nb)))
+                          .astype(np.float32), device=device)[None]
+    t0 = time.perf_counter()
+    blocks = [Xb[None] for Xb in tft.stream_blocks(path, Nb)
+              if Xb.shape[1] == Nb]                  # the ragged tail out
+    sigma = torch.full((1, F), NOISE_STREAM * float(
+        torch.mean(blocks[0].abs() ** 2)), dtype=torch.float32,
+        device=device)
+    read_s = time.perf_counter() - t0
+    step = dict(forgetting=FORGET_STREAM, inner_iters=INNER_STREAM)
+
+    def sep_block(state, TWb, Xb):
+        spat = tuple(SpatialComp(A=state.A[:, j][..., None], mix_type=CONV)
+                     for j in range(J))
+        spec = tuple(SpectralComp(FB=state.FB[:, j], TW=TWb[:, j],
+                                  spat_ind=j) for j in range(J))
+        return separate_sources(FasstParams(spat=spat, spec=spec), Xb,
+                                sigma)[0]
+
+    _reset_counts()
+    t1 = time.perf_counter()
+    state = online_init(A0, FB0)
+    lls = []
+    for Xb in blocks:                                 # pass 1: learn A, FB
+        state, (_, ll) = online_block(state, Xb, TW0, sigma, **step)
+        lls.append(ll)
+    outs = []
+    for Xb in blocks:                                 # pass 2: frozen
+        _, (TWb, _) = online_block(state, Xb, TW0, sigma, **step)
+        outs.append(sep_block(state, TWb, Xb))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    counts = _counts()
+    lls = torch.cat(lls).cpu().numpy()
+    n = ys_true.shape[1]
+    Y = torch.cat(outs, dim=2)                        # (J, F, frames, 2)
+    Y = torch.nn.functional.pad(Y, (0, 0, 0, tft.n_frames(n) - Y.shape[2]))
+    n_sep = min(n, len(blocks) * Nb * tft.hop - tft.wlen)
+    ys = tft.invertTransform(Y, nsamples=n).cpu().numpy()[:, :n_sep]
+    return ({"min_sdr": best_perm_sdr(ys, ys_true[:, :n_sep])[0],
+             "seconds": run_s, "read_seconds": read_s, "counts": counts,
+             "steps": 2 * len(blocks), "blocks": len(blocks),
+             "loglik": lls, "n_sep": n_sep,
+             "plane_bytes": F * tft.n_frames(n) * 2 * 8},
+            (blocks, A0, FB0, TW0, sigma))
+
+
+def stream_window(blocks, A0, FB0, TW0, sigma, start=10, stop=20):
+    """(window, steps): block steps [start, stop) of the host loop's pass
+    1, from the state its first `start` blocks reach."""
+    from pyfasst_tpu_torch.ops.online import online_block, online_init
+    step = dict(forgetting=FORGET_STREAM, inner_iters=INNER_STREAM)
+    state0 = online_init(A0, FB0)
+    for Xb in blocks[:start]:
+        state0, _ = online_block(state0, Xb, TW0, sigma, **step)
+
+    def window():
+        state = state0
+        for Xb in blocks[start:stop]:
+            state, _ = online_block(state, Xb, TW0, sigma, **step)
+
+    return window, stop - start
+
+
+def stream_runs(device, tmp, resume=False):
+    """Phase 15's rows on `device`, each from its WAV in `tmp`: the host
+    loop and separate_streaming(init="blind") on the 120 s stream (with the
+    peak device memory of the latter), with resume=True the estimate_blocks
+    cut and resume beside the uninterrupted run, the full-rank row and its
+    rank-1 twin, and the blind mono row. Returns the rows' numbers and, on
+    the card, profile windows by label ((window, steps): 10 block steps of
+    the host loop's pass 1; the whole full-rank stream, per block step of
+    both passes; 20 iterations of the blind mono fit)."""
+    import torch
+    from pyfasst_tpu_torch import MultiChanNMFInst_FASST, separate_streaming
+    from pyfasst_tpu_torch.audio import wavwrite
+    from pyfasst_tpu_torch.tf.stft import _frame_geometry
+    cuda = device.type == "cuda"
+
+    def blocks_of(n):
+        return -(-_frame_geometry(n, WLEN_CONV, WLEN_CONV // 2)[2]
+                 // NB_STREAM)
+
+    recipe = dict(J=J, K=K_STREAM, wlen=WLEN_CONV, frames_per_block=NB_STREAM,
+                  forgetting=FORGET_STREAM, inner_iters=INNER_STREAM,
+                  verbose=0, device=device)
+
+    def run(path, ys_true, n_sep=None, **kw):
+        _reset_counts()
+        t0 = time.perf_counter()
+        ys, info = separate_streaming(path, **recipe, **kw)
+        seconds = time.perf_counter() - t0
+        sl = slice(None, n_sep)
+        return ys, info, {
+            "min_sdr": best_perm_sdr(ys[:, sl], ys_true[:, sl])[0],
+            "seconds": seconds, "parts": info["seconds"],
+            "counts": _counts(), "blocks": info["blocks"],
+            "pass2_blocks": blocks_of(ys_true.shape[1]),
+            "loglik": np.asarray(info["logliks"]),
+            "rank": info["spatial_rank"]}
+
+    out = {}
+    mix, ys_true = stream_mixture()
+    path = os.path.join(tmp, "stream.wav")
+    wavwrite(mix, FS_CONV, path)
+    out["stream"], loop = stream_host_loop(path, ys_true, device)
+    n_sep = out["stream"]["n_sep"]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    _, info, out["blind"] = run(path, ys_true, n_sep, init="blind",
+                                out_dir=os.path.join(tmp, "blind"))
+    out["blind"]["wavs"] = len(info["files"])
+    out["blind"]["peak_bytes"] = (torch.cuda.max_memory_allocated() - base
+                                  if cuda else None)
+    if resume:
+        ys_u, info_u, out["random"] = run(path, ys_true, n_sep)
+        ck = os.path.join(tmp, "stream_ck.npz")
+        _, info_c, _ = run(path, ys_true, n_sep, checkpoint_path=ck,
+                           checkpoint_every=STREAM_CK_EVERY,
+                           estimate_blocks=STREAM_CUT)
+        ys_r, info_r, _ = run(path, ys_true, n_sep, checkpoint_path=ck,
+                              checkpoint_every=STREAM_CK_EVERY)
+        out["resume"] = {
+            "equal": bool(np.array_equal(ys_r, ys_u)
+                          and info_r["logliks"] == info_u["logliks"]),
+            "cut": info_c["blocks"], "resumed_at": info_r["resumed_at"],
+            "blocks": (info_r["blocks"], info_u["blocks"])}
+    mix_fr, ys_fr = stream_fullrank_mixture()
+    path_fr = os.path.join(tmp, "stream_fr.wav")
+    wavwrite(mix_fr, FS_CONV, path_fr)
+    _, _, out["fullrank"] = run(path_fr, ys_fr, spatial_rank=-1)
+    _, _, out["fullrank_r1"] = run(path_fr, ys_fr, spatial_rank=1)
+    fr = out["fullrank"]
+    mix_m, ys_m = blind_mono_mixture()
+    _reset_counts()
+    t0 = time.perf_counter()
+    m = MultiChanNMFInst_FASST(mix_m, fs=FS_CONV, nbComps=2, nbNMFComps=6,
+                               wlen=WLEN_CONV, iter_num=NITER_BLIND_MONO,
+                               seed=0, device=device)
+    ll = m.estim_param_blind_mono()
+    ys = m.separated_images()
+    out["mono"] = {"min_sdr": best_perm_sdr(ys, ys_m)[0],
+                   "seconds": time.perf_counter() - t0, "counts": _counts(),
+                   "loglik": ll}
+    if not cuda:
+        return out, {}
+    return out, {
+        "stream 120 s pass 1, block steps 10-20, per block step":
+            stream_window(*loop),
+        "stream 60 s full rank, both passes, per block step": (
+            lambda: separate_streaming(path_fr, spatial_rank=-1, **recipe),
+            fr["blocks"] + fr["pass2_blocks"]),
+        f"blind mono (of {NITER_BLIND_MONO}), iterations 60-80, per "
+        "iteration": gem_window(m.params, m.Xs, m.cfg)}
+
+
+def cpu_reference_stream():
+    """Phase 15's rows on the CPU (the figures its gates compare with)."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        out, _ = stream_runs(torch.device("cpu"), tmp)
+    print(json.dumps({k: {"min_sdr": v["min_sdr"], "seconds": v["seconds"]}
+                      for k, v in out.items()}), flush=True)
+
+
+def phase_stream(device, card):
+    """Phase 15: the long-form rows on the card, then on the CPU. Gates:
+    variant b launched 7 times per block step of every rank-1 stereo row
+    (pass 1 and pass 2) and nothing else launched; no launch in the
+    full-rank and mono rows; the resumed stream equal to the uninterrupted
+    one bit for bit; finite logliks; every row's min SDR within SDR_SLACK
+    of the CPU run. Prints the streams' xRT, the profile window and the
+    peak device memory of the bounded path beside the full plane's bytes.
+    Returns the host loop's variant-b launches and the profile."""
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        card_rows, windows = stream_runs(device, tmp, resume=True)
+        profs = {label: _profile(*w) for label, w in windows.items()}
+        del windows
+    card_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_rows, _ = stream_runs(torch.device("cpu"), tmp)
+    cpu_s = time.perf_counter() - t1
+    per_step = INNER_STREAM + 1
+    s, b = card_rows["stream"], card_rows["blind"]
+    b_run = b["parts"]["pass1"] + b["parts"]["pass2"]
+    log(f"phase 15 stream {DUR_STREAM:.0f} s host loop: {s['blocks']} blocks"
+        f" of {NB_STREAM} frames, {s['steps']} block steps, launches "
+        f"{s['counts'][0]} {s['counts'][1]}, loglik {s['loglik'][0]:.6g} -> "
+        f"{s['loglik'][-1]:.6g}, min SDR {s['min_sdr']:.2f} dB (CPU run "
+        f"{cpu_rows['stream']['min_sdr']:.2f} dB), both passes "
+        f"{s['seconds']:.2f}s -> stream xRT {DUR_STREAM / s['seconds']:.2f} "
+        f"(reading the blocks {s['read_seconds']:.2f}s apart) | {card}")
+    log(f"phase 15 stream blind (separate_streaming, DEMIX on the first 12 "
+        f"s): blocks {b['blocks']} + {b['pass2_blocks']}, launches "
+        f"{b['counts'][0]}, min SDR {b['min_sdr']:.2f} dB (CPU run "
+        f"{cpu_rows['blind']['min_sdr']:.2f} dB), init {b['parts']['init']:.2f}"
+        f"s (host), pass 1 {b['parts']['pass1']:.2f}s, pass 2 "
+        f"{b['parts']['pass2']:.2f}s -> stream xRT {DUR_STREAM / b_run:.2f} "
+        f"(init apart), wavs {b['wavs']} | peak device memory "
+        + (f"{b['peak_bytes'] / 1e6:.1f} MB" if b["peak_bytes"] is not None
+           else "not measured")
+        + f" above the run's start, the full (F, N, I) plane "
+        f"{s['plane_bytes'] / 1e6:.1f} MB | {card}")
+    r = card_rows["resume"]
+    log(f"phase 15 stream resume: cut after block {r['cut']} (checkpoints "
+        f"every {STREAM_CK_EVERY}), resumed at {r['resumed_at']}, blocks "
+        f"{r['blocks'][0]} (uninterrupted {r['blocks'][1]}), equal to the "
+        f"uninterrupted run bit for bit {r['equal']}; uninterrupted random "
+        f"init min SDR {card_rows['random']['min_sdr']:.2f} dB")
+    for name, label in (("fullrank", "full rank (spatial_rank=-1)"),
+                        ("fullrank_r1", "its rank-1 twin")):
+        f = card_rows[name]
+        log(f"phase 15 stream {DUR_STREAM_FR:.0f} s {label}: rank "
+            f"{f['rank']}, blocks {f['blocks']} + {f['pass2_blocks']}, "
+            f"launches {f['counts'][0]}, min SDR {f['min_sdr']:.2f} dB (CPU "
+            f"run {cpu_rows[name]['min_sdr']:.2f} dB), {f['seconds']:.2f}s "
+            f"-> stream xRT {DUR_STREAM_FR / f['seconds']:.2f} | {card}")
+    mo = card_rows["mono"]
+    log(f"phase 15 blind mono (estim_param_blind_mono, K = 6, "
+        f"{NITER_BLIND_MONO} iters): launches {mo['counts'][0]}, loglik "
+        f"{mo['loglik'][0]:.6g} -> {mo['loglik'][-1]:.6g}, min SDR "
+        f"{mo['min_sdr']:.2f} dB (CPU run {cpu_rows['mono']['min_sdr']:.2f} "
+        f"dB), {mo['seconds']:.2f}s | {card}")
+    for label, prof in profs.items():
+        name, window = label.split(", ", 1)
+        log(_profile_line(f"phase 15 profile {name}", prof, card, window))
+    log(f"phase 15 done: card {card_s:.2f}s, CPU runs {cpu_s:.2f}s (torch "
+        f"{torch.get_num_threads()} threads)")
+    bad = []
+    for name, steps in (("stream", s["steps"]),
+                        ("blind", b["blocks"] + b["pass2_blocks"]),
+                        ("fullrank_r1", card_rows["fullrank_r1"]["blocks"]
+                         + card_rows["fullrank_r1"]["pass2_blocks"])):
+        total, counts = card_rows[name]["counts"]
+        want = per_step * steps
+        if total != want or counts["b"] != want or any(
+                v for k, v in counts.items() if k != "b"):
+            bad.append(f"{name}: launches {total} {counts}, expected {want} "
+                       f"of variant b")
+    for name in ("fullrank", "mono"):
+        if card_rows[name]["counts"][0]:
+            bad.append(f"{name}: {card_rows[name]['counts'][0]} E-step "
+                       f"launches (expected none)")
+    if card_rows["fullrank"]["rank"] != 2:
+        bad.append("fullrank: not the full-rank path")
+    if not (r["equal"] and r["cut"] == STREAM_CUT
+            and r["resumed_at"] == STREAM_CUT):
+        bad.append(f"resume: {r}")
+    for name, row in card_rows.items():
+        if "loglik" in row and not np.all(np.isfinite(row["loglik"])):
+            bad.append(f"{name}: non-finite loglik")
+        cpu = cpu_rows.get(name)
+        if cpu and abs(row["min_sdr"] - cpu["min_sdr"]) > SDR_SLACK:
+            bad.append(f"{name}: min SDR {row['min_sdr']:.2f} dB not within "
+                       f"{SDR_SLACK} dB of the CPU run "
+                       f"({cpu['min_sdr']:.2f} dB)")
+    if bad:
+        raise RuntimeError("phase 15: " + "; ".join(bad))
+    return s["counts"][1]["b"], profs
 
 
 def main() -> int:
@@ -1976,6 +2391,7 @@ def main() -> int:
     general = phase_general_vs_plain(device)
     ef, f_launches = phase_variants_ef(device)
     spectral = phase_spectral_vs_plain(device)
+    stream_kernel = stream_kernel_check(device)
     _reset_counts()
     launches = phase_host_api(device, DUR, NITER)
     timing = phase_batch(device, DUR, NITER, BATCH, card)
@@ -1991,6 +2407,7 @@ def main() -> int:
     phase_k_big(device)
     erb_launches, _ = phase_erblet(device, card)
     hmm_launches, _ = phase_hmm(device, card)
+    stream_launches, _ = phase_stream(device, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     log(card)
 
@@ -2022,6 +2439,15 @@ def main() -> int:
                          batch_path_plain_ms=bp["plain_ms"],
                          batch_path_bound_ms=bp["bound_ms"],
                          batch_path_launches=batch_launches[key])
+        if key == "b":
+            extra.update(
+                stream_shape=stream_kernel["shape"],
+                stream_ms=stream_kernel["ms"],
+                stream_plain_ms=stream_kernel["plain_ms"],
+                stream_bound_ms=stream_kernel["bound_ms"],
+                stream_bound_by=stream_kernel["bound_by"],
+                stream_max_abs_err=stream_kernel["max_abs_err"],
+                stream_launches=stream_launches)
         kernels.append(dict(
             entry(f"estep_general (variant {key}: {label})", GENERAL_SOURCE,
                   GENERAL_REPLACES[key], path_launches[key], general[label]),

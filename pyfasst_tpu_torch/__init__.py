@@ -38,6 +38,17 @@ alike. On the CPU every operation runs in plain PyTorch.
         Xs, make_params, pyfasst_tpu_torch.GEMConfig(niter=400),
         device="cuda")
 
+    # a long recording in bounded memory: online GEM over blocks of 64
+    # frames read off disk, then per-block separation and synthesis
+    ys, info = pyfasst_tpu_torch.separate_streaming(
+        "long.wav", J=2, K=8, frames_per_block=64, init="blind",
+        out_dir="out_dir", device="cuda")
+
+    # a mono mixture from the blind mixture-NMF init
+    model = pyfasst_tpu_torch.MultiChanNMFInst_FASST(
+        "mono.wav", nbComps=2, nbNMFComps=6, iter_num=300, device="cuda")
+    model.estim_param_blind_mono()
+
 Channel counts other than 2 (mono, 3 microphones) run through the general-I
 engine, in plain PyTorch on either device: the JAX package has no kernel
 for it either.
@@ -60,11 +71,16 @@ __all__ = [
     "MultiRateERBLet",
     "STFT",
     "SeparateLeadStereoTF",
+    "StreamingSynthesis",
     "batch_separate",
     "batch_separate_files",
     "load_params",
     "multiChanSourceF0Filter",
+    "online_block",
+    "online_init",
+    "run_gem_online",
     "save_params",
+    "separate_streaming",
     "wpe_dereverb",
 ]
 
@@ -78,6 +94,7 @@ _LAZY = {
     "SeparateLeadStereoTF": "pyfasst_tpu_torch.models.lead",
     "DEMIX": "pyfasst_tpu_torch.models",
     "STFT": "pyfasst_tpu_torch.tf",
+    "StreamingSynthesis": "pyfasst_tpu_torch.tf",
     "ERBLetTransform": "pyfasst_tpu_torch.tf",
     "MultiRateERBLet": "pyfasst_tpu_torch.tf",
     "MinQTransfo": "pyfasst_tpu_torch.tf",
@@ -89,6 +106,10 @@ _LAZY = {
     "batch_separate_files": "pyfasst_tpu_torch.parallel.batch",
     "load_params": "pyfasst_tpu_torch.utils.checkpoint",
     "save_params": "pyfasst_tpu_torch.utils.checkpoint",
+    "separate_streaming": "pyfasst_tpu_torch.models",
+    "online_block": "pyfasst_tpu_torch.ops.online",
+    "online_init": "pyfasst_tpu_torch.ops.online",
+    "run_gem_online": "pyfasst_tpu_torch.ops.online",
 }
 
 

@@ -18,6 +18,7 @@ _LAZY = {
     "MultiChanHMM": "pyfasst_tpu_torch.models.variants",
     "multiChanSourceF0Filter": "pyfasst_tpu_torch.models.variants",
     "DEMIX": "pyfasst_tpu_torch.models.demix",
+    "separate_streaming": "pyfasst_tpu_torch.models.streaming",
 }
 
 __all__ = [

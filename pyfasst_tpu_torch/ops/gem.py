@@ -93,31 +93,48 @@ def spatial_covs(params: FasstParams, F: int):
     return torch.stack([c.spatial_cov(F) for c in params.spat], dim=1)
 
 
-def _estep(params, X, v, sigma, cfg: GEMConfig, x4):
-    F = X.shape[1]
-    ranks = tuple(c.rank for c in params.spat)
-    A_conv = tuple(_as_conv_A(c, F) for c in params.spat)
-    noise_inject = cfg.annealing == AnnealingMode.ANN_NS_INJ
+def estep_stereo(X, v, A_conv, ranks, sigma, real_cov: bool,
+                 eps: float = 1e-30, noise_inject: bool = False,
+                 fast_recip: bool = False, x4=None):
+    """The I = 2 E-step on X's device, dispatched as the module docstring
+    says: compute_suff_stats for a CPU tensor, the kernels through
+    cuda_estep.suff_stats_cuda for a CUDA tensor, NotImplementedError for
+    an E-step no kernel computes. Shared by gem_step and the streaming
+    block step (ops/online.py).
+
+    A_conv: per source complex (B, F, 2, R_j) mixing; real_cov asserts its
+    imaginary parts are zero (the instantaneous models), and the kernels
+    then drop the arithmetic on them. x4: cuda_estep.pack_x4(X), hoisted
+    out of the caller's loop.
+    """
     dev = X.device.type
     if dev == "cpu":
-        Rj = spatial_covs(params, F)
-        return compute_suff_stats(X, v, Rj, sigma, ranks, eps=cfg.eps,
+        Rj = torch.stack([herm.herm_from_mixing(A) for A in A_conv], dim=1)
+        return compute_suff_stats(X, v, Rj, sigma, ranks, eps=eps,
                                   noise_inject=noise_inject, A_conv=A_conv)
     if dev != "cuda":
-        raise NotImplementedError(f"no GEM path for device {X.device}")
-    # instantaneous models have real mixing: the kernels then drop the
-    # arithmetic on its identically-zero imaginary parts
-    real_cov = all(not c.A.is_complex() for c in params.spat)
+        raise NotImplementedError(f"no E-step for device {X.device}")
     why = cuda_estep.kernel_eligible(ranks, real_cov, noise_inject, v.dtype,
-                                     cfg.fast_recip, X.shape[-1])
+                                     fast_recip, X.shape[-1])
     if why:
         raise NotImplementedError(
             f"no CUDA E-step for this model: {why} is not ported yet "
             "(see ROADMAP.md)")
     return cuda_estep.suff_stats_cuda(X, v, None, sigma, ranks, A_conv,
-                                      eps=cfg.eps, noise_inject=noise_inject,
+                                      eps=eps, noise_inject=noise_inject,
                                       x4=x4, real_cov=real_cov,
-                                      fast_recip=cfg.fast_recip)
+                                      fast_recip=fast_recip)
+
+
+def _estep(params, X, v, sigma, cfg: GEMConfig, x4):
+    F = X.shape[1]
+    return estep_stereo(
+        X, v, tuple(_as_conv_A(c, F) for c in params.spat),
+        tuple(c.rank for c in params.spat), sigma,
+        real_cov=all(not c.A.is_complex() for c in params.spat),
+        eps=cfg.eps,
+        noise_inject=cfg.annealing == AnnealingMode.ANN_NS_INJ,
+        fast_recip=cfg.fast_recip, x4=x4)
 
 
 def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,

@@ -24,6 +24,7 @@ import torch
 from pyfasst_tpu_torch.models.components import (
     INST, FasstParams, SpatialComp, SpectralComp, complex_dtype,
 )
+from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _FACTORS = ("FB", "FW", "TW", "TB", "trans", "FB2", "TW2")
 
@@ -78,16 +79,19 @@ def save_params(path: str, params: FasstParams, iteration: int = 0,
     return path
 
 
-def load_params(path: str, device="cpu", dtype: Optional[torch.dtype] = None
+def load_params(path: str, device=DEFAULT_DEVICE,
+                dtype: Optional[torch.dtype] = None
                 ) -> Tuple[FasstParams, int, dict]:
     """(params, iteration, extra) from a checkpoint of either package.
 
-    The leaves go to `device`, with a clip axis: B = 1 for a single-clip
+    The leaves go to `device` (the card unless the caller asks for "cpu";
+    "cuda" without a card raises), with a clip axis: B = 1 for a single-clip
     checkpoint (told apart from a stacked one by the rank of the mixing
     arrays), the stacked B otherwise. dtype None keeps each leaf's dtype
     (real stays real, complex stays complex); a real dtype converts real
     leaves to it and complex ones to the complex dtype of that precision.
     """
+    device = resolve_device(device)
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         arrays = {k: np.array(data[k]) for k in data.files

@@ -7,6 +7,7 @@ uninterrupted run are equal bit for bit (tests/test_utils.py:46, :264,
 :283 hold the JAX package to rtol 1e-5; the port's eager loop repeats the
 same operations on the same values, so it is held to equality).
 """
+import inspect
 import os
 
 import jax
@@ -87,7 +88,7 @@ def test_checkpoint_loads_in_the_other_package(tmp_path, case, writer):
     if writer == "jax":
         jckpt.save_params(path, jparams, iteration=17, extra=extra,
                           extra_arrays=arrays)
-        tparams, it, got_extra = tckpt.load_params(path)
+        tparams, it, got_extra = tckpt.load_params(path, device="cpu")
         _leaves_equal(jparams, tparams)
     else:
         tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams))
@@ -116,12 +117,25 @@ def test_stacked_checkpoint_keeps_the_clip_axis(tmp_path):
     for b in range(3):
         _leaves_equal(jax.tree.map(lambda a: a[b], jparams), tparams, b)
     jckpt.save_params(path, jparams, iteration=4)
-    back, _, _ = tckpt.load_params(path)
+    back, _, _ = tckpt.load_params(path, device="cpu")
     assert back.batch == 3
     for b in range(3):
         _leaves_equal(jax.tree.map(lambda a: a[b], jparams), back, b)
     with pytest.raises(ValueError, match="B = 1"):
         tckpt.save_params(path, tparams)
+
+
+def test_load_params_defaults_to_the_card(tmp_path, monkeypatch):
+    """With no `device`, load_params puts the leaves on the card (the JAX
+    package loads to its default device); without a card it raises,
+    naming the CPU as the caller's choice."""
+    path = str(tmp_path / "ck.npz")
+    jckpt.save_params(path, _jax_params("mixed", np.random.default_rng(5)))
+    sig = inspect.signature(tckpt.load_params)
+    assert sig.parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        tckpt.load_params(path)
 
 
 def test_load_converts_dtype_and_refuses_state_models(tmp_path):
@@ -139,7 +153,7 @@ def test_load_converts_dtype_and_refuses_state_models(tmp_path):
     jckpt.save_params(path, hmm)
     # state models load since the discrete-state port: trans with its
     # clip axis, the constraint and decode fields as written
-    params, _, _ = tckpt.load_params(path)
+    params, _, _ = tckpt.load_params(path, device="cpu")
     assert params.spec[0].constraint == "HMM"
     assert params.spec[0].decode == "soft"
     np.testing.assert_array_equal(params.spec[0].trans[0].numpy(),

@@ -679,3 +679,187 @@ def test_state_models_on_cuda_match_cpu(dev, kind):
     np.testing.assert_allclose(ll_gpu, ll_cpu, rtol=1e-4)
     y_gpu, y_cpu = gpu.separated_images(), cpu.separated_images()
     assert np.max(np.abs(y_gpu - y_cpu)) < 1e-3 * np.max(np.abs(y_cpu))
+
+
+# -- streaming (ops/online.py, models/streaming.py) ---------------------------
+
+_STREAM_CASES = {"rank1_I2": (2, False), "rank1_I3": (3, False),
+                 "fullrank_I2": (2, True)}
+
+
+def _stream_problem(case, seed, F=33, K=3, Nb=64, nb=3):
+    """X (1, F, nb * Nb, I), A0, FB0, TW0, sigma as CPU tensors (B = 1)."""
+    I, full = _STREAM_CASES[case]
+    rng = np.random.default_rng(seed)
+    X = (rng.standard_normal((1, F, nb * Nb, I))
+         + 1j * rng.standard_normal((1, F, nb * Nb, I)))
+    shape = (1, 2, F, I, I) if full else (1, 2, F, I)
+    A0 = (0.4 + rng.random(shape)) * (1.0 + 0.2j * rng.random(shape))
+    if full:
+        A0[..., 1] *= 0.2
+    FB0 = 0.5 + rng.random((1, 2, F, K))
+    TW0 = 0.5 + rng.random((1, 2, K, Nb))
+    sigma = 0.01 + 0.005 * rng.random((1, F))
+    c64, f32 = torch.complex64, torch.float32
+    return (torch.as_tensor(X, dtype=c64), torch.as_tensor(A0, dtype=c64),
+            torch.as_tensor(FB0, dtype=f32), torch.as_tensor(TW0, dtype=f32),
+            torch.as_tensor(sigma, dtype=f32), nb)
+
+
+@pytest.mark.parametrize("case", sorted(_STREAM_CASES))
+def test_online_blocks_on_cuda_match_cpu(dev, case):
+    """Three online blocks on the card against the CPU: every state field
+    but t7 (float32 rounding in both packages, tests/test_torch_online.py)
+    within 1e-3 of its peak, TW too, loglik rtol 1e-4. Rank-1 stereo blocks
+    launch variant b 7 times each (6 inner iterations and the final
+    E-step); the full-rank and I = 3 blocks launch nothing."""
+    from pyfasst_tpu_torch.ops import online
+    X, A0, FB0, TW0, sigma, nb = _stream_problem(case, seed=31)
+    Nb = TW0.shape[-1]
+    runs = {}
+    for d in ("cpu", dev):
+        state = online.online_init(A0.to(d), FB0.to(d))
+        before = dict(cuda_estep.VARIANT_LAUNCHES)
+        lls, tws = [], []
+        for b in range(nb):
+            state, (TWb, ll) = online.online_block(
+                state, X[:, :, b * Nb:(b + 1) * Nb].to(d), TW0.to(d),
+                sigma.to(d), forgetting=0.95, inner_iters=6)
+            lls.append(ll)
+            tws.append(TWb)
+        counts = {k: cuda_estep.VARIANT_LAUNCHES[k] - before[k]
+                  for k in before}
+        runs[str(d)] = (state, torch.cat(tws, -1), torch.cat(lls), counts)
+    (cs, ctw, cll, ccounts), (gs, gtw, gll, gcounts) = runs["cpu"], \
+        runs[str(dev)]
+    assert not any(ccounts.values())
+    want_b = 7 * nb if case == "rank1_I2" else 0
+    assert gcounts == dict(ccounts, b=want_b)
+    assert gs.A.device.type == "cuda"
+    for name in online.OnlineState._fields:
+        if name == "t7":
+            continue
+        g, c = getattr(gs, name).cpu(), getattr(cs, name)
+        peak = float(c.abs().max())
+        assert float((g - c).abs().max()) <= 1e-3 * peak + 1e-30, name
+    assert float((gtw.cpu() - ctw).abs().max()) <= 1e-3 * float(
+        ctw.abs().max())
+    np.testing.assert_allclose(gll.cpu().numpy(), cll.numpy(), rtol=1e-4)
+
+
+def test_online_block_without_a_kernel_raises_on_cuda(dev):
+    """J = 5 stereo blocks: no kernel computes the E-step, so the card
+    raises; nothing falls back to the CPU."""
+    from pyfasst_tpu_torch.ops import online
+    rng = np.random.default_rng(3)
+    F, K, Nb = 9, 2, 8
+    A0 = torch.as_tensor(0.4 + rng.random((1, 5, F, 2)),
+                         dtype=torch.complex64, device=dev)
+    FB0 = torch.as_tensor(0.5 + rng.random((1, 5, F, K)),
+                          dtype=torch.float32, device=dev)
+    TW0 = torch.as_tensor(0.5 + rng.random((1, 5, K, Nb)),
+                          dtype=torch.float32, device=dev)
+    X = torch.as_tensor(rng.standard_normal((1, F, Nb, 2)),
+                        dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError, match="J = 5"):
+        online.online_block(online.online_init(A0, FB0), X, TW0,
+                            torch.full((1, F), 0.01, device=dev))
+
+
+def _stream_wav(path, seconds=4.0, channels=2, seed=7):
+    from scipy.signal import butter, lfilter
+    from pyfasst_tpu_torch.audio import wavwrite
+    rng = np.random.default_rng(seed)
+    n = int(8000 * seconds)
+    srcs = []
+    for lo, hi in ((0.02, 0.3), (0.25, 0.8)):
+        b, a = butter(4, [lo, hi], btype="band")
+        s = lfilter(b, a, rng.standard_normal(n))
+        srcs.append(s / np.std(s))
+    pans = np.array([[0.95, 0.31], [0.31, 0.95]])[:, :channels]
+    mix = sum(np.outer(s, p) for s, p in zip(srcs, pans))
+    wavwrite(mix / (1.05 * np.max(np.abs(mix))), 8000, path)
+    return path
+
+
+@pytest.mark.parametrize("rank", [1, -1])
+def test_separate_streaming_on_cuda_matches_cpu(dev, tmp_path, rank):
+    """separate_streaming on the card against the CPU (4 s at 8 kHz, wlen
+    512, blocks of 32 frames): logliks rtol 1e-4, images within 1e-3 of
+    their peak; rank 1 launches variant b 7 times per block step of both
+    passes, full rank nothing."""
+    from pyfasst_tpu_torch import separate_streaming
+    path = _stream_wav(str(tmp_path / "s.wav"))
+    kw = dict(J=2, K=4, wlen=512, frames_per_block=32, verbose=0,
+              spatial_rank=rank)
+    y_cpu, i_cpu = separate_streaming(path, device="cpu", **kw)
+    before = cuda_estep.VARIANT_LAUNCHES["b"]
+    total = cuda_estep.LAUNCHES
+    y_gpu, i_gpu = separate_streaming(path, device=dev, **kw)
+    steps = i_gpu["blocks"] + 4          # 126 frames: 4 blocks in pass 2
+    want = 7 * steps if rank == 1 else 0
+    assert cuda_estep.VARIANT_LAUNCHES["b"] - before == want
+    assert cuda_estep.LAUNCHES - total == want
+    np.testing.assert_allclose(i_gpu["logliks"], i_cpu["logliks"],
+                               rtol=1e-4)
+    assert y_gpu.shape == y_cpu.shape == (2, 32000, 2)
+    assert np.max(np.abs(y_gpu - y_cpu)) < 1e-3 * np.max(np.abs(y_cpu))
+
+
+def test_separate_streaming_resume_on_cuda_is_bit_exact(dev, tmp_path):
+    from pyfasst_tpu_torch import separate_streaming
+    path = _stream_wav(str(tmp_path / "s.wav"))
+    kw = dict(J=2, K=4, wlen=512, frames_per_block=16, verbose=0,
+              device=dev)
+    y_ref, i_ref = separate_streaming(path, **kw)
+    ck = str(tmp_path / "ck.npz")
+    separate_streaming(path, checkpoint_path=ck, checkpoint_every=2,
+                       estimate_blocks=4, **kw)
+    y, info = separate_streaming(path, checkpoint_path=ck, **kw)
+    assert info["resumed_at"] == 4 and info["blocks"] == i_ref["blocks"]
+    assert info["logliks"] == i_ref["logliks"]
+    assert np.array_equal(y, y_ref)
+
+
+def test_stream_blocks_and_synthesis_on_cuda(dev, tmp_path):
+    """Blocks read on the card equal the card's whole transform bit for
+    bit and the CPU's within 2e-6 of the peak; the card's streaming
+    synthesis inverts them within 1e-5 of the signal's peak."""
+    from pyfasst_tpu_torch.audio import wav_read
+    from pyfasst_tpu_torch.tf.stft import STFT
+    path = _stream_wav(str(tmp_path / "s.wav"), seconds=2.0)
+    data = wav_read(path)[0].astype(np.float32)
+    gpu = STFT(wlen=512, fs=8000, device=dev)
+    blocks = list(gpu.stream_blocks(path, 16))
+    assert blocks[0].device.type == "cuda"
+    whole = gpu.computeTransform(data)
+    assert torch.equal(torch.cat(blocks, dim=1), whole)
+    cpu = STFT(wlen=512, fs=8000, device="cpu").computeTransform(data)
+    assert float((whole.cpu() - cpu).abs().max()) < 2e-6 * float(
+        cpu.abs().max())
+    syn = gpu.synthesis_stream(data.shape[0])
+    y = np.concatenate([syn.push(b) for b in blocks] + [syn.flush()])
+    assert y.shape == data.shape
+    assert np.max(np.abs(y - data)) < 1e-5 * np.max(np.abs(data))
+
+
+def test_blind_mono_on_cuda_matches_cpu(dev):
+    """estim_param_blind_mono on the card (general engine, no launch)
+    against the CPU run from the same model and the same spectra: the
+    CPU model takes the card's Xs, since the init's 50 float64 IS-NMF
+    iterations carry the two FFTs' rounding (~1e-7) to ~1e-4 of the first
+    loglik (ROADMAP.md §3, the mono prefix seed)."""
+    mix = _mix3(np.random.default_rng(2), channels=1)
+    kw = dict(fs=16000, nbComps=2, nbNMFComps=3, wlen=256, iter_num=10)
+    cpu = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, device="cpu", **kw)
+    gpu = pyfasst_tpu_torch.MultiChanNMFInst_FASST(mix, device=dev, **kw)
+    cpu.Xs = gpu.Xs.cpu()
+    gpu.params = convert.params_from_numpy(
+        convert.params_to_numpy(cpu.params), device=dev)
+    launches = cuda_estep.LAUNCHES
+    ll_gpu = gpu.estim_param_blind_mono(nmf_iters=50)
+    ll_cpu = cpu.estim_param_blind_mono(nmf_iters=50)
+    assert cuda_estep.LAUNCHES == launches
+    np.testing.assert_allclose(ll_gpu, ll_cpu, rtol=1e-4)
+    y_gpu, y_cpu = gpu.separated_images(), cpu.separated_images()
+    assert np.max(np.abs(y_gpu - y_cpu)) < 1e-3 * np.max(np.abs(y_cpu))

@@ -370,7 +370,7 @@ def test_hmm_checkpoint_read_by_the_other_package(tmp_path, writer):
     path = str(tmp_path / "ck.npz")
     if writer == "jax":
         jckpt.save_params(path, jm.params, iteration=7)
-        params, it, _ = tckpt.load_params(path)
+        params, it, _ = tckpt.load_params(path, device="cpu")
         got = convert.params_to_numpy(params)[0]
         want = jax.tree.map(np.asarray, jm.params)
     else:

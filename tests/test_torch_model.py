@@ -136,7 +136,8 @@ def test_model_chunked_estimation_is_exact(tmp_path):
 def test_port_imports_no_jax(tmp_path):
     """A separation through the port (the inst model with a checkpointed
     run, the conv model with DEMIX and the ERB basis, a 3-channel model,
-    batch_separate) loads neither jax nor pyfasst_tpu."""
+    batch_separate, separate_streaming with both inits, the blind mono
+    init) loads neither jax nor pyfasst_tpu."""
     code = """
 import sys
 import numpy as np
@@ -174,6 +175,17 @@ c = pyfasst_tpu_torch.MultiChanNMFConv(x, fs=16000, nbComps=2, nbNMFComps=2,
                                        device="cpu")
 assert np.all(np.isfinite(c.estim_param_a_posteriori()))
 assert c.separated_images().shape == (2, 4000, 2)
+from pyfasst_tpu_torch.audio import wavwrite
+wavwrite(x, 16000, "x.wav")                          # streaming, both inits
+for init in ("random", "blind"):
+    ys, info = pyfasst_tpu_torch.separate_streaming(
+        "x.wav", K=2, wlen=256, frames_per_block=8, init=init,
+        init_seconds=0.1, verbose=0, device="cpu")
+    assert ys.shape == (2, 4000, 2) and np.all(np.isfinite(info["logliks"]))
+mono = pyfasst_tpu_torch.MultiChanNMFInst_FASST(x[:, :1], fs=16000, nbComps=2,
+                                                nbNMFComps=2, wlen=256,
+                                                iter_num=2, device="cpu")
+assert np.all(np.isfinite(mono.estim_param_blind_mono(nmf_iters=5)))
 from pyfasst_tpu_torch.ops import cuda_estep, _build  # kernel modules too
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "flax"))
