@@ -20,13 +20,14 @@ Phases (each prints one line with its numbers and seconds):
      mixed ranks), d (ann_ns_inj, rank 1 and rank 2) at the bench shapes
      (B=8, F=513, N=863), at the conv paths' own shapes (B=1, F=513, the
      N of phases 5 and 6; the buckets of phases 9 and 10, B=8 for c and
-     B=4 for b at 256 frames; all timed too) and two ragged ones; e
-     (fast_recip) and f (no_ll)
-     in variant a's kernel and in the general one, at the bench shapes and
-     a ragged one; the spectral kernels fb_stats and tw_stats at the bench
-     shapes (J=2, K=8), the JAX suite's (37, 95), (130, 300) and J=3,
-     K=4 (70, 211), and across their tiles, strips, batches and chunks with
-     K=16 and 32 (SPECTRAL_SHAPES), two runs bit for bit; variant a at
+     B=4 for b at 256 frames; phase 16's pool chunk, B=24 for c at 189
+     frames, also two runs bit for bit; all timed too) and two ragged
+     ones; e (fast_recip) and f (no_ll) in variant a's kernel and in
+     the general one, at the bench shapes and a ragged one; the spectral
+     kernels fb_stats and tw_stats at the bench shapes (J=2, K=8), the
+     JAX suite's (37, 95), (130, 300) and J=3, K=4 (70, 211), and across
+     their tiles, strips, batches and chunks with K=16 and 32
+     (SPECTRAL_SHAPES), two runs bit for bit; variant a at
      phase 13's shape (1, 48, 98304), timed; and variant b at J=2 and
      phase 15's block shape (1, 513, 64), two runs bit for bit, timed;
   3. the host API: MultiChanNMFInst_FASST on a 10 s stereo WAV, 500 GEM
@@ -107,7 +108,22 @@ Phases (each prints one line with its numbers and seconds):
      blind mono row (estim_param_blind_mono, 300 iterations, no launch):
      every min SDR within 1 dB of the CPU run; the streams' xRT, a
      profiler window of 10 block steps and the bounded path's peak
-     device memory beside the full plane's bytes.
+     device memory beside the full plane's bytes;
+  16. BASELINE configs[2] blind (tools/validate_hw.py:374-410, the CLI's
+     --preset reverb point): phase 6's mixture through MultiChanNMFConv(
+     nbComps=4, nbNMFComps=6, spatial_rank=2, iter_num=400).
+     estim_param_blind_reverb(learned=True, select="learned"), WAVs
+     written: the candidate pool in chunks of 24 runs, em_seeds 2, two
+     reseed rounds; variant c launched 400 times per pool chunk (24 wide)
+     and per reseed stage (2 wide); min SDR at least 5 dB and within 1 dB
+     of the port's CPU run of the recipe from the card's pool pick onward
+     (that candidate's two EM seeds and the reseed rounds, made in the
+     phase), the picks beside each other and the JAX package's TPU row;
+     the wall seconds of each
+     stage; a profiler window of 20 iterations of the first pool chunk;
+     then reduced-depth checks of three paths: _embed_nodes_device
+     against the host eigh at F*J = 3075, band_em=32 and
+     multiscale_wlen=512 (100 iterations each: finite images, launches).
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -274,6 +290,32 @@ NB_STREAM, K_STREAM, INNER_STREAM, FORGET_STREAM = 64, 8, 6, 0.95
 NOISE_STREAM = 1e-3                # the host loop's sigma: validate_hw's
 STREAM_CUT, STREAM_CK_EVERY = 20, 10
 NITER_BLIND_MONO = 300
+# phase 16: BASELINE configs[2] blind, tools/validate_hw.py:374-410 at the
+# CLI's --preset reverb point: phase 6's mixture (seed 102) through
+# MultiChanNMFConv(nbComps=4, nbNMFComps=6, spatial_rank=2, iter_num=400,
+# spatial_hold_frac=0.3).estim_param_blind_reverb(learned=True,
+# select="learned") (em_seeds 2, reseed_rounds 2, chunks of 24 runs). Not
+# cut. The pool runs variant c at (POOL_CHUNK, J = 4, F, N = 189), which
+# phase 2 checks and times
+POOL_CHUNK = 24
+# The card's run is held against the port's CPU run of the same recipe
+# from the card's pool pick onward, made in the phase: that candidate's
+# EM seeds and the reseed rounds, under the same selection. The whole
+# recipe on the CPU (cpu_reference_blind: 78 runs of 400 iterations at
+# F = 513, N = 189) takes ~50-60 min of an H100 machine's 8 host cores,
+# more than one chip call could hold beside the phase
+# the JAX package's row for the same recipe (docs/validation.md:9, taken on
+# a TPU): a quality figure, printed beside the card's for reference
+JAX_BLIND_MIN_SDR = 10.68
+# the reduced-depth check of the alignment's device path: planted
+# per-frequency permutations over F * J = 3075 nodes (a wlen-2048 grid,
+# J = 3), above spatial_init's host-path cutoff of 2052
+EMBED_CHECK = (1025, 3, 189)
+# the reduced-depth checks of the band-EM candidate and the multiscale
+# ladder on phase 16's mixture: pool iterations, and the band probes'
+# iterations (spatial_init.band_em_votes' default)
+NITER_LADDER = 100
+BAND_PROBE_ITERS = 150
 # variant b's shape on the streaming path: one block of one clip
 STREAM_SHAPE = (1, 2, WLEN_CONV // 2 + 1, NB_STREAM)
 # general E-step instantiations the paths take: (J, rmax, real_cov, ns_inj)
@@ -833,6 +875,11 @@ def phase_general_vs_plain(device):
         timed = ((BATCH, 513, 863), path_shape) + (
             ((len(CONV_BATCH_SEEDS[batch]), 513, padded_frames(conv_frames())),)
             if batch else ())
+        # phase 16's pool: chunks of POOL_CHUNK runs, unpadded frames
+        pool_shape = (POOL_CHUNK, 513, conv_frames())
+        on_pool = label == GENERAL_HEADLINE["c"]
+        if on_pool:
+            timed = timed + (pool_shape,)
         for (B, F, N) in timed + ((1, 33, 70), (1, 9, 2500)):
             inp = _general_inputs(B, J_, F, N, ranks, real, seed=F * N + J_,
                                   device=device)
@@ -856,9 +903,11 @@ def phase_general_vs_plain(device):
                 if (B, F, N) == timed[0]:
                     out[label] = dict(nums, key=key)
                 else:
-                    out[label]["path" if (B, F, N) == path_shape
-                               else "batch_path"] = dict(nums,
-                                                         shape=[B, F, N])
+                    where = ("path" if (B, F, N) == path_shape else
+                             "pool_path"
+                             if on_pool and (B, F, N) == pool_shape
+                             else "batch_path")
+                    out[label][where] = dict(nums, shape=[B, F, N])
                 timing = (f" | kernel {nums['ms']:.4f} ms (min "
                           f"{min(kern):.4f}), "
                           f"plain {nums['plain_ms']:.3f} ms (min "
@@ -871,6 +920,13 @@ def phase_general_vs_plain(device):
                            for n, e in errs.items())
                 + f" | max_abs_err {abs_err:.3e}{timing}")
             bad = [n for n, e in errs.items() if not e <= tol[n]]
+            if on_pool and (B, F, N) == pool_shape:
+                again = cuda_estep.estep_general(*inp, ranks, **kw)
+                same = all(torch.equal(g, a) for g, a in zip(got, again))
+                log(f"phase 2 {key} at the pool shape: two runs bit for bit "
+                    f"{same}")
+                if not same:
+                    bad.append("two runs differ")
             if bad:
                 raise RuntimeError(f"variant {key} ({label}) disagrees with "
                                    f"its plain version at B={B} F={F} "
@@ -2376,6 +2432,260 @@ def phase_stream(device, card):
     return s["counts"][1]["b"], profs
 
 
+def blind_model(device, niter=None):
+    """(model, true images) of phase 16's recipe on `device` (NITER_CONV
+    iterations unless `niter`): the configs[2] mixture and model, left at
+    the model's own init (the blind pipeline replaces it)."""
+    from pyfasst_tpu_torch import MultiChanNMFConv
+    mix, ys_true = reverb_mixture()
+    model = MultiChanNMFConv(mix, fs=FS_CONV, nbComps=4, nbNMFComps=6,
+                             spatial_rank=2, wlen=WLEN_CONV,
+                             iter_num=niter or NITER_CONV,
+                             spatial_hold_frac=0.3, device=device)
+    return model, ys_true
+
+
+def drive_blind(model, ys_true, out_dir, verbose=False):
+    """The blind pipeline, WAVs written, scored: (info, (min, mean) SDR,
+    wall seconds by stage, WAV paths)."""
+    import torch
+    t0 = time.perf_counter()
+    info = model.estim_param_blind_reverb(learned=True, select="learned",
+                                          verbose=verbose)
+    t1 = time.perf_counter()
+    paths = model.separate_spat_comps(out_dir)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sdr = best_perm_sdr(model.separated_images(), ys_true)
+    split = dict(info["stage_seconds"], separation=t2 - t1, total=t2 - t0)
+    return info, sdr, split, paths
+
+
+def cpu_reference_blind():
+    """Phase 16's whole recipe on the CPU (each run's record is printed as
+    its chunk ends); ~50-60 min of an H100 machine's host."""
+    import torch
+    model, ys_true = blind_model("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        info, sdr, split, _ = drive_blind(model, ys_true, tmp, verbose=True)
+    print(json.dumps({"min_sdr": sdr[0], "mean_sdr": sdr[1],
+                      "picked": info["picked"],
+                      "history": [h["picked"] for h in info["history"]],
+                      "pool": info["history"][0]["pool"],
+                      "seconds": split, "threads": torch.get_num_threads()}),
+          flush=True)
+
+
+def embed_device_check(device):
+    """Reduced-depth check of the alignment's device path: the graph build
+    and Lanczos (_embed_nodes_device) against the host path's dense eigh
+    at EMBED_CHECK, on three sources with distinct envelopes under planted
+    per-frequency permutations (tests/test_spatial_init.py:372's problem,
+    wider): each path must undo the permutations into one relabeling.
+    Returns the two paths' seconds."""
+    import torch
+    from pyfasst_tpu_torch.models import spatial_init as si
+    F, J_, N = EMBED_CHECK
+    rng = np.random.default_rng(F * J_)
+    base = np.stack([1.0 + 0.9 * np.sin(2 * np.pi * np.arange(N) / p)
+                     for p in (7.0, 13.0, 29.0)])
+    perms = np.stack([rng.permutation(J_) for _ in range(F)])
+    act = base[perms] * rng.uniform(0.5, 2.0, (F, 1, 1))
+    act += 0.05 * rng.uniform(size=act.shape)
+    seconds, ok = {}, {}
+    for name in ("host", "device"):
+        t0 = time.perf_counter()
+        if name == "host":
+            lim = si._EMBED_DEVICE_MIN_NODES
+            si._EMBED_DEVICE_MIN_NODES = F * J_
+            try:
+                U, npow = si._embed_nodes(act, None)
+            finally:
+                si._EMBED_DEVICE_MIN_NODES = lim
+        else:
+            U, npow = si._embed_nodes(act, None, device=device)
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        cent = si._spherical_kmeans(U, npow, J_, seed=0)
+        sel = si._assignment_from_embedding(U, cent, F, J_)
+        comp = np.take_along_axis(perms, sel, axis=1)
+        ok[name] = float((comp == comp[0]).all(axis=1).mean())
+    log(f"phase 16 reduced-depth check _embed_nodes_device F*J={F * J_} "
+        f"(F={F}, J={J_}, N={N}): planted permutations undone on "
+        f"{ok['device']:.4f} of frequencies (host eigh {ok['host']:.4f}); "
+        f"device {seconds['device']:.2f}s, host {seconds['host']:.2f}s")
+    if ok != {"host": 1.0, "device": 1.0}:
+        raise RuntimeError(f"phase 16: _embed_nodes_device check {ok}")
+    return seconds
+
+
+def ladder_checks(device, card):
+    """Reduced-depth checks of two paths on phase 16's mixture (each named
+    as such): the band-EM candidate (band_em=32: its probes, 150
+    iterations over every (band, seed) run in one batch, then a pool of
+    100 iterations, em_seeds 1, no reseed) and the multiscale ladder
+    (multiscale_wlen=512 on the model's wlen-1024 grid, 100 iterations,
+    em_seeds 1, no reseed). Gates: finite images, every E-step launch of
+    variant c, as many as the stages' iterations. Returns the launches."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, kw in (("band_em=32", dict(band_em=32)),
+                     ("multiscale_wlen=512", dict(multiscale_wlen=512))):
+        model, _ = blind_model(device, NITER_LADDER)
+        t1 = time.perf_counter()
+        _reset_counts()
+        info = model.estim_param_blind_reverb(em_seeds=1, reseed_rounds=0,
+                                              **kw)
+        total, counts = _counts()
+        ys = model.separated_images()
+        secs = time.perf_counter() - t1
+        stages = [info["history"][0]["pool"]] + (
+            [info["fine"]["history"][0]["pool"]] if "fine" in info else [])
+        chunks = sum(-(-r // POOL_CHUNK) for r in stages)
+        want = NITER_LADDER * chunks + (BAND_PROBE_ITERS if "band_em" in kw
+                                        else 0)
+        log(f"phase 16 reduced-depth check {name} ({NITER_LADDER} iters, "
+            f"em_seeds 1, no reseed): picked {info['picked']}, pool runs "
+            f"{stages}, launches {total} {counts} (expected {want}), "
+            f"finite images {bool(np.all(np.isfinite(ys)))}, {secs:.2f}s | "
+            f"{card}")
+        if not np.all(np.isfinite(ys)) or total != want \
+                or counts["c"] != want:
+            raise RuntimeError(f"phase 16 {name}: launches {total} {counts} "
+                               f"(expected {want}) or non-finite images")
+        out[name] = total
+    log(f"phase 16 reduced-depth checks done | "
+        f"{time.perf_counter() - t0:.2f}s")
+    return out
+
+
+def cpu_from_pick(model, ys_true, pool):
+    """The port's CPU run of phase 16's recipe from the card's pool pick
+    onward: reverb._pool_and_reseed on the CPU over the pool's candidate
+    that the card picked (its EM seeds, then the reseed rounds), with the
+    card run's arguments and learned judge. Returns (info, (min, mean)
+    SDR, seconds)."""
+    import torch
+    from pyfasst_tpu_torch.models import reverb
+    from pyfasst_tpu_torch.tf.stft import STFT
+    t0 = time.perf_counter()
+    X, cands, J_, kw = pool["args"]
+    name = pool["picked"].split("|")[0]
+    Y, info = reverb._pool_and_reseed(
+        X, [c for c in cands if c[0] == name], J_,
+        **dict(kw, device="cpu"))
+    ys = STFT(wlen=WLEN_CONV, fs=FS_CONV, device="cpu").invertTransform(
+        torch.as_tensor(Y), nsamples=model.audio.nsamples).numpy()
+    return (info, best_perm_sdr(ys * model._scale, ys_true),
+            time.perf_counter() - t0)
+
+
+def phase_blind(device, card):
+    """Phase 16: configs[2] blind on the card through the host API, WAVs
+    written. Gates: every E-step launch is variant c, 400 per pool chunk
+    (each POOL_CHUNK wide) and 400 per reseed stage of info["history"]
+    (each em_seeds wide); min SDR at least SDR_FLOOR["reverb"] and within
+    SDR_SLACK of the port's CPU run from the card's pool pick onward
+    (cpu_from_pick); WAVs written. Prints the picks side by side, the
+    wall seconds of each stage, and a profile of 20 iterations of the
+    first pool chunk. Then the reduced-depth checks. Returns the
+    variant-c launches and the run's numbers."""
+    import torch
+    from pyfasst_tpu_torch.models import reverb
+    from pyfasst_tpu_torch.ops import cuda_estep, gem
+    t0 = time.perf_counter()
+    model, ys_true = blind_model(device)
+    widths = []
+    kernel = cuda_estep.estep_general
+    run_gem = gem.run_gem
+    pool_and_reseed = reverb._pool_and_reseed
+    first, pool = {}, {}
+
+    def spy(x4, *args, **kw):
+        widths.append(int(x4.shape[0]))
+        return kernel(x4, *args, **kw)
+
+    def keep_first(params, X, cfg, **kw):
+        if not first and X.shape[0] == POOL_CHUNK:
+            first.update(params=params, X=X, cfg=cfg)
+        return run_gem(params, X, cfg, **kw)
+
+    def keep_pool(X, cands, J_, **kw):
+        pool["args"] = (X, cands, J_, kw)
+        return pool_and_reseed(X, cands, J_, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        cuda_estep.estep_general = spy
+        gem.run_gem = keep_first
+        reverb._pool_and_reseed = keep_pool
+        try:
+            info, (smin, smean), split, paths = drive_blind(
+                model, ys_true, tmp)
+        finally:
+            cuda_estep.estep_general = kernel
+            gem.run_gem = run_gem
+            reverb._pool_and_reseed = pool_and_reseed
+        total, counts = _counts()
+        written = [p for p in paths if os.path.getsize(p) > 44]
+    hist = info["history"]
+    runs = hist[0]["pool"]
+    chunks = -(-runs // POOL_CHUNK)
+    reseeds = len(hist) - 1
+    want = NITER_CONV * (chunks + reseeds)
+    em_seeds = 2
+    want_widths = ([POOL_CHUNK] * (NITER_CONV * chunks)
+                   + [em_seeds] * (NITER_CONV * reseeds))
+    prof = profile_gem(first["params"], first["X"], first["cfg"])
+    del first
+    pool["picked"] = hist[0]["picked"]
+    info_c, (cmin, cmean), cpu_s = cpu_from_pick(model, ys_true, pool)
+    del pool
+    log(f"phase 16 configs[2] blind (learned=True, select=learned, "
+        f"{NITER_CONV} iters, em_seeds {em_seeds}, reseed_rounds 2): J="
+        f"{model.params.n_spat} rank {model.params.spat[0].rank} F={model.F} "
+        f"N={model.N}, pool {runs} runs in {chunks} chunks of {POOL_CHUNK}, "
+        f"stages {[h['picked'] for h in hist]}, launches {total} {counts} "
+        f"(expected {want}), widths {sorted(set(widths))}, min SDR "
+        f"{smin:.2f} dB (mean {smean:.2f}; the JAX package's TPU row "
+        f"{JAX_BLIND_MIN_SDR} dB), wavs {len(written)} | {card}")
+    log(f"phase 16 the port's CPU run from the card's pool pick "
+        f"{hist[0]['picked'].split('|')[0]}): stages "
+        f"{[h['picked'] for h in info_c['history']]}, min SDR {cmin:.2f} "
+        f"dB (mean {cmean:.2f}), {cpu_s:.2f}s (torch "
+        f"{torch.get_num_threads()} threads)")
+    log("phase 16 stage split (wall s): host votes and candidates "
+        f"{split['votes']:.2f}, learned votes {split['learned']:.2f}, pool "
+        f"GEM {split['pool']:.2f}, reseeds {split['reseeds']:.2f}, "
+        f"separation {split['separation']:.2f}; total {split['total']:.2f}"
+        f" -> xRT {DUR_CONV / split['total']:.3f} over the {DUR_CONV:.0f} s"
+        f" clip | {card}")
+    log(_profile_line(f"phase 16 profile pool chunk B={POOL_CHUNK} (of "
+                      f"{NITER_CONV})", prof, card))
+    embed_s = embed_device_check(device)
+    ladder = ladder_checks(device, card)
+    bad = []
+    if total != want or counts["c"] != want or widths != want_widths:
+        bad.append(f"launches {total} {counts}, widths "
+                   f"{sorted(set(widths))} (expected {want} of variant c: "
+                   f"{chunks} chunks {POOL_CHUNK} wide, {reseeds} reseed "
+                   f"stages {em_seeds} wide, {NITER_CONV} each)")
+    if not smin >= SDR_FLOOR["reverb"]:
+        bad.append(f"min SDR {smin:.2f} dB < {SDR_FLOOR['reverb']} dB")
+    if not abs(smin - cmin) <= SDR_SLACK:
+        bad.append(f"min SDR {smin:.2f} dB not within {SDR_SLACK} dB of "
+                   f"the CPU run ({cmin:.2f} dB)")
+    if len(written) != model.params.n_spat:
+        bad.append(f"expected {model.params.n_spat} WAVs, found {paths}")
+    log(f"phase 16 done | {time.perf_counter() - t0:.2f}s")
+    if bad:
+        raise RuntimeError("phase 16: " + "; ".join(bad))
+    return counts["c"], {"split": split, "profile": prof, "embed": embed_s,
+                         "min_sdr": smin, "cpu_min_sdr": cmin,
+                         "picked": info["picked"], "ladder": ladder}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2408,6 +2718,7 @@ def main() -> int:
     erb_launches, _ = phase_erblet(device, card)
     hmm_launches, _ = phase_hmm(device, card)
     stream_launches, _ = phase_stream(device, card)
+    blind_launches, _ = phase_blind(device, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     log(card)
 
@@ -2439,6 +2750,14 @@ def main() -> int:
                          batch_path_plain_ms=bp["plain_ms"],
                          batch_path_bound_ms=bp["bound_ms"],
                          batch_path_launches=batch_launches[key])
+        if key == "c":
+            pp = general[label]["pool_path"]
+            extra.update(pool_path_shape=pp["shape"], pool_path_ms=pp["ms"],
+                         pool_path_plain_ms=pp["plain_ms"],
+                         pool_path_bound_ms=pp["bound_ms"],
+                         pool_path_bound_by=pp["bound_by"],
+                         pool_path_max_abs_err=pp["max_abs_err"],
+                         pool_path_launches=blind_launches)
         if key == "b":
             extra.update(
                 stream_shape=stream_kernel["shape"],

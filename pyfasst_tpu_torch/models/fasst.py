@@ -22,7 +22,10 @@ any object with computeTransform / invertTransform passed as `transform`
 (tf.erblet.ERBLetTransform, tf.minqt.MinQTransfo, tf.filterbank.
 ERBTransform).
 
-Not ported yet: estim_param_blind_reverb.
+estim_param_blind_reverb runs the blind reverberant pipeline
+(models/reverb.py) in place of estim_param_a_posteriori and installs the
+winner's parameters (with `multiscale_wlen=`, through the multiscale
+ladder).
 """
 from __future__ import annotations
 
@@ -232,6 +235,67 @@ class FASST:
                   f"final loglik {self.logliks[-1]:.6g}")
         return self.logliks
 
+    def estim_param_blind_reverb(self, reseed_rounds: int = 2,
+                                 em_seeds: int = 2, verbose: bool = False,
+                                 multiscale_wlen: Optional[int] = None,
+                                 **kw) -> dict:
+        """Blind reverberant estimation through models/reverb.py.
+
+        Replaces estim_param_a_posteriori for reverberant mixtures with
+        unknown spatial structure: runs the candidate pool (consensus
+        spatial clustering, structural repairs, and with learned=True the
+        learned vote plane) to convergence in batched runs on the model's
+        device, selects by blind degeneracy statistics, applies
+        `reseed_rounds` of guarded EM reseeding, and installs the winning
+        run's parameters (B = 1): separation and checkpoints then behave
+        as after estim_param_a_posteriori. The model's own init is
+        ignored; its J, spatial rank, NMF rank and iteration count are
+        used. Any channel count runs. Keyword arguments go to
+        reverb.blind_reverb_separate (e.g. learned=True,
+        select="learned"). Returns the pipeline's info dict.
+
+        multiscale_wlen: run the multiscale ladder
+        (reverb.blind_reverb_separate_multiscale): the pipeline first runs
+        on a finer STFT grid of this window length, and its winners
+        re-seed the model's own (coarse) grid through time-domain
+        dominance votes. Needs an STFT front-end on the model, so the
+        installed parameters match separated_images.
+        """
+        from pyfasst_tpu_torch.models.reverb import (
+            blind_reverb_separate, blind_reverb_separate_multiscale,
+        )
+
+        J = len(self.params.spat)
+        rank = self.params.spat[0].rank
+        nmf_comps = int(self.params.spec[0].FB.shape[-1])
+        if multiscale_wlen is not None:
+            if not hasattr(self.tft, "wlen"):
+                raise ValueError("multiscale_wlen requires an STFT "
+                                 "front-end (the coarse stage runs on the "
+                                 "model's own grid)")
+            if multiscale_wlen >= self.tft.wlen:
+                raise ValueError(
+                    f"multiscale_wlen ({multiscale_wlen}) must be finer "
+                    f"than the model's window ({self.tft.wlen})")
+            _, info = blind_reverb_separate_multiscale(
+                self.audio.data.astype(np.float32), J, fs=self.fs,
+                wlen_fine=int(multiscale_wlen), transform_coarse=self.tft,
+                iters=self.cfg.niter, em_seeds=em_seeds,
+                reseed_rounds=reseed_rounds, rank=rank, nmf_comps=nmf_comps,
+                verbose=verbose, device=self.device, dtype=self.dtype, **kw)
+            info.pop("transform", None)
+            self.params = info["params"]
+            return info
+        # Xs is already unit-mean-power; the pipeline re-normalizes by its
+        # own RMS (== 1 here), so the returned parameters match Xs' scale
+        _, info = blind_reverb_separate(
+            self.Xs[0].cpu().numpy(), J, iters=self.cfg.niter,
+            em_seeds=em_seeds, reseed_rounds=reseed_rounds, rank=rank,
+            nmf_comps=nmf_comps, verbose=verbose, device=self.device,
+            dtype=self.dtype, **kw)
+        self.params = info["params"]
+        return info
+
     def estim_param_blind_mono(self, nmf_iters: int = 200,
                                n_seeds: int = 4, seed: int = 0
                                ) -> np.ndarray:
@@ -250,8 +314,7 @@ class FASST:
         )
         if int(self.Xs.shape[-1]) != 1:
             raise ValueError("estim_param_blind_mono needs mono input; "
-                             "use estim_param_a_posteriori for I >= 2 "
-                             "(estim_param_blind_reverb is not ported yet)")
+                             "use estim_param_blind_reverb for I >= 2")
         nmf_comps = int(self.params.spec[0].FB.shape[-1])
         init = nmf_cluster_init(
             self.Xs[0].cpu().numpy(), len(self.params.spec), nmf_comps,

@@ -137,7 +137,8 @@ def test_port_imports_no_jax(tmp_path):
     """A separation through the port (the inst model with a checkpointed
     run, the conv model with DEMIX and the ERB basis, a 3-channel model,
     batch_separate, separate_streaming with both inits, the blind mono
-    init) loads neither jax nor pyfasst_tpu."""
+    init, the blind reverberant pipeline with the learned candidate and
+    judge) loads neither jax nor pyfasst_tpu."""
     code = """
 import sys
 import numpy as np
@@ -186,6 +187,14 @@ mono = pyfasst_tpu_torch.MultiChanNMFInst_FASST(x[:, :1], fs=16000, nbComps=2,
                                                 nbNMFComps=2, wlen=256,
                                                 iter_num=2, device="cpu")
 assert np.all(np.isfinite(mono.estim_param_blind_mono(nmf_iters=5)))
+blind = pyfasst_tpu_torch.MultiChanNMFConv(x, fs=16000, nbComps=2,
+                                           nbNMFComps=2, wlen=256,
+                                           iter_num=3, spatial_rank=2,
+                                           device="cpu")
+info = blind.estim_param_blind_reverb(reseed_rounds=1, em_seeds=1, chunk=4,
+                                      n_seeds=2, learned=True,
+                                      select="learned")
+assert info["picked"] and blind.separated_images().shape == (2, 4000, 2)
 from pyfasst_tpu_torch.ops import cuda_estep, _build  # kernel modules too
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "flax"))
