@@ -28,8 +28,14 @@ Phases (each prints one line with its numbers and seconds):
      JAX suite's (37, 95), (130, 300) and J=3, K=4 (70, 211), and across
      their tiles, strips, batches and chunks with K=16 and 32
      (SPECTRAL_SHAPES), two runs bit for bit; variant a at
-     phase 13's shape (1, 48, 98304), timed; and variant b at J=2 and
+     phase 13's shape (1, 48, 98304), timed; variant b at J=2 and
      phase 15's block shape (1, 513, 64), two runs bit for bit, timed;
+     and every shape phase 17 launches (cli_shapes: 1c at J=3, ranks
+     (2, 2, 2), at the speech pool's (24, 1025, 158) and its band
+     probes' (66, 32, 158), at the music ladder's fine (24 and 2, 1025,
+     260) and coarse (6 and 2, 4097, 66) stages; 1a at the inst and
+     batch commands' shapes; 1b at the stream block), two runs bit for
+     bit, timed with the bound;
   3. the host API: MultiChanNMFInst_FASST on a 10 s stereo WAV, 500 GEM
      iterations, WAVs written; the kernel must carry every E-step and the
      separation must reach 60 dB SDR;
@@ -116,14 +122,36 @@ Phases (each prints one line with its numbers and seconds):
      written: the candidate pool in chunks of 24 runs, em_seeds 2, two
      reseed rounds; variant c launched 400 times per pool chunk (24 wide)
      and per reseed stage (2 wide); min SDR at least 5 dB and within 1 dB
-     of the port's CPU run of the recipe from the card's pool pick onward
-     (that candidate's two EM seeds and the reseed rounds, made in the
-     phase), the picks beside each other and the JAX package's TPU row;
-     the wall seconds of each
-     stage; a profiler window of 20 iterations of the first pool chunk;
-     then reduced-depth checks of three paths: _embed_nodes_device
-     against the host eigh at F*J = 3075, band_em=32 and
-     multiscale_wlen=512 (100 iterations each: finite images, launches).
+     of CPU_SDR_BLIND, the port's CPU run of the recipe from the card's
+     pool pick onward (that candidate's two EM seeds and the reseed
+     rounds; cpu_reference_blind_pick() measures it), the JAX package's
+     TPU row beside; the wall seconds of each stage; a profiler window of
+     20 iterations of the first pool chunk; then reduced-depth checks of
+     three paths: _embed_nodes_device against the host eigh at F*J =
+     3075, band_em=32 and multiscale_wlen=512 (100 iterations each:
+     finite images, launches);
+  17. the CLI, in this process through pyfasst_tpu_torch.__main__.main,
+     its JSON reports captured: (a) `separate --preset speech --sources 3`
+     at full width and depth on tools/speech_lab.py's SiSEC-regime speech
+     fixture (10 s, 16 kHz, three speakers, T60 0.25 s; wlen 2048,
+     band_em=32, learned votes and selection, no reseed, 400 iterations):
+     variant c launched 400 times per pool chunk and 150 times by the
+     band probes, the WAVs it writes scored against the true images: min
+     SDR within 1 dB of CPU_SDR_SPEECH (the port's CPU run from the
+     card's pool pick, cpu_reference_speech()), the picks, wall, xRT and
+     a profile of the first pool chunk beside the JAX package's TPU row;
+     then fixture seeds 121-124 through the same command: the median min
+     SDR of the five draws at least 5 dB, beside the JAX package's five;
+     (b) `--preset music --sources 3` on
+     tools/validate_hw.py's 3-stem music row cut from 20 s to 6 s (fine
+     grid 2048, coarse 8192 kept): finite images, launches on both grids
+     as the stages ask, SDR printed; (c) `separate` (inst, with a
+     checkpoint, then its --resume: zero iterations), `--streaming`,
+     `--batch`, `lead`, `demix`, `eval` (on (a)'s WAVs: (a)'s
+     permutation) and `info` (also as `python -m pyfasst_tpu_torch` in a
+     subprocess), each exiting 0 with a JSON report and launching the
+     kernels it should; every kernel call of the phase at a shape phase
+     2 checked.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -299,11 +327,13 @@ NITER_BLIND_MONO = 300
 # phase 2 checks and times
 POOL_CHUNK = 24
 # The card's run is held against the port's CPU run of the same recipe
-# from the card's pool pick onward, made in the phase: that candidate's
-# EM seeds and the reseed rounds, under the same selection. The whole
-# recipe on the CPU (cpu_reference_blind: 78 runs of 400 iterations at
-# F = 513, N = 189) takes ~50-60 min of an H100 machine's 8 host cores,
-# more than one chip call could hold beside the phase
+# from the card's pool pick onward: that candidate's EM seeds and the
+# reseed rounds, under the same selection (cpu_reference_blind_pick(), one
+# card run and 193.2 s of an H100 machine's 8 host cores: the same stages
+# as the card, 10.58 dB). The whole recipe on the CPU (cpu_reference_blind:
+# 78 runs of 400 iterations at F = 513, N = 189) takes ~50-60 min of those
+# cores, more than one chip call could hold beside the script
+CPU_SDR_BLIND = 10.58
 # the JAX package's row for the same recipe (docs/validation.md:9, taken on
 # a TPU): a quality figure, printed beside the card's for reference
 JAX_BLIND_MIN_SDR = 10.68
@@ -320,7 +350,54 @@ BAND_PROBE_ITERS = 150
 STREAM_SHAPE = (1, 2, WLEN_CONV // 2 + 1, NB_STREAM)
 # general E-step instantiations the paths take: (J, rmax, real_cov, ns_inj)
 GENERAL_PATH_INSTANCES = {"b": (3, 1, 0, 0), "c": (4, 2, 0, 0),
-                          "d": (3, 1, 0, 1), "b stream": (2, 1, 0, 0)}
+                          "d": (3, 1, 0, 1), "b stream": (2, 1, 0, 0),
+                          "c cli": (3, 2, 0, 0)}
+# phase 17: the CLI, in this process through pyfasst_tpu_torch.__main__.main.
+# (a) `separate --preset speech --sources 3` at full width and depth on the
+# SiSEC-regime speech fixture, tools/speech_lab.py::_fixture(3, 0.25, 120)
+# (tools/validate_hw.py's speech row: 10 s at 16 kHz, stereo, three
+# speakers, T60 0.25 s). Not cut. The preset: wlen 2048 (F = 1025), full
+# rank 2, K = 6, band_em=32, no reseed, learned votes and selection, 400
+# iterations; the pool runs variant c at (POOL_CHUNK, J = 3, F, N)
+SPEECH = dict(n_spk=3, t60=0.25, seed=120, fs=16000, dur=10.0)
+# min SDR of the port's CPU run of the recipe from the card's pool pick
+# onward (cpu_reference_speech(): the picked candidate's EM seeds on the
+# CPU; 4.3989 dB on the host of an H100 machine against the card's
+# 4.3989); the card's run must lie within SDR_SLACK of it. The JAX
+# package's row for the same fixture (docs/validation.md:21, taken on a
+# TPU) is printed beside
+CPU_SDR_SPEECH = 4.40
+JAX_SPEECH_MIN_SDR = 9.46
+# The preset's quality gate is held over the fixture's five draws, seeds
+# 120-124, the draws docs/validation.md:37 quotes for the JAX package
+# (min SDR 9.46, 9.25, 6.84, 12.77, 11.38 on a TPU: median 9.46): the
+# median of the port's five min SDRs must reach SPEECH_FLOOR. One draw
+# decides too little: the EM seeds' spectral draws are the port's own
+# (spatial_init._em_seed_spec), and with them seed 120's recipe lands on
+# 4.40 dB, on the card and the CPU alike, while the JAX package's draws
+# injected into the port give its 9.46 and 6.84 dB on seeds 120 and 122
+# on the card
+SPEECH_SEEDS = (120, 121, 122, 123, 124)
+JAX_SPEECH_SEEDS_MIN_SDR = (9.46, 9.25, 6.84, 12.77, 11.38)
+SPEECH_FLOOR = 5.0
+# (b) `separate --preset music --sources 3` on the 3-stem row of
+# tools/validate_hw.py::scenario_music (seed 105; bass, lead and drums;
+# T60 0.12 s; 44.1 kHz), cut in depth only: the row's generator run for
+# DUR of its 20 s. The preset's widths stay: fine grid 2048 (F = 1025),
+# coarse grid 8192 (F = 4097), J = 3. Its SDR is printed, not gated (the
+# JAX package's 20 s row, report-only there as here)
+MUSIC = dict(seed=105, kinds=(0, 2, 3), t60=0.12, fs=44100, dur=6.0,
+             pans=((0.9, 1.0), (-0.9, 1.0), (0.0, 1.0)))
+JAX_MUSIC_MIN_SDR = 6.33
+# (c) the other commands once each, at reduced depth: `separate` (inst)
+# on phase 3's 10 s bench WAV with a checkpoint, then its resume;
+# `--streaming` on the first DUR_CLI_STREAM s of it; `--batch` on a
+# directory of clips of CLI_BATCH_DURS s (one bucket of 128 frames); `lead`
+# and `demix` on phase 14's 3 s vibrato mixture; `eval` on (a)'s WAVs;
+# `info`, also as `python -m pyfasst_tpu_torch` in a subprocess
+NITER_CLI, NITER_CLI_LEAD = 50, 10
+DUR_CLI_STREAM = 5.0
+CLI_BATCH_DURS = (0.8, 1.0, 1.2, 1.4)
 
 
 def log(msg: str) -> None:
@@ -490,7 +567,7 @@ def principal_directions(ys_true, wlen=WLEN_CONV):
     from pyfasst_tpu_torch.tf.stft import stft
     out = []
     for y in ys_true:
-        Y = stft(y, wlen).numpy()                          # (F, N, 2)
+        Y = stft(y, wlen, device="cpu").numpy()             # (F, N, 2)
         R = np.einsum("fni,fnk->fik", Y, Y.conj())
         u = np.linalg.eigh(R)[1][..., -1]                  # (F, 2)
         u = u * np.exp(-1j * np.angle(u[:, :1]))
@@ -498,9 +575,9 @@ def principal_directions(ys_true, wlen=WLEN_CONV):
     return np.stack(out)
 
 
-def best_perm_sdr(ys, ys_true):
-    """(min, mean) image SDR over sources at the permutation with the best
-    total SDR (tools/validate_hw.py::_best_perm_sdr)."""
+def best_perm(ys, ys_true):
+    """(permutation, image SDR of each source) at the permutation with the
+    best total SDR: ys[perm[j]] is source j's estimate."""
     import itertools
 
     def sdr(a, b):
@@ -508,8 +585,15 @@ def best_perm_sdr(ys, ys_true):
                              / max(np.sum((a - b) ** 2), 1e-12))
 
     J = len(ys_true)
-    best = max((tuple(sdr(ys[p[j]], ys_true[j]) for j in range(J))
-                for p in itertools.permutations(range(J))), key=sum)
+    return max(((p, tuple(sdr(ys[p[j]], ys_true[j]) for j in range(J)))
+                for p in itertools.permutations(range(J))),
+               key=lambda c: sum(c[1]))
+
+
+def best_perm_sdr(ys, ys_true):
+    """(min, mean) image SDR over sources at the permutation with the best
+    total SDR (tools/validate_hw.py::_best_perm_sdr)."""
+    best = best_perm(ys, ys_true)[1]
     return float(min(best)), float(np.mean(best))
 
 
@@ -2561,11 +2645,13 @@ def ladder_checks(device, card):
 
 
 def cpu_from_pick(model, ys_true, pool):
-    """The port's CPU run of phase 16's recipe from the card's pool pick
+    """The port's CPU run of a flat blind recipe from the card's pool pick
     onward: reverb._pool_and_reseed on the CPU over the pool's candidate
     that the card picked (its EM seeds, then the reseed rounds), with the
-    card run's arguments and learned judge. Returns (info, (min, mean)
-    SDR, seconds)."""
+    card run's arguments and learned judge; `pool` holds the card call's
+    arguments ("args") and its pool pick ("picked"), `model` the card's
+    model (its STFT and scale). Returns (info, (min, mean) SDR,
+    seconds)."""
     import torch
     from pyfasst_tpu_torch.models import reverb
     from pyfasst_tpu_torch.tf.stft import STFT
@@ -2575,10 +2661,127 @@ def cpu_from_pick(model, ys_true, pool):
     Y, info = reverb._pool_and_reseed(
         X, [c for c in cands if c[0] == name], J_,
         **dict(kw, device="cpu"))
-    ys = STFT(wlen=WLEN_CONV, fs=FS_CONV, device="cpu").invertTransform(
+    ys = STFT(wlen=model.tft.wlen, fs=model.fs,
+              device="cpu").invertTransform(
         torch.as_tensor(Y), nsamples=model.audio.nsamples).numpy()
     return (info, best_perm_sdr(ys * model._scale, ys_true),
             time.perf_counter() - t0)
+
+
+class keep_blind_run:
+    """Context in which the port's blind pipeline keeps what a CPU rerun
+    from the pool pick needs: the model whose estim_param_blind_reverb
+    runs ("model") and the arguments of the first reverb._pool_and_reseed
+    call ("args"), beside each call's pool history ("histories") and the
+    run's wall seconds by stage ("stage_seconds")."""
+
+    def __enter__(self):
+        from pyfasst_tpu_torch.models import fasst, reverb
+        self.held = {"histories": []}
+        self._blind = fasst.FASST.estim_param_blind_reverb
+        self._pool = reverb._pool_and_reseed
+        held, blind, pool = self.held, self._blind, self._pool
+
+        def keep_model(model, *a, **kw):
+            held["model"] = model
+            info = blind(model, *a, **kw)
+            held["stage_seconds"] = info["stage_seconds"]
+            return info
+
+        def keep_pool(X, cands, J_, **kw):
+            held.setdefault("args", (X, cands, J_, kw))
+            Y, info = pool(X, cands, J_, **kw)
+            held["histories"].append(info["history"])
+            return Y, info
+
+        fasst.FASST.estim_param_blind_reverb = keep_model
+        reverb._pool_and_reseed = keep_pool
+        return self.held
+
+    def __exit__(self, *exc):
+        from pyfasst_tpu_torch.models import fasst, reverb
+        fasst.FASST.estim_param_blind_reverb = self._blind
+        reverb._pool_and_reseed = self._pool
+        return False
+
+
+class keep_first_chunk:
+    """Context in which gem.run_gem keeps the arguments of its first call
+    at the pool's width and depth (POOL_CHUNK runs, NITER_CONV
+    iterations): a pool chunk to profile afterwards (profile_gem)."""
+
+    def __enter__(self):
+        from pyfasst_tpu_torch.ops import gem
+        self.first = {}
+        self._run_gem = gem.run_gem
+        first, run_gem = self.first, self._run_gem
+
+        def keep_first(params, X, cfg, **kw):
+            if not first and X.shape[0] == POOL_CHUNK \
+                    and cfg.niter == NITER_CONV:
+                first.update(params=params, X=X, cfg=cfg)
+            return run_gem(params, X, cfg, **kw)
+
+        gem.run_gem = keep_first
+        return self.first
+
+    def __exit__(self, *exc):
+        from pyfasst_tpu_torch.ops import gem
+        gem.run_gem = self._run_gem
+        return False
+
+
+class spy_kernels:
+    """Context in which each E-step wrapper records the shape of every call
+    it gets: ("general" or "r1", B, J, F, N, ranks, real_cov, ns_inj),
+    in `shapes`. The wrappers still launch (and count) as before."""
+
+    def __enter__(self):
+        from pyfasst_tpu_torch.ops import cuda_estep
+        self.shapes = []
+        self._general = cuda_estep.estep_general
+        self._r1 = cuda_estep.estep_r1_real
+        general, r1, shapes = self._general, self._r1, self.shapes
+
+        def spy_general(x4, v, A4, sigma, ranks, **kw):
+            shapes.append(("general",) + tuple(v.shape) + (
+                tuple(int(r) for r in ranks), bool(kw.get("real_cov")),
+                bool(kw.get("ns_inj"))))
+            return general(x4, v, A4, sigma, ranks, **kw)
+
+        def spy_r1(x4, v, *a, **kw):
+            shapes.append(("r1",) + tuple(v.shape)
+                          + ((1,) * v.shape[1], True, False))
+            return r1(x4, v, *a, **kw)
+
+        cuda_estep.estep_general = spy_general
+        cuda_estep.estep_r1_real = spy_r1
+        return self.shapes
+
+    def __exit__(self, *exc):
+        from pyfasst_tpu_torch.ops import cuda_estep
+        cuda_estep.estep_general = self._general
+        cuda_estep.estep_r1_real = self._r1
+        return False
+
+
+def cpu_reference_blind_pick():
+    """Phase 16's recipe on the card, then the port's CPU run from the
+    card's pool pick onward (cpu_from_pick): the figure CPU_SDR_BLIND
+    holds. One card run and ~3 min of an H100 machine's 8 host cores."""
+    import torch
+    device = torch.device("cuda", 0)
+    model, ys_true = blind_model(device)
+    with tempfile.TemporaryDirectory() as tmp, keep_blind_run() as held:
+        info, (smin, _), _, _ = drive_blind(model, ys_true, tmp)
+    held["picked"] = info["history"][0]["picked"]
+    info_c, (cmin, cmean), cpu_s = cpu_from_pick(model, ys_true, held)
+    print(json.dumps({"card_min_sdr": smin, "card_picked": info["picked"],
+                      "cpu_min_sdr": cmin, "cpu_mean_sdr": cmean,
+                      "cpu_history": [h["picked"]
+                                      for h in info_c["history"]],
+                      "cpu_seconds": cpu_s,
+                      "threads": torch.get_num_threads()}), flush=True)
 
 
 def phase_blind(device, card):
@@ -2586,49 +2789,20 @@ def phase_blind(device, card):
     written. Gates: every E-step launch is variant c, 400 per pool chunk
     (each POOL_CHUNK wide) and 400 per reseed stage of info["history"]
     (each em_seeds wide); min SDR at least SDR_FLOOR["reverb"] and within
-    SDR_SLACK of the port's CPU run from the card's pool pick onward
-    (cpu_from_pick); WAVs written. Prints the picks side by side, the
-    wall seconds of each stage, and a profile of 20 iterations of the
-    first pool chunk. Then the reduced-depth checks. Returns the
+    SDR_SLACK of CPU_SDR_BLIND, the port's CPU run from the card's pool
+    pick onward (cpu_reference_blind_pick); WAVs written. Prints the
+    picks, the wall seconds of each stage, and a profile of 20 iterations
+    of the first pool chunk. Then the reduced-depth checks. Returns the
     variant-c launches and the run's numbers."""
-    import torch
-    from pyfasst_tpu_torch.models import reverb
-    from pyfasst_tpu_torch.ops import cuda_estep, gem
     t0 = time.perf_counter()
     model, ys_true = blind_model(device)
-    widths = []
-    kernel = cuda_estep.estep_general
-    run_gem = gem.run_gem
-    pool_and_reseed = reverb._pool_and_reseed
-    first, pool = {}, {}
-
-    def spy(x4, *args, **kw):
-        widths.append(int(x4.shape[0]))
-        return kernel(x4, *args, **kw)
-
-    def keep_first(params, X, cfg, **kw):
-        if not first and X.shape[0] == POOL_CHUNK:
-            first.update(params=params, X=X, cfg=cfg)
-        return run_gem(params, X, cfg, **kw)
-
-    def keep_pool(X, cands, J_, **kw):
-        pool["args"] = (X, cands, J_, kw)
-        return pool_and_reseed(X, cands, J_, **kw)
-
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, keep_first_chunk() as first, \
+            spy_kernels() as shapes:
         _reset_counts()
-        cuda_estep.estep_general = spy
-        gem.run_gem = keep_first
-        reverb._pool_and_reseed = keep_pool
-        try:
-            info, (smin, smean), split, paths = drive_blind(
-                model, ys_true, tmp)
-        finally:
-            cuda_estep.estep_general = kernel
-            gem.run_gem = run_gem
-            reverb._pool_and_reseed = pool_and_reseed
+        info, (smin, smean), split, paths = drive_blind(model, ys_true, tmp)
         total, counts = _counts()
         written = [p for p in paths if os.path.getsize(p) > 44]
+    widths = [sh[1] for sh in shapes]
     hist = info["history"]
     runs = hist[0]["pool"]
     chunks = -(-runs // POOL_CHUNK)
@@ -2639,22 +2813,16 @@ def phase_blind(device, card):
                    + [em_seeds] * (NITER_CONV * reseeds))
     prof = profile_gem(first["params"], first["X"], first["cfg"])
     del first
-    pool["picked"] = hist[0]["picked"]
-    info_c, (cmin, cmean), cpu_s = cpu_from_pick(model, ys_true, pool)
-    del pool
     log(f"phase 16 configs[2] blind (learned=True, select=learned, "
         f"{NITER_CONV} iters, em_seeds {em_seeds}, reseed_rounds 2): J="
         f"{model.params.n_spat} rank {model.params.spat[0].rank} F={model.F} "
         f"N={model.N}, pool {runs} runs in {chunks} chunks of {POOL_CHUNK}, "
         f"stages {[h['picked'] for h in hist]}, launches {total} {counts} "
         f"(expected {want}), widths {sorted(set(widths))}, min SDR "
-        f"{smin:.2f} dB (mean {smean:.2f}; the JAX package's TPU row "
-        f"{JAX_BLIND_MIN_SDR} dB), wavs {len(written)} | {card}")
-    log(f"phase 16 the port's CPU run from the card's pool pick "
-        f"{hist[0]['picked'].split('|')[0]}): stages "
-        f"{[h['picked'] for h in info_c['history']]}, min SDR {cmin:.2f} "
-        f"dB (mean {cmean:.2f}), {cpu_s:.2f}s (torch "
-        f"{torch.get_num_threads()} threads)")
+        f"{smin:.2f} dB (mean {smean:.2f}; the port's CPU run from the "
+        f"pool pick {CPU_SDR_BLIND} dB, cpu_reference_blind_pick; the JAX "
+        f"package's TPU row {JAX_BLIND_MIN_SDR} dB), wavs {len(written)} | "
+        f"{card}")
     log("phase 16 stage split (wall s): host votes and candidates "
         f"{split['votes']:.2f}, learned votes {split['learned']:.2f}, pool "
         f"GEM {split['pool']:.2f}, reseeds {split['reseeds']:.2f}, "
@@ -2673,17 +2841,613 @@ def phase_blind(device, card):
                    f"stages {em_seeds} wide, {NITER_CONV} each)")
     if not smin >= SDR_FLOOR["reverb"]:
         bad.append(f"min SDR {smin:.2f} dB < {SDR_FLOOR['reverb']} dB")
-    if not abs(smin - cmin) <= SDR_SLACK:
+    if not abs(smin - CPU_SDR_BLIND) <= SDR_SLACK:
         bad.append(f"min SDR {smin:.2f} dB not within {SDR_SLACK} dB of "
-                   f"the CPU run ({cmin:.2f} dB)")
+                   f"the CPU run ({CPU_SDR_BLIND} dB)")
     if len(written) != model.params.n_spat:
         bad.append(f"expected {model.params.n_spat} WAVs, found {paths}")
     log(f"phase 16 done | {time.perf_counter() - t0:.2f}s")
     if bad:
         raise RuntimeError("phase 16: " + "; ".join(bad))
     return counts["c"], {"split": split, "profile": prof, "embed": embed_s,
-                         "min_sdr": smin, "cpu_min_sdr": cmin,
-                         "picked": info["picked"], "ladder": ladder}
+                         "min_sdr": smin, "picked": info["picked"],
+                         "ladder": ladder}
+
+
+# -- phase 17: the CLI ---------------------------------------------------------
+
+def speech_sources(rng, n, fs, n_spk=3):
+    """tools/validate_hw.py::_speech_sources, copied (that module imports
+    JAX): speech-like stems (glottal-sawtooth-excited formant
+    resonators with syllabic gating, unvoiced fricatives and pauses),
+    one per speaker."""
+    from scipy.signal import lfilter
+
+    vowels = [(730, 1090, 2440), (270, 2290, 3010), (300, 870, 2240),
+              (660, 1720, 2410), (530, 1840, 2480)]   # a i u ae eh
+    pitches = [115.0, 205.0, 150.0, 180.0]
+
+    def resonator(x, fc, bw):
+        r = np.exp(-np.pi * bw / fs)
+        th = 2 * np.pi * fc / fs
+        return lfilter([1.0 - r], [1.0, -2 * r * np.cos(th), r * r], x)
+
+    out = []
+    for spk in range(n_spk):
+        f0 = pitches[spk % len(pitches)] * (1 + 0.06 * rng.uniform(-1, 1))
+        s = np.zeros(n)
+        i = int(rng.uniform(0, 0.25) * fs)            # desynchronized start
+        while i < n:
+            kind = rng.choice(["v", "v", "v", "f", "p"])
+            dur = rng.uniform(0.12, 0.35) if kind == "v" \
+                else rng.uniform(0.06, 0.2)
+            L = min(int(dur * fs), n - i)
+            tt = np.arange(L) / fs
+            env = np.minimum(1.0, tt / 0.03) \
+                * np.minimum(1.0, (L / fs - tt) / 0.05)
+            if kind == "v":
+                f0i = f0 * (1 + 0.12 * np.sin(
+                    2 * np.pi * rng.uniform(1.5, 3.5) * tt
+                    + rng.uniform(0, 6)))
+                ph = 2 * np.pi * np.cumsum(f0i) / fs
+                nh = max(2, int(fs / 2 / (f0 * 1.2)))
+                exc = sum(np.sin(h * ph) / h for h in range(1, nh + 1))
+                fset = vowels[rng.integers(0, len(vowels))]
+                seg = sum(resonator(exc, fc * (1 + 0.04 * rng.uniform(-1, 1)),
+                                    80 + 30 * k)
+                          for k, fc in enumerate(fset))
+                s[i:i + L] = seg * env
+            elif kind == "f":
+                w = rng.standard_normal(L)
+                hp = w - np.convolve(w, np.ones(5) / 5, "same")
+                s[i:i + L] = 0.35 * hp * env
+            i += L
+        out.append(s / (np.std(s) + 1e-9))
+    return out
+
+
+def music_sources(rng, n, fs):
+    """tools/validate_hw.py::_music_sources, copied (that module imports
+    JAX): bass line, chord pad, lead melody and drum kit stems of n
+    samples at fs."""
+    t = np.arange(n) / fs
+
+    def note_seq(freq_of_i, dur, wave, attack, decay):
+        seg = int(dur * fs)
+        out = np.zeros(n)
+        for k, i in enumerate(range(0, n, seg)):
+            L = min(seg, n - i)
+            tt = np.arange(L) / fs
+            env = np.minimum(1.0, tt / attack) * np.exp(-tt / decay)
+            out[i:i + L] = wave(freq_of_i(k), tt) * env
+        return out
+
+    def saw(f, tt):
+        return sum(np.sin(2 * np.pi * f * h * tt) / h for h in range(1, 9))
+
+    def organ(f, tt):
+        return sum(np.sin(2 * np.pi * f * h * tt) / h ** 0.5
+                   for h in (1, 2, 3, 4))
+
+    roots = [55.0, 41.2, 43.65, 49.0]                 # A1 E1 F1 G1
+    bass = note_seq(lambda k: roots[k % 4], 0.5, saw, 0.01, 0.4)
+    chords = [(220.0, 277.2, 329.6), (164.8, 207.7, 246.9),
+              (174.6, 220.0, 261.6), (196.0, 246.9, 293.7)]
+    pad = note_seq(lambda k: 0.0, 2.0,
+                   lambda f, tt: 0.0 * tt, 0.3, 4.0)  # filled below
+    seg = int(2.0 * fs)
+    for k, i in enumerate(range(0, n, seg)):
+        L = min(seg, n - i)
+        tt = np.arange(L) / fs
+        env = np.minimum(1.0, tt / 0.3) * np.exp(-tt / 4.0)
+        pad[i:i + L] = sum(organ(f, tt) for f in chords[k % 4]) * env
+    pent = [440.0, 493.9, 554.4, 659.3, 740.0]
+    mel = rng.integers(0, len(pent), size=n // int(0.25 * fs) + 1)
+
+    def lead_wave(f, tt):
+        vib = 1.0 + 0.012 * np.sin(2 * np.pi * 5.5 * tt)
+        return (np.sin(2 * np.pi * f * vib * tt)
+                + 0.4 * np.sin(2 * np.pi * 2 * f * vib * tt))
+
+    lead = note_seq(lambda k: pent[mel[k]], 0.25, lead_wave, 0.01, 0.25)
+    drums = np.zeros(n)
+    beat = int(0.5 * fs)
+    for i in range(0, n, beat):                       # kick
+        L = min(int(0.12 * fs), n - i)
+        tt = np.arange(L) / fs
+        drums[i:i + L] += np.sin(
+            2 * np.pi * (55 + 60 * np.exp(-tt / 0.02)) * tt) \
+            * np.exp(-tt / 0.06) * 2.0
+    for i in range(beat // 2, n, beat):               # snare (offbeat)
+        L = min(int(0.1 * fs), n - i)
+        tt = np.arange(L) / fs
+        drums[i:i + L] += rng.standard_normal(L) * np.exp(-tt / 0.04)
+    w = rng.standard_normal(n)
+    hat_env = np.zeros(n)
+    for i in range(0, n, beat // 2):                  # hats (8ths)
+        L = min(int(0.04 * fs), n - i)
+        hat_env[i:i + L] = np.exp(-np.arange(L) / (0.01 * fs))
+    drums += (w - np.convolve(w, np.ones(5) / 5, "same")) * hat_env * 0.7
+    levels = {"bass": 1.0, "pad": 0.8, "lead": 0.9, "drums": 1.1}
+    out = []
+    for name, s in (("bass", bass), ("pad", pad), ("lead", lead),
+                    ("drums", drums)):
+        out.append(levels[name] * s / (np.std(s) + 1e-9))
+    return out
+
+
+def music_mix(rng, srcs, n, fs, t60, pans):
+    """tools/validate_hw.py::_music_mix, copied: each source through a
+    random exponential room response per channel (T60 t60), panned by
+    an ITD and a level. Returns the true images (J, n, 2)."""
+    from scipy.signal import fftconvolve
+
+    taps = int(fs * t60)
+    ys_true = []
+    for j, s in enumerate(srcs):
+        az, g = pans[j]
+        itd = int(round(az * 8))                     # +-8-sample ITD max
+        chs = []
+        for ch in range(2):
+            h = rng.standard_normal(taps) * np.exp(
+                -3.0 * np.log(10) * np.arange(taps) / taps) * 0.08
+            d = max(0, itd if ch == 0 else -itd)
+            h[d] += g * (1.2 - 0.4 * np.sign(az) * (1 if ch else -1))
+            chs.append(fftconvolve(s, h)[:n])
+        ys_true.append(np.stack(chs, 1))
+    return np.stack(ys_true)
+
+
+def speech_fixture(n_spk=3, t60=0.25, seed=120, fs=16000, dur=10.0):
+    """tools/speech_lab.py::_fixture(n_spk, t60, seed) at `dur` seconds:
+    (mixture (n, 2), true images (n_spk, n, 2))."""
+    rng = np.random.default_rng(seed)
+    n = int(fs * dur)
+    srcs = speech_sources(rng, n, fs, n_spk)
+    pans = [(0.9, 1.0), (-0.9, 1.0), (0.0, 1.0), (0.45, 1.0)][:n_spk]
+    ys_true = music_mix(rng, srcs, n, fs, t60, pans)
+    return ys_true.sum(0), ys_true
+
+
+def music_fixture(seed=105, kinds=(0, 2, 3), t60=0.12, fs=44100, dur=20.0,
+                  pans=((0.9, 1.0), (-0.9, 1.0), (0.0, 1.0))):
+    """The first row of tools/validate_hw.py::scenario_music (its
+    _music_run on a fresh default_rng(seed)) with the generator run for
+    `dur` seconds: (mixture (n, 2), true images (len(kinds), n, 2))."""
+    rng = np.random.default_rng(seed)
+    n = int(fs * dur)
+    srcs = music_sources(rng, n, fs)
+    srcs = [srcs[k] for k in kinds]
+    ys_true = music_mix(rng, srcs, n, fs, t60, list(pans))
+    return ys_true.sum(0), ys_true
+
+
+def write_mixture(path, mix, fs, ys_true=None):
+    """Write `mix` as a float32 WAV, scaled so that it and every true image
+    peak at 0.5 at most (the CLI writes its images as PCM16 clipped to
+    [-1, 1]). Returns the true images at the WAV's scale."""
+    from pyfasst_tpu_torch.audio import wav_write
+    peak = np.max(np.abs(mix))
+    if ys_true is not None:
+        peak = max(peak, np.max(np.abs(ys_true)))
+    g = 0.5 / peak
+    wav_write(path, mix * g, fs, bits=32)
+    return None if ys_true is None else ys_true * g
+
+
+def run_cli(argv):
+    """pyfasst_tpu_torch.__main__.main(argv) in this process, its standard
+    output captured: the JSON report on its last line. Raises on a
+    non-zero exit code or a report that is not JSON."""
+    import contextlib
+    import io
+    from pyfasst_tpu_torch.__main__ import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise RuntimeError(f"phase 17: `{' '.join(argv)}` exited with {rc}")
+    return json.loads(lines[-1])
+
+
+def cli_shapes():
+    """The E-step calls phase 17 makes, by label: (kernel, B, J, F, N,
+    ranks, real_cov, ns_inj), kernel "general" (csrc/estep_general.cuh) or
+    "r1" (csrc/estep.cu). Phase 2 checks and times each; phase 17 fails
+    if its runs call a kernel at a shape not in this table."""
+    from pyfasst_tpu_torch.tf.stft import _frame_geometry
+    n_s = int(SPEECH["fs"] * SPEECH["dur"])
+    n_m = int(MUSIC["fs"] * MUSIC["dur"])
+    Ns = _frame_geometry(n_s, 2048, 1024)[2]
+    Nf = _frame_geometry(n_m, 2048, 1024)[2]
+    Nc = _frame_geometry(n_m, 8192, 4096)[2]
+    r3 = (2, 2, 2)
+    n_bands = -(-1025 // 32)              # band_em=32 over F = 1025
+    return {
+        "speech_pool": ("general", POOL_CHUNK, 3, 1025, Ns, r3, False,
+                        False),
+        "speech_band_probes": ("general", 2 * n_bands, 3, 32, Ns, r3, False,
+                               False),
+        "music_fine_pool": ("general", POOL_CHUNK, 3, 1025, Nf, r3, False,
+                            False),
+        "music_fine_reseed": ("general", 2, 3, 1025, Nf, r3, False, False),
+        "music_coarse_pool": ("general", 6, 3, 4097, Nc, r3, False, False),
+        "music_coarse_reseed": ("general", 2, 3, 4097, Nc, r3, False,
+                                False),
+        "inst": ("r1", 1, 2, WLEN // 2 + 1, _frame_geometry(
+            int(FS * DUR), WLEN, HOP)[2], (1, 1), True, False),
+        "batch": ("r1", len(CLI_BATCH_DURS), 2, WLEN // 2 + 1, GRANULARITY,
+                  (1, 1), True, False),
+        "stream": ("general", 1, 2, WLEN // 2 + 1, NB_STREAM, (1, 1), False,
+                   False),
+    }
+
+
+def phase_cli_shapes(device):
+    """Phase 2's part for phase 17: each kernel at each shape of
+    cli_shapes() against its plain version (variant a's xi bit for bit;
+    the rank-2 xi bar 3e-4), timed in turns with its bound. Returns the
+    numbers by label."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_estep
+    t0 = time.perf_counter()
+    out = {}
+    for label, (kind, B, J_, F, N, ranks, real, ns) in cli_shapes().items():
+        if kind == "r1":
+            inp = _estep_inputs(B, F, N, seed=F * N, device=device, J_=J_)
+
+            def kernel():
+                return cuda_estep.estep_r1_real(**inp)
+
+            def plain():
+                return cuda_estep.estep_r1_real_ref(**inp)
+
+            ops = count_ops(cuda_estep.estep_r1_real_ref, **inp)
+            tensors = list(inp.values())
+        else:
+            inp = _general_inputs(B, J_, F, N, ranks, real, seed=F * N + J_,
+                                  device=device)
+            kw = dict(ns_inj=ns, real_cov=real)
+
+            def kernel():
+                return cuda_estep.estep_general(*inp, ranks, **kw)
+
+            def plain():
+                return cuda_estep.estep_ref(*inp, ranks, **kw)
+
+            ops = general_ops(inp, ranks, **kw)
+            tensors = list(inp)
+        got, want, again = kernel(), plain(), kernel()
+        torch.cuda.synchronize()
+        errs, abs_err = _estep_errors(got, want)
+        tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
+        bad = [n for n, e in errs.items() if not e <= tol[n]]
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            bad.append("two runs differ")
+        if kind == "r1" and not torch.equal(got[0], want[0]):
+            bad.append("xi differs from the plain version's bits")
+        kern, ref = _turns(kernel, plain)
+        b_ms, b_by, nbytes = bound(tensors + list(got), ops)
+        out[label] = {"shape": [B, J_, F, N], "ranks": list(ranks),
+                      "max_abs_err": abs_err, "ms": statistics.median(kern),
+                      "plain_ms": statistics.median(ref), "bound_ms": b_ms,
+                      "bound_by": b_by,
+                      "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3}
+        log(f"phase 2 cli {label} ({'estep_r1_real' if kind == 'r1' else 'estep_general'}) "
+            f"B,J,F,N={B},{J_},{F},{N} ranks {ranks}: "
+            + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}" for n, e in errs.items())
+            + f" | max_abs_err {abs_err:.3e} | kernel {out[label]['ms']:.4f}"
+            f" ms (min {min(kern):.4f}), plain {out[label]['plain_ms']:.3f} "
+            f"ms, medians in turns | bound {b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop; without FMA "
+            f"{out[label]['nofma_floor_ms']:.4f} ms)")
+        if bad:
+            raise RuntimeError(f"phase 2 cli {label}: the kernel disagrees "
+                               f"with its plain version: {bad}")
+        del inp, got, want, again
+    log(f"phase 2 cli shapes done | {time.perf_counter() - t0:.2f}s")
+    return out
+
+
+def blind_launches(histories, band_em):
+    """E-step launches of a blind CLI run: NITER_CONV per pool chunk and
+    per reseed stage of every _pool_and_reseed call, and the band probes'
+    BAND_PROBE_ITERS when band_em is set."""
+    return sum(NITER_CONV * (-(-h[0]["pool"] // POOL_CHUNK) + len(h) - 1)
+               for h in histories) + (BAND_PROBE_ITERS if band_em else 0)
+
+
+def blind_cli(tmp, preset, mix, ys_true, fs, profile=False, name=None):
+    """`separate <wav> --preset <preset> --sources J` on the card through
+    the CLI, the fixture written as a float32 WAV; the WAVs it writes read
+    back and scored against the true images at the WAV's scale. Returns
+    the run's numbers; with profile, also a profile of GEM iterations 60-80
+    of the first pool chunk."""
+    import torch
+    from pyfasst_tpu_torch.audio import wavread
+    name = name or preset
+    wav = os.path.join(tmp, f"{name}.wav")
+    ys_true = write_mixture(wav, mix, fs, ys_true)
+    argv = ["separate", wav, "--preset", preset, "--sources",
+            str(len(ys_true)), "-o", os.path.join(tmp, name), "-q"]
+    _reset_counts()
+    with keep_blind_run() as held, spy_kernels() as shapes, \
+            keep_first_chunk() as first:
+        t0 = time.perf_counter()
+        rep = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total, counts = _counts()
+    ys = np.stack([wavread(p)[0] for p in rep["files"]])
+    perm, sdrs = best_perm(ys, ys_true)
+    model = held["model"]
+    out = {"report": rep, "wall": wall, "launches": total, "counts": counts,
+           "shapes": shapes, "histories": held["histories"], "perm": perm,
+           "sdrs": sdrs, "min_sdr": float(min(sdrs)),
+           "mean_sdr": float(np.mean(sdrs)), "ys_true": ys_true,
+           "wav": wav, "stage_seconds": held["stage_seconds"],
+           "finite": bool(np.all(np.isfinite(model.separated_images()))),
+           "grid": (model.F, model.N), "duration": model.audio.duration}
+    if profile:
+        out["profile"] = profile_gem(first["params"], first["X"],
+                                     first["cfg"])
+    out["held"] = held
+    return out
+
+
+def cpu_reference_speech():
+    """Phase 17's speech run on the card, then the port's CPU run from the
+    card's pool pick onward (cpu_from_pick: the picked candidate's EM seeds
+    under the learned judge): the figure CPU_SDR_SPEECH holds. One card run
+    and a few minutes of an H100 machine's host cores."""
+    import torch
+    device = torch.device("cuda", 0)
+    mix, ys_true = speech_fixture(**SPEECH)
+    with tempfile.TemporaryDirectory() as tmp:
+        r = blind_cli(tmp, "speech", mix, ys_true, SPEECH["fs"])
+    held = r["held"]
+    held["picked"] = held["histories"][0][0]["picked"]
+    info_c, (cmin, cmean), cpu_s = cpu_from_pick(held["model"],
+                                                 r["ys_true"], held)
+    print(json.dumps({"card_min_sdr": r["min_sdr"],
+                      "card_picked": r["report"]["picked"],
+                      "cpu_min_sdr": cmin, "cpu_mean_sdr": cmean,
+                      "cpu_history": [h["picked"]
+                                      for h in info_c["history"]],
+                      "cpu_seconds": cpu_s,
+                      "threads": torch.get_num_threads()}), flush=True)
+
+
+def cli_commands(tmp, speech):
+    """Phase 17 (c): the other commands once each at reduced depth, on the
+    card by the CLI's default. Returns ([problems], the E-step calls'
+    shapes)."""
+    from pyfasst_tpu_torch.audio import wav_info, wav_write, wavread
+    from pyfasst_tpu_torch.tf.stft import _frame_geometry
+    bad = []
+
+    def counted(label, argv, want, kind):
+        _reset_counts()
+        with spy_kernels() as shapes:
+            t0 = time.perf_counter()
+            rep = run_cli(argv)
+            secs = time.perf_counter() - t0
+        total, counts = _counts()
+        kinds = {s[0] for s in shapes}
+        log(f"phase 17 {label}: `{' '.join(os.path.basename(a) for a in argv)}` -> "
+            f"{json.dumps({k: v for k, v in rep.items() if k != 'results'})[:300]}"
+            f" | launches {total} {counts} (expected {want}), {secs:.2f}s")
+        if total != want or (want and kinds != {kind}) \
+                or len(shapes) != want:
+            bad.append(f"{label}: launches {total} {counts}, kernels "
+                       f"{sorted(kinds)} (expected {want} of {kind})")
+        return rep, shapes
+
+    # separate (inst) with a checkpoint, then its resume: zero iterations
+    mix, _, _ = make_mixture(dur=DUR)
+    bench = os.path.join(tmp, "bench.wav")
+    wav_write(bench, mix, FS, bits=32)
+    ck = os.path.join(tmp, "ck.npz")
+    base = ["separate", bench, "--iters", str(NITER_CLI), "-q"]
+    rep, shapes = counted("separate inst", base + [
+        "-o", os.path.join(tmp, "inst"), "--checkpoint", ck], NITER_CLI, "r1")
+    rep2, _ = counted("separate --resume", base + [
+        "-o", os.path.join(tmp, "resumed"), "--resume", ck], 0, None)
+    same = all(np.array_equal(wavread(a)[0], wavread(b)[0])
+               for a, b in zip(rep["files"], rep2["files"]))
+    if not (np.isfinite(rep["final_loglik"]) and rep2["final_loglik"] is None
+            and same):
+        bad.append(f"resume: final_loglik {rep['final_loglik']} -> "
+                   f"{rep2['final_loglik']}, WAVs equal {same}")
+    seen = list(shapes)
+    # --streaming on the first DUR_CLI_STREAM s of the bench clip
+    n = mix[:int(FS * DUR_CLI_STREAM)].shape[0]
+    stream = os.path.join(tmp, "stream.wav")
+    wav_write(stream, mix[:n], FS, bits=32)
+    frames = _frame_geometry(n, WLEN, HOP)[2]
+    # pass 1 learns from the full blocks, pass 2 separates every block
+    blocks = frames // NB_STREAM + -(-frames // NB_STREAM)
+    rep, shapes = counted("separate --streaming", [
+        "separate", stream, "--streaming", "-o", os.path.join(tmp, "s"),
+        "-q"], (INNER_STREAM + 1) * blocks, "general")
+    seen += shapes
+    # --batch over a directory of clips: one bucket, one launch per
+    # iteration, len(CLI_BATCH_DURS) clips wide
+    clips = os.path.join(tmp, "clips")
+    os.makedirs(clips)
+    for i, d in enumerate(CLI_BATCH_DURS):
+        wav_write(os.path.join(clips, f"c{i}.wav"),
+                  make_mixture(dur=d, seed=i)[0], FS, bits=32)
+    rep, shapes = counted("separate --batch", [
+        "separate", clips, "--batch", "--iters", str(NITER_CLI), "-o",
+        os.path.join(tmp, "b"), "-q"], NITER_CLI, "r1")
+    seen += shapes
+    if rep["clips"] != len(CLI_BATCH_DURS) or not all(
+            np.isfinite(r["final_loglik"]) for r in rep["results"].values()):
+        bad.append(f"batch: {rep['clips']} clips, logliks "
+                   f"{[r['final_loglik'] for r in rep['results'].values()]}")
+    # lead and demix on phase 14's vibrato mixture
+    vib = os.path.join(tmp, "vibrato.wav")
+    wav_write(vib, vibrato_mixture()[0], FS_CONV, bits=32)
+    rep, _ = counted("lead", ["lead", vib, "-o", os.path.join(tmp, "lead"),
+                              "--iters", str(NITER_CLI_LEAD)], 0, None)
+    if len(rep["files"]) != 2 or not rep["melody_frames"]:
+        bad.append(f"lead: {rep}")
+    rep, _ = counted("demix", ["demix", vib, "--sources", "2"], 0, None)
+    if rep["sources"] != 2:
+        bad.append(f"demix: {rep}")
+    # eval on (a)'s WAVs against its true images, written as WAVs
+    refs = []
+    for j, y in enumerate(speech["ys_true"]):
+        refs.append(os.path.join(tmp, f"ref{j}.wav"))
+        wav_write(refs[-1], y, SPEECH["fs"], bits=16)
+    rep, _ = counted("eval", ["eval", "-e"] + speech["report"]["files"]
+                     + ["-r"] + refs, 0, None)
+    log(f"phase 17 eval against the true images: permutation "
+        f"{rep['permutation']} (phase 17 (a)'s best {list(speech['perm'])});"
+        f" BSS-Eval (512 taps, mono downmix) SDR {rep['sdr_db']} dB beside "
+        f"(a)'s image SDR {[round(float(x), 2) for x in speech['sdrs']]} dB (other "
+        f"measures, not compared)")
+    if rep["permutation"] != list(speech["perm"]):
+        bad.append(f"eval: permutation {rep['permutation']} != "
+                   f"{list(speech['perm'])}")
+    # info, in this process and as the module's entry point
+    rep, _ = counted("info", ["info", speech["wav"]], 0, None)
+    proc = subprocess.run([sys.executable, "-m", "pyfasst_tpu_torch", "info",
+                           speech["wav"]], capture_output=True, text=True,
+                          timeout=120, cwd=os.path.dirname(
+                              os.path.abspath(__file__)))
+    sub = (json.loads(proc.stdout.strip().splitlines()[-1])
+           if proc.returncode == 0 and proc.stdout.strip() else None)
+    log(f"phase 17 `python -m pyfasst_tpu_torch info`: rc {proc.returncode},"
+        f" {sub}")
+    if not rep == sub == wav_info(speech["wav"]):
+        bad.append(f"info: {rep} / subprocess rc {proc.returncode} {sub} / "
+                   f"{proc.stderr[-300:]}")
+    return bad, seen
+
+
+def phase_cli(card, shape_nums):
+    """Phase 17: the CLI through pyfasst_tpu_torch.__main__.main in this
+    process. (a) --preset speech at full width and depth: every E-step
+    launch variant c, NITER_CONV per pool chunk and BAND_PROBE_ITERS of
+    the band probes; min SDR of the written WAVs within SDR_SLACK of
+    CPU_SDR_SPEECH; a profile of the first pool chunk; then the same on
+    the fixture's other draws (SPEECH_SEEDS), whose median min SDR must
+    reach SPEECH_FLOOR. (b) --preset music cut in depth: finite images, launches of
+    variant c on the fine and the coarse grid as the stages' pools and
+    reseeds ask, SDR printed. (c) the other commands (cli_commands).
+    Every kernel call of the phase at a shape phase 2 checked
+    (cli_shapes); their launches go into shape_nums by label."""
+    t0 = time.perf_counter()
+    bad = []
+    checked = {v: k for k, v in cli_shapes().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        mix, ys_true = speech_fixture(**SPEECH)
+        speech = blind_cli(tmp, "speech", mix, ys_true, SPEECH["fs"],
+                           profile=True)
+        rep = speech["report"]
+        want = blind_launches(speech["histories"], band_em=True)
+        log(f"phase 17 (a) separate --preset speech --sources 3 "
+            f"(speech_lab._fixture(3, 0.25, 120): {SPEECH['dur']:.0f} s, "
+            f"{SPEECH['fs']} Hz, F,N={speech['grid']}): picked "
+            f"{rep['picked']}, stages {rep['stages']}, pool "
+            f"{[h[0]['pool'] for h in speech['histories']]} runs, launches "
+            f"{speech['launches']} {speech['counts']} (expected {want}), "
+            f"min SDR {speech['min_sdr']:.2f} dB (mean "
+            f"{speech['mean_sdr']:.2f}; the port's CPU run from the pool "
+            f"pick {CPU_SDR_SPEECH} dB; the JAX package's TPU row "
+            f"{JAX_SPEECH_MIN_SDR} dB), wall {speech['wall']:.2f}s -> xRT "
+            f"{speech['duration'] / speech['wall']:.3f} (CLI report "
+            f"{rep['wall_seconds']}s, xRT {rep['xrt']}) | {card}")
+        log("phase 17 (a) stage split (wall s): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in speech["stage_seconds"].items())
+            + f"; CLI total {speech['wall']:.2f} (STFT, separation and "
+            f"WAVs the rest) | {card}")
+        log(_profile_line(f"phase 17 profile speech pool chunk "
+                          f"B={POOL_CHUNK} (of {NITER_CONV})",
+                          speech["profile"], card))
+        if speech["launches"] != want or speech["counts"]["c"] != want:
+            bad.append(f"speech: launches {speech['launches']} "
+                       f"{speech['counts']} (expected {want} of variant c)")
+        if not abs(speech["min_sdr"] - CPU_SDR_SPEECH) <= SDR_SLACK:
+            bad.append(f"speech: min SDR {speech['min_sdr']:.2f} dB not "
+                       f"within {SDR_SLACK} dB of the CPU run "
+                       f"({CPU_SDR_SPEECH} dB)")
+        speech.pop("held")
+        # the fixture's other draws, the same recipe and checks
+        draws = [speech["min_sdr"]]
+        shapes = list(speech["shapes"])
+        for seed, jax_sdr in zip(SPEECH_SEEDS[1:],
+                                 JAX_SPEECH_SEEDS_MIN_SDR[1:]):
+            mix, ys_true = speech_fixture(**dict(SPEECH, seed=seed))
+            r = blind_cli(tmp, "speech", mix, ys_true, SPEECH["fs"],
+                          name=f"speech{seed}")
+            r.pop("held")
+            want = blind_launches(r["histories"], band_em=True)
+            draws.append(r["min_sdr"])
+            shapes += r["shapes"]
+            log(f"phase 17 (a) --preset speech, fixture seed {seed}: picked "
+                f"{r['report']['picked']}, launches {r['launches']} "
+                f"(expected {want}), min SDR {r['min_sdr']:.2f} dB (mean "
+                f"{r['mean_sdr']:.2f}; the JAX package's draw {jax_sdr} dB)"
+                f", wall {r['wall']:.2f}s")
+            if r["launches"] != want or r["counts"]["c"] != want:
+                bad.append(f"speech seed {seed}: launches {r['launches']} "
+                           f"{r['counts']} (expected {want} of variant c)")
+        med = statistics.median(draws)
+        log(f"phase 17 (a) --preset speech over fixture seeds {SPEECH_SEEDS}:"
+            f" min SDR {[round(x, 2) for x in draws]} dB, worst "
+            f"{min(draws):.2f} / median {med:.2f} / best {max(draws):.2f} "
+            f"(the JAX package's draws on a TPU: "
+            f"{list(JAX_SPEECH_SEEDS_MIN_SDR)}, median "
+            f"{statistics.median(JAX_SPEECH_SEEDS_MIN_SDR)}) | {card}")
+        if not med >= SPEECH_FLOOR:
+            bad.append(f"speech: median min SDR over seeds {SPEECH_SEEDS} "
+                       f"{med:.2f} dB < {SPEECH_FLOOR} dB")
+
+        mix, ys_true = music_fixture(**MUSIC)
+        music = blind_cli(tmp, "music", mix, ys_true, MUSIC["fs"])
+        music.pop("held")
+        rep = music["report"]
+        want = blind_launches(music["histories"], band_em=False)
+        grids = {}
+        for sh in music["shapes"]:
+            grids[sh[3]] = grids.get(sh[3], 0) + 1
+        log(f"phase 17 (b) separate --preset music --sources 3 (the 3-stem "
+            f"row, cut from 20 s to {MUSIC['dur']:.0f} s): picked "
+            f"{rep['picked']}, stages {rep['stages']}, pools "
+            f"{[h[0]['pool'] for h in music['histories']]} runs, launches "
+            f"{music['launches']} {music['counts']} (expected {want}) by F "
+            f"{grids}, finite images {music['finite']}, min SDR "
+            f"{music['min_sdr']:.2f} dB (mean {music['mean_sdr']:.2f}; not "
+            f"gated; the JAX package's TPU row at 20 s {JAX_MUSIC_MIN_SDR} "
+            f"dB), wall {music['wall']:.2f}s -> xRT "
+            f"{music['duration'] / music['wall']:.3f} | {card}")
+        if music["launches"] != want or music["counts"]["c"] != want \
+                or set(grids) != {1025, 4097} or not music["finite"]:
+            bad.append(f"music: launches {music['launches']} "
+                       f"{music['counts']} by F {grids} (expected {want} "
+                       f"of variant c on F = 1025 and 4097), finite "
+                       f"{music['finite']}")
+
+        problems, seen = cli_commands(tmp, speech)
+        bad += problems
+    by_label = {}
+    for sh in shapes + music["shapes"] + seen:
+        label = checked.get(sh)
+        if label is None:
+            bad.append(f"a kernel call at {sh}, a shape phase 2 did not "
+                       f"check")
+        else:
+            by_label[label] = by_label.get(label, 0) + 1
+    log(f"phase 17 E-step calls by phase-2 shape: {by_label}")
+    for label, n in by_label.items():
+        shape_nums[label]["launches"] = n
+    log(f"phase 17 done | {time.perf_counter() - t0:.2f}s")
+    if bad:
+        raise RuntimeError("phase 17: " + "; ".join(bad))
 
 
 def main() -> int:
@@ -2702,6 +3466,7 @@ def main() -> int:
     ef, f_launches = phase_variants_ef(device)
     spectral = phase_spectral_vs_plain(device)
     stream_kernel = stream_kernel_check(device)
+    cli_nums = phase_cli_shapes(device)
     _reset_counts()
     launches = phase_host_api(device, DUR, NITER)
     timing = phase_batch(device, DUR, NITER, BATCH, card)
@@ -2719,6 +3484,7 @@ def main() -> int:
     hmm_launches, _ = phase_hmm(device, card)
     stream_launches, _ = phase_stream(device, card)
     blind_launches, _ = phase_blind(device, card)
+    phase_cli(card, cli_nums)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     log(card)
 
@@ -2728,6 +3494,14 @@ def main() -> int:
                 "max_abs_err": nums["max_abs_err"], "ms": nums["ms"],
                 "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
                 "bound_by": nums["bound_by"], "library_ms": None}
+
+    def cli_paths(*labels):
+        """Phase 17's shapes of one kernel variant: phase 2's numbers and
+        the launches phase 17 made at each, keys cli_<label>_<key>."""
+        return {f"cli_{label}_{key}": cli_nums[label].get(key, 0)
+                for label in labels for key in (
+                    "shape", "ranks", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "max_abs_err", "launches")}
 
     kernels = [dict(
         entry("estep_r1_real (variant a: real rank-1 mixing)",
@@ -2740,7 +3514,8 @@ def main() -> int:
         erblet48_bound_by=erb_kernel["bound_by"],
         erblet48_nofma_floor_ms=erb_kernel["nofma_floor_ms"],
         erblet48_max_abs_err=erb_kernel["max_abs_err"],
-        erblet48_launches=erb_launches, configs3_launches=hmm_launches)]
+        erblet48_launches=erb_launches, configs3_launches=hmm_launches,
+        **cli_paths("inst", "batch"))]
     for key, label in GENERAL_HEADLINE.items():
         path = general[label]["path"]
         extra = {}
@@ -2757,7 +3532,11 @@ def main() -> int:
                          pool_path_bound_ms=pp["bound_ms"],
                          pool_path_bound_by=pp["bound_by"],
                          pool_path_max_abs_err=pp["max_abs_err"],
-                         pool_path_launches=blind_launches)
+                         pool_path_launches=blind_launches,
+                         **cli_paths("speech_pool", "speech_band_probes",
+                                     "music_fine_pool", "music_fine_reseed",
+                                     "music_coarse_pool",
+                                     "music_coarse_reseed"))
         if key == "b":
             extra.update(
                 stream_shape=stream_kernel["shape"],
@@ -2766,7 +3545,8 @@ def main() -> int:
                 stream_bound_ms=stream_kernel["bound_ms"],
                 stream_bound_by=stream_kernel["bound_by"],
                 stream_max_abs_err=stream_kernel["max_abs_err"],
-                stream_launches=stream_launches)
+                stream_launches=stream_launches,
+                **cli_paths("stream"))
         kernels.append(dict(
             entry(f"estep_general (variant {key}: {label})", GENERAL_SOURCE,
                   GENERAL_REPLACES[key], path_launches[key], general[label]),

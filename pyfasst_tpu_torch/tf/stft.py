@@ -168,27 +168,37 @@ def _window(window, wlen: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(w), dtype=dtype, device=device)
 
 
+def _array_device(device) -> torch.device:
+    """Where an array given to stft/istft goes: `device`, the card when
+    None."""
+    return resolve_device(DEFAULT_DEVICE if device is None else device)
+
+
 def stft(x, wlen: int = 1024, hop: Optional[int] = None,
          window: Optional[np.ndarray] = None, method: str = "fft",
          device=None) -> torch.Tensor:
     """Analysis: (nsamples[, I]) -> complex (F, N[, I]).
 
     x may be a tensor (it stays on its device) or an array, which goes to
-    `device` (the CPU when None).
+    `device`: the card unless the caller asks for "cpu" (without a card a
+    None or "cuda" device raises).
     """
     hop = hop or wlen // 2
     if not isinstance(x, torch.Tensor):
-        x = torch.as_tensor(np.asarray(x), device=device or "cpu")
+        x = torch.as_tensor(np.asarray(x), device=_array_device(device))
     win = _window(window, wlen, x.dtype, x.device)
     return _stft_core(x, win, wlen, hop, method)
 
 
 def istft(X, nsamples: int, wlen: int = 1024, hop: Optional[int] = None,
           window: Optional[np.ndarray] = None, device=None) -> torch.Tensor:
-    """Synthesis: complex (F, N[, I]) -> (nsamples[, I]) via normalized WOLA."""
+    """Synthesis: complex (F, N[, I]) -> (nsamples[, I]) via normalized WOLA.
+
+    X may be a tensor (it stays on its device) or an array, which goes to
+    `device`, as in stft."""
     hop = hop or wlen // 2
     if not isinstance(X, torch.Tensor):
-        X = torch.as_tensor(np.asarray(X), device=device or "cpu")
+        X = torch.as_tensor(np.asarray(X), device=_array_device(device))
     win = _window(window, wlen, X.real.dtype, X.device)
     return _istft_core(X, win, wlen, hop, nsamples)
 
@@ -303,8 +313,8 @@ class STFT:
 
     ``computeTransform(data)`` / ``invertTransform(X)``. Frequency axis
     first. Arrays go to `device`, the card unless the caller asks for
-    "cpu" (a "cuda" request without a card raises). Block streaming
-    (``stream_blocks``) is not ported yet.
+    "cpu" (a "cuda" request without a card raises). ``stream_blocks``
+    reads a WAV file block by block.
     """
 
     name = "stft"

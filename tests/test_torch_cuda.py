@@ -992,3 +992,133 @@ def test_blind_pool_on_cuda_launches_variant_c(dev):
         [h["picked"] for h in info_cpu["history"]]
     assert np.all(np.isfinite(Y_gpu.view(np.float32)))
     assert np.abs(Y_gpu - Y_cpu).max() < 1e-3 * np.abs(Y_cpu).max()
+
+
+# -- the CLI on the card -----------------------------------------------------
+
+def _cli_wav(tmp_path, seconds=1.0, fs=8000, seed=0):
+    """tests/test_cli.py's fixture: a 440 Hz tone and noise, panned, PCM16."""
+    from pyfasst_tpu_torch.audio import wavwrite
+    rng = np.random.default_rng(seed)
+    n = int(fs * seconds)
+    t = np.arange(n) / fs
+    s1 = 0.5 * np.sin(2 * np.pi * 440 * t)
+    s2 = 0.3 * rng.standard_normal(n)
+    mix = np.stack([0.9 * s1 + 0.3 * s2, 0.3 * s1 + 0.9 * s2], 1)
+    p = str(tmp_path / "mix.wav")
+    wavwrite(mix, fs, p)
+    return p
+
+
+def _cli(argv, capsys):
+    import json
+
+    from pyfasst_tpu_torch.__main__ import main
+    assert main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("model", ["inst", "fullrank"])
+def test_cli_default_device_is_the_card(dev, tmp_path, capsys, model):
+    """`separate` without --device runs on the card: one E-step launch per
+    iteration; its loglik and images agree with the --device cpu run
+    within the card-vs-CPU bars (loglik rtol 1e-4, images 1e-3 of the
+    peak)."""
+    from pyfasst_tpu_torch.audio import wavread
+    wav = _cli_wav(tmp_path)
+    argv = ["separate", wav, "--iters", "10", "--nmf-comps", "3", "--wlen",
+            "256", "--model", model, "-q"]
+    before = cuda_estep.LAUNCHES
+    gpu = _cli(argv + ["-o", str(tmp_path / "gpu")], capsys)
+    launched = cuda_estep.LAUNCHES - before
+    cpu = _cli(argv + ["-o", str(tmp_path / "cpu"), "--device", "cpu"],
+               capsys)
+    assert launched == 10
+    np.testing.assert_allclose(gpu["final_loglik"], cpu["final_loglik"],
+                               rtol=1e-4)
+    for a, b in zip(gpu["files"], cpu["files"]):
+        ya, yb = wavread(a)[0], wavread(b)[0]
+        assert np.abs(ya - yb).max() <= 1e-3 * np.abs(yb).max() + 1 / 32768
+
+
+def test_cli_info_and_demix_on_the_card(dev, tmp_path, capsys):
+    """info and demix (host NumPy in both packages) on the card's machine:
+    the header's five fields, and DEMIX's two directions."""
+    wav = _cli_wav(tmp_path)
+    assert _cli(["info", wav], capsys) == {
+        "samplerate": 8000, "channels": 2, "frames": 8000, "bits": 16,
+        "format": "pcm"}
+    rep = _cli(["demix", wav, "--wlen", "256", "--sources", "2"], capsys)
+    assert rep["sources"] == 2 and len(rep["delays_samples"]) == 2
+
+
+def test_cli_resume_round_trip_on_the_card(dev, tmp_path, capsys):
+    """--checkpoint on the card, then --resume with the same --iters: zero
+    iterations (final_loglik null), the same WAVs bit for bit; the card's
+    checkpoint resumed on the CPU writes them within 1e-3 of the peak."""
+    from pyfasst_tpu_torch.audio import wavread
+    wav = _cli_wav(tmp_path)
+    ck = str(tmp_path / "ck.npz")
+    base = ["separate", wav, "--iters", "8", "--nmf-comps", "3", "--wlen",
+            "256", "-q"]
+    full = _cli(base + ["-o", str(tmp_path / "a"), "--checkpoint", ck,
+                        "--checkpoint-every", "4"], capsys)
+    again = _cli(base + ["-o", str(tmp_path / "b"), "--resume", ck], capsys)
+    on_cpu = _cli(base + ["-o", str(tmp_path / "c"), "--resume", ck,
+                          "--device", "cpu"], capsys)
+    assert np.isfinite(full["final_loglik"])
+    assert again["final_loglik"] is None and on_cpu["final_loglik"] is None
+    for a, b, c in zip(full["files"], again["files"], on_cpu["files"]):
+        ya, yb, yc = (wavread(p)[0] for p in (a, b, c))
+        assert np.array_equal(ya, yb)
+        assert np.abs(yc - ya).max() <= 1e-3 * np.abs(ya).max() + 1 / 32768
+
+
+def test_speech_preset_with_the_jax_draws_gives_the_jax_rows(dev, tmp_path):
+    """`separate --preset speech` on the card at full width (chip_smoke.py
+    phase 17's run) with the JAX package's EM-seed draws (jax.random on
+    the host, as tests/test_torch_spatial_init.py::jax_draws makes them)
+    in place of the port's: the JAX package's TPU rows for fixture seeds
+    120 and 122 (docs/validation.md:37: 9.46 and 6.84 dB) within 0.05 dB.
+    With the port's own draws seed 120 lands on 4.40 dB, on the card and
+    the CPU alike (chip_smoke.CPU_SDR_SPEECH): the gap is the draw. Needs
+    jax beside torch; imports nothing of the JAX package."""
+    import importlib.util
+    import os
+    from pathlib import Path
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+    import jax.numpy as jnp
+
+    from pyfasst_tpu_torch.models import spatial_init as tsi
+    from pyfasst_tpu_torch.models.components import SpectralComp
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    def draws(seed, J, F, N, K, dtype=torch.float32, device="cpu"):
+        out = []
+        for j, key in enumerate(jax.random.split(jax.random.PRNGKey(seed),
+                                                 J)):
+            k1, k2 = jax.random.split(key)
+            FB = 0.5 + jax.random.uniform(k1, (F, K), jnp.float32)
+            TW = 0.5 + jax.random.uniform(k2, (K, N), jnp.float32)
+            out.append(SpectralComp(
+                FB=torch.tensor(np.asarray(FB), dtype=dtype,
+                                device=device)[None],
+                TW=torch.tensor(np.asarray(TW), dtype=dtype,
+                                device=device)[None], spat_ind=j))
+        return tuple(out)
+
+    orig = tsi._em_seed_spec
+    tsi._em_seed_spec = draws
+    try:
+        for seed, want in ((120, 9.46), (122, 6.84)):
+            mix, ys_true = cs.speech_fixture(**dict(cs.SPEECH, seed=seed))
+            r = cs.blind_cli(str(tmp_path), "speech", mix, ys_true,
+                             cs.SPEECH["fs"], name=f"speech{seed}")
+            assert abs(r["min_sdr"] - want) <= 0.05, (seed, r["min_sdr"])
+    finally:
+        tsi._em_seed_spec = orig

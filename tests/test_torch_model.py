@@ -138,7 +138,8 @@ def test_port_imports_no_jax(tmp_path):
     run, the conv model with DEMIX and the ERB basis, a 3-channel model,
     batch_separate, separate_streaming with both inits, the blind mono
     init, the blind reverberant pipeline with the learned candidate and
-    judge) loads neither jax nor pyfasst_tpu."""
+    judge) loads neither jax nor pyfasst_tpu; nor does the CLI, run as
+    `python -m pyfasst_tpu_torch` with those imports blocked."""
     code = """
 import sys
 import numpy as np
@@ -208,6 +209,26 @@ sys.exit(1 if bad else 0)
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # the CLI as a module, with every import of jax, flax and the JAX
+    # package made to fail: the blind pipeline and DEMIX still run
+    block = tmp_path / "blocked"
+    for name in ("jax", "jaxlib", "flax", "pyfasst_tpu"):
+        (block / name).mkdir(parents=True)
+        (block / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked')\n")
+    env["PYTHONPATH"] = os.pathsep.join([str(block), str(REPO)])
+    for argv in (["separate", "x.wav", "-o", "cli", "--model", "fullrank",
+                  "--spatial-init", "--reseed", "0", "--learned",
+                  "--select", "learned", "--iters", "3", "--nmf-comps",
+                  "2", "--wlen", "256", "-q", "--device", "cpu"],
+                 ["demix", "x.wav", "--wlen", "256", "--sources", "2"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "pyfasst_tpu_torch"] + argv,
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert rep.get("picked") or rep.get("sources") == 2
 
 
 def test_cuda_request_without_card_raises(monkeypatch):

@@ -62,7 +62,7 @@ def test_perfect_reconstruction(wlen, hop, channels):
     n = FS // 2
     x = _clip(2, n, channels)
     x = x[:, 0] if channels == 1 else x
-    X = stft(x, wlen=wlen, hop=hop)
+    X = stft(x, wlen=wlen, hop=hop, device="cpu")
     y = istft(X, nsamples=n, wlen=wlen, hop=hop).numpy()
     assert X.dtype == torch.complex64
     rel = np.linalg.norm(y - x) / np.linalg.norm(x)
@@ -97,4 +97,21 @@ def test_object_api_shapes():
               device="cpu").computeTransform(x)
     assert float((Xm - X).abs().max()) < 2e-6 * float(X.abs().max())
     with pytest.raises(ValueError, match="method"):
-        stft(x, wlen=256, method="dft")
+        stft(x, wlen=256, method="dft", device="cpu")
+
+
+def test_array_input_defaults_to_card(monkeypatch):
+    """An array given to stft/istft goes to the card unless the caller asks
+    for the CPU: without a card the call raises, it never returns a CPU
+    tensor; a tensor keeps its own device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = _clip(4, 2048)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stft(x, wlen=256)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stft(x, wlen=256, device="cuda")
+    X = stft(x, wlen=256, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        istft(X.numpy(), nsamples=2048, wlen=256)
+    assert stft(torch.as_tensor(x), wlen=256).device.type == "cpu"
+    assert istft(X, nsamples=2048, wlen=256).device.type == "cpu"
