@@ -128,7 +128,7 @@ Phases (each prints one line with its numbers and seconds):
      TPU row beside; the wall seconds of each stage; a profiler window of
      20 iterations of the first pool chunk; then reduced-depth checks of
      three paths: _embed_nodes_device against the host eigh at F*J =
-     3075, band_em=32 and multiscale_wlen=512 (100 iterations each:
+     3075, band_em=32 and multiscale_wlen=512 (50 iterations each:
      finite images, launches);
   17. the CLI, in this process through pyfasst_tpu_torch.__main__.main,
      its JSON reports captured: (a) `separate --preset speech --sources 3`
@@ -139,9 +139,10 @@ Phases (each prints one line with its numbers and seconds):
      band probes, the WAVs it writes scored against the true images: min
      SDR within 1 dB of CPU_SDR_SPEECH (the port's CPU run from the
      card's pool pick, cpu_reference_speech()), the picks, wall, xRT and
-     a profile of the first pool chunk beside the JAX package's TPU row;
-     then fixture seeds 121-124 through the same command: the median min
-     SDR of the five draws at least 5 dB, beside the JAX package's five;
+     a profile of the first pool chunk beside the JAX package's TPU row,
+     and at least 5 dB; then fixture seeds 121-124 through the same
+     command: the median min SDR of the five draws at least 5 dB, beside
+     the JAX package's five;
      (b) `--preset music --sources 3` on
      tools/validate_hw.py's 3-stem music row cut from 20 s to 6 s (fine
      grid 2048, coarse 8192 kept): finite images, launches on both grids
@@ -151,7 +152,20 @@ Phases (each prints one line with its numbers and seconds):
      permutation) and `info` (also as `python -m pyfasst_tpu_torch` in a
      subprocess), each exiting 0 with a JSON report and launching the
      kernels it should; every kernel call of the phase at a shape phase
-     2 checked.
+     2 checked;
+  18. the sharded path (parallel/sharding.py): (a) a process group of one
+     rank on NCCL in this process: phase 9's bucket through
+     batch_separate(mesh=make_mesh(1)) and one chunk of phase 16's pool
+     (24 runs at J = 4, F = 513, N = 189, 50 iterations) equal the
+     unsharded runs bit for bit; (b) two gloo ranks on cuda:0, spawned by
+     parallel/dryrun.py: the bench path (B = 8, 500 iterations) at fp = 2,
+     unfused and fused, logliks against phases 4 and 8 (rtol 2e-4 over
+     the first 5 iterations, 1e-3 of each clip's scale over the run) and
+     rank 0's images over 60 dB, and phase 9's bucket at dp = 2 at the
+     same loglik bars, every clip within 1 dB of phase 9's; each rank's
+     launches counted and printed (phase 2 checks variant a and the
+     spectral kernels at the 257- and 256-row slices and variant c at the
+     half bucket).
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -190,10 +204,11 @@ NITER_NS = 100
 SDR_FLOOR = {"anechoic": 10.0, "reverb": 5.0}
 # min SDR (dB) of the port's own CPU run of phases 5 and 6, same mixture
 # and seed (python3 -c "import chip_smoke; chip_smoke.cpu_reference()",
-# measured on the 8-core host of an H100 machine); the card's run must lie
+# measured on the 8-core host of an H100 machine; re-measured when the
+# models' NMF draws became the JAX package's); the card's run must lie
 # within SDR_SLACK of it
 CONV_LL_TAIL = NITER_CONV // 50
-CPU_SDR = {"anechoic": 14.43, "reverb": 13.52}
+CPU_SDR = {"anechoic": 14.75, "reverb": 13.86}
 SDR_SLACK = 1.0
 # Bars of tests/test_pallas_estep.py: xi 2e-4, frame-reduced statistics
 # 5e-4 (its multi-tile case), loglik 1e-4.
@@ -229,6 +244,10 @@ SPECTRAL_REPLACES = {
                 "_make_fb_kernel :55)",
     "tw_stats": "pyfasst_tpu/ops/pallas_spectral.py:155 (tw_stats; body "
                 "_make_tw_kernel :90)"}
+# phase 18 cuts the bench path's F = 513 over fp = 2 ranks
+# (parallel/sharding._span: 257 rows and 256): variant a and the spectral
+# kernels run at these slices, which phase 2 checks too
+MESH_F = (257, 256)
 # (B, J, F, N, K): the bench shapes, tests/test_pallas_spectral.py's, two
 # that cross fb_stats' tiles of 8 rows and 128 frames, and the ones that
 # cross tw_stats' strips of 16 frames (N = 1, 31, 33, 7), its batches of 128
@@ -238,13 +257,15 @@ SPECTRAL_SHAPES = ((BATCH, J, 513, 863, K), (2, 2, 37, 95, 5),
                    (2, 2, 130, 300, 5), (2, 3, 70, 211, 4),
                    (2, 2, 13, 31, 8), (1, 2, 513, 189, 8),
                    (1, 2, 3, 1, 8), (1, 2, 129, 33, 16), (2, 1, 64, 7, 32),
-                   (1, 2, 530, 45, 32), (1, 2, 513, 863, 16))
+                   (1, 2, 530, 45, 32), (1, 2, 513, 863, 16)) + tuple(
+                      (BATCH, J, f, 863, K) for f in MESH_F)
 # (B, J, F, N) of estep_r1_real's checks: the bench shape, two ragged ones,
 # and the ones that cross its tiles of 32 frames (N = 1, 31, 33, and 7 below
 # one tile), at J = 2 and 3; each of the small ones also with each flag
 R1_SHAPES = ((BATCH, 2, 513, 863), (1, 2, 33, 70), (1, 2, 9, 2500),
              (2, 2, 5, 1), (1, 2, 13, 31), (2, 2, 13, 33), (1, 2, 3, 7),
              (1, 3, 13, 31), (2, 3, 9, 33), (1, 3, 17, 200))
+R1_SHAPES += tuple((BATCH, 2, f, 863) for f in MESH_F)
 # phase 13: bench.py:187-220's erblet48 row through the host API (the bench
 # mixture, seed 0; ERBLetTransform(fs=44100, n_bands=48); J = 2, K = 8;
 # bench.py::build_params' factors; 200 iterations, unfused); ERB_SHAPE
@@ -257,21 +278,23 @@ DUR_MINQT, NITER_MINQT = 2.0, 30
 # phase 14: BASELINE configs[3], tools/validate_hw.py:554-600 (seed 103;
 # 6 s at 16 kHz): a 6-state HMM at wlen 1024, then the co-located state-
 # switch mixture with a 2-state Viterbi HMM and the equal-K NMF at wlen
-# 512, 300 iterations each (the Viterbi HMM from numpy-drawn factors,
-# seed 0: the recipe's jax.random draw cannot be made without JAX); and
+# 512, 300 iterations each (the Viterbi HMM from the recipe's seed-0
+# draw, the JAX package's jax.random numbers through utils/prng.py); and
 # the source-filter model and the lead pipeline on tests/test_lead.py's
 # 3 s vibrato mixture
 SEED_HMM, NITER_HMM, NITER_SIMM, NITER_LEAD = 103, 300, 100, 40
 # min SDR (dB) of the port's own CPU runs of phases 13 and 14 (python3 -c
-# "import chip_smoke; chip_smoke.cpu_reference_slice()" with 5 threads on
-# the host of an H100 machine); the card's runs must lie within SDR_SLACK
-# of them, but for the Viterbi row: its hard state decisions turn the
-# kernel's float32 rounding into a different path, and the card's run
-# ended 1.70 dB from the CPU's (27.26 against 25.57). It is held to the
-# recipe's purpose instead: HARD_FLOOR, and HARD_MARGIN above the
+# "import chip_smoke; chip_smoke.cpu_reference_slice()" on the host of an
+# H100 machine: the HMM, Viterbi, NMF and source-filter rows with 8
+# threads from the JAX package's draws; erblet48 and the lead pipeline,
+# which draw nothing, with 5 threads); the card's runs must lie within
+# SDR_SLACK of them, but for the Viterbi row: its hard state decisions
+# turn the kernel's float32 rounding into a different path (from other
+# factors the card's run once ended 1.70 dB from the CPU's). It is held
+# to the recipe's purpose instead: HARD_FLOOR, and HARD_MARGIN above the
 # equal-K NMF on the same mixture
-CPU_SDR_SLICE = {"erblet48": 77.70, "hmm": 62.47, "hmm_hard": 25.57,
-                 "nmf_hard": 0.01, "simm": 23.96, "lead": 7.11}
+CPU_SDR_SLICE = {"erblet48": 77.70, "hmm": 62.76, "hmm_hard": 25.20,
+                 "nmf_hard": 0.01, "simm": 24.29, "lead": 7.11}
 HARD_FLOOR, HARD_MARGIN = 20.0, 20.0
 SPECTRAL_RTOL = 2e-5          # tests/test_pallas_spectral.py's bar
 # an H100 SXM's published peaks (NVIDIA's data sheet; 700 W): device
@@ -295,10 +318,11 @@ GRANULARITY = 128
 GENERAL_DIRS = ((0.9, 0.5, 0.2), (0.2, 0.6, 0.95))
 NITER_MONO = 200
 # min SDR (dB) of the port's own CPU run of phase 11's two recipes
-# (python3 -c "import chip_smoke; chip_smoke.cpu_reference_general()", with
-# 4 threads on the host of an H100 machine: 80.18 and 2.515); the card's
-# runs must lie within SDR_SLACK of them
-CPU_SDR_GENERAL = {"I3": 80.18, "mono": 2.52}
+# (python3 -c "import chip_smoke; chip_smoke.cpu_reference_general()" on
+# the host of an H100 machine: 80.18, from numpy-drawn factors, and 3.196,
+# from the host API's seed-0 draw, the JAX package's); the card's runs
+# must lie within SDR_SLACK of them
+CPU_SDR_GENERAL = {"I3": 80.18, "mono": 3.20}
 # phase 12: an NMF rank above cuda_spectral.MAX_K
 K_BIG, NITER_K_BIG = 40, 20
 # phase 15: the long-form rows of tools/validate_hw.py at 16 kHz, wlen 1024:
@@ -329,11 +353,12 @@ POOL_CHUNK = 24
 # The card's run is held against the port's CPU run of the same recipe
 # from the card's pool pick onward: that candidate's EM seeds and the
 # reseed rounds, under the same selection (cpu_reference_blind_pick(), one
-# card run and 193.2 s of an H100 machine's 8 host cores: the same stages
-# as the card, 10.58 dB). The whole recipe on the CPU (cpu_reference_blind:
+# card run and 193.7 s of an H100 machine's 8 host cores: the same stages
+# as the card, 10.676 dB against the card's 10.676; the JAX package's EM
+# draws). The whole recipe on the CPU (cpu_reference_blind:
 # 78 runs of 400 iterations at F = 513, N = 189) takes ~50-60 min of those
 # cores, more than one chip call could hold beside the script
-CPU_SDR_BLIND = 10.58
+CPU_SDR_BLIND = 10.68
 # the JAX package's row for the same recipe (docs/validation.md:9, taken on
 # a TPU): a quality figure, printed beside the card's for reference
 JAX_BLIND_MIN_SDR = 10.68
@@ -342,9 +367,12 @@ JAX_BLIND_MIN_SDR = 10.68
 # J = 3), above spatial_init's host-path cutoff of 2052
 EMBED_CHECK = (1025, 3, 189)
 # the reduced-depth checks of the band-EM candidate and the multiscale
-# ladder on phase 16's mixture: pool iterations, and the band probes'
-# iterations (spatial_init.band_em_votes' default)
-NITER_LADDER = 100
+# ladder on phase 16's mixture: pool iterations (cut from 100 to 50 when
+# phase 18 came: with 100 the script ran 1069 s of its 1200 s on an H100
+# machine whose host enqueued 7.6 ms per bench iteration against the
+# usual ~3.5), and the band probes' iterations (spatial_init.band_em_votes'
+# default)
+NITER_LADDER = 50
 BAND_PROBE_ITERS = 150
 # variant b's shape on the streaming path: one block of one clip
 STREAM_SHAPE = (1, 2, WLEN_CONV // 2 + 1, NB_STREAM)
@@ -362,21 +390,17 @@ GENERAL_PATH_INSTANCES = {"b": (3, 1, 0, 0), "c": (4, 2, 0, 0),
 SPEECH = dict(n_spk=3, t60=0.25, seed=120, fs=16000, dur=10.0)
 # min SDR of the port's CPU run of the recipe from the card's pool pick
 # onward (cpu_reference_speech(): the picked candidate's EM seeds on the
-# CPU; 4.3989 dB on the host of an H100 machine against the card's
-# 4.3989); the card's run must lie within SDR_SLACK of it. The JAX
+# CPU; 9.4569 dB on the host of an H100 machine against the card's
+# 9.4567); the card's run must lie within SDR_SLACK of it. The JAX
 # package's row for the same fixture (docs/validation.md:21, taken on a
 # TPU) is printed beside
-CPU_SDR_SPEECH = 4.40
+CPU_SDR_SPEECH = 9.46
 JAX_SPEECH_MIN_SDR = 9.46
-# The preset's quality gate is held over the fixture's five draws, seeds
-# 120-124, the draws docs/validation.md:37 quotes for the JAX package
-# (min SDR 9.46, 9.25, 6.84, 12.77, 11.38 on a TPU: median 9.46): the
-# median of the port's five min SDRs must reach SPEECH_FLOOR. One draw
-# decides too little: the EM seeds' spectral draws are the port's own
-# (spatial_init._em_seed_spec), and with them seed 120's recipe lands on
-# 4.40 dB, on the card and the CPU alike, while the JAX package's draws
-# injected into the port give its 9.46 and 6.84 dB on seeds 120 and 122
-# on the card
+# The preset's quality gates: seed 120's min SDR and the median over the
+# fixture's five draws, seeds 120-124 (the draws docs/validation.md:37
+# quotes for the JAX package: min SDR 9.46, 9.25, 6.84, 12.77, 11.38 on a
+# TPU, median 9.46), each at least SPEECH_FLOOR. The EM seeds' spectral
+# draws are the JAX package's own (utils/prng.py, bit for bit)
 SPEECH_SEEDS = (120, 121, 122, 123, 124)
 JAX_SPEECH_SEEDS_MIN_SDR = (9.46, 9.25, 6.84, 12.77, 11.38)
 SPEECH_FLOOR = 5.0
@@ -879,7 +903,7 @@ def phase_kernel_vs_plain(device):
             torch.cuda.synchronize()
             errs, abs_err = _estep_errors(got, want)
             xi_bits = bool(torch.equal(got[0], want[0]))
-            if B == BATCH:
+            if (B, J_, F, N) == R1_SHAPES[0]:
                 main_abs = abs_err
             log(f"phase 2 kernel vs plain B={B} J={J_} F={F} N={N}"
                 f"{' ' + flag if flag else ''}: "
@@ -964,7 +988,10 @@ def phase_general_vs_plain(device):
         on_pool = label == GENERAL_HEADLINE["c"]
         if on_pool:
             timed = timed + (pool_shape,)
-        for (B, F, N) in timed + ((1, 33, 70), (1, 9, 2500)):
+        # phase 18's dp = 2 leg: each rank runs half of phase 9's bucket
+        mesh = (((len(CONV_BATCH_SEEDS["reverb"]) // 2, 513,
+                  padded_frames(conv_frames())),) if on_pool else ())
+        for (B, F, N) in timed + mesh + ((1, 33, 70), (1, 9, 2500)):
             inp = _general_inputs(B, J_, F, N, ranks, real, seed=F * N + J_,
                                   device=device)
             kw = dict(ns_inj=ns, real_cov=real)
@@ -1124,7 +1151,7 @@ def phase_spectral_vs_plain(device):
             abs_err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
             timing = ""
-            if (B, K_) == (BATCH, K):
+            if (B, J_, F, N, K_) == SPECTRAL_SHAPES[0]:
                 ms, plain_ms = map(statistics.median, _turns(
                     lambda: kernel(*inp), lambda: plain(*inp),
                     plain_reps=11, plain_inner=10))
@@ -1368,7 +1395,8 @@ def phase_batch(device, dur, niter, batch, card):
     log(f"phase 4 done | {time.perf_counter() - t0:.2f}s")
     return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "xrt": xrt,
             "bound_ms": b_ms, "bound_by": b_by,
-            "pipeline_ms": statistics.median(ms)}
+            "pipeline_ms": statistics.median(ms),
+            "logliks": logliks.cpu().numpy()}
 
 
 def _profile(window, n):
@@ -1470,7 +1498,8 @@ def phase_fused(device, dur, niter, batch, card, unfused):
             raise RuntimeError(f"phase 8 {label}: separation below "
                                f"{SDR_GATE} dB: {sdrs}")
         runs[label] = {"counts": counts, "spectral": spectral,
-                       "pipeline_ms": statistics.median(ms), "xrt": xrt}
+                       "pipeline_ms": statistics.median(ms), "xrt": xrt,
+                       "logliks": logliks.cpu().numpy()}
 
     X = _stft_core(mix, window, WLEN, HOP, "fft")
     for label, cfg in ((("unfused", GEMConfig(niter=niter)),) + configs):
@@ -1691,7 +1720,10 @@ def phase_conv_batch(device, case, card):
                            f"{sdr_b} against B = 1 {sdr1} (slack "
                            f"{SDR_SLACK} dB) and unpadded {unpadded} (floor "
                            f"{floor} dB)")
-    return counts[key], {"xrt": B * DUR_CONV / batch_s, "profile": prof}
+    return counts[key], {"xrt": B * DUR_CONV / batch_s, "profile": prof,
+                         "bucket": {"Xs": Xs, "trees": trees, "cfg": cfg,
+                                    "images": imgs, "logliks": lls,
+                                    "sdrs": sdrs, "sdr": sdr_b}}
 
 
 def general_i3_case(device):
@@ -1988,7 +2020,7 @@ def hmm_runs(device):
     source-filter model and the lead pipeline. Each with its min SDR, its
     E-step launches and its seconds; and the first row's model."""
     from pyfasst_tpu_torch import (
-        MultiChanHMM, MultiChanNMFInst_FASST, SeparateLeadStereoTF, convert,
+        MultiChanHMM, MultiChanNMFInst_FASST, SeparateLeadStereoTF,
         multiChanSourceF0Filter,
     )
     (mix, ys_true), (mix2, ys2_true) = hmm_mixtures()
@@ -2010,13 +2042,11 @@ def hmm_runs(device):
         iter_num=NITER_HMM, sparsity="HMM", device=device), ys_true)
     kw = dict(fs=FS_CONV, wlen=512, iter_num=NITER_HMM, nbComps=2, seed=0,
               device=device)
-    hard = MultiChanHMM(mix2, nbStates=2, sparsity="HMM", self_trans=0.97,
-                        decode="viterbi", **kw)
-    # the recipe's seed-0 init is a jax.random draw; FB and TW are drawn
-    # here with numpy (seed 0), as bench.py::build_params draws its factors
-    hard.params = convert.params_from_numpy(
-        conv_init_tree(hard, hard.N, 0), device=device)
-    drive("hmm_hard", hard, ys2_true)
+    # from the recipe's own seed-0 draw (the JAX package's jax.random
+    # numbers, utils/prng.py)
+    drive("hmm_hard", MultiChanHMM(mix2, nbStates=2, sparsity="HMM",
+                                   self_trans=0.97, decode="viterbi", **kw),
+          ys2_true)
     drive("nmf_hard", MultiChanNMFInst_FASST(mix2, nbNMFComps=2, **kw),
           ys2_true)
     vmix, y_lead, y_acc = vibrato_mixture()
@@ -2608,10 +2638,11 @@ def ladder_checks(device, card):
     """Reduced-depth checks of two paths on phase 16's mixture (each named
     as such): the band-EM candidate (band_em=32: its probes, 150
     iterations over every (band, seed) run in one batch, then a pool of
-    100 iterations, em_seeds 1, no reseed) and the multiscale ladder
-    (multiscale_wlen=512 on the model's wlen-1024 grid, 100 iterations,
-    em_seeds 1, no reseed). Gates: finite images, every E-step launch of
-    variant c, as many as the stages' iterations. Returns the launches."""
+    NITER_LADDER iterations, em_seeds 1, no reseed) and the multiscale
+    ladder (multiscale_wlen=512 on the model's wlen-1024 grid,
+    NITER_LADDER iterations, em_seeds 1, no reseed). Gates: finite
+    images, every E-step launch of variant c, as many as the stages'
+    iterations. Returns the launches."""
     t0 = time.perf_counter()
     out = {}
     for name, kw in (("band_em=32", dict(band_em=32)),
@@ -3333,13 +3364,14 @@ def phase_cli(card, shape_nums):
     process. (a) --preset speech at full width and depth: every E-step
     launch variant c, NITER_CONV per pool chunk and BAND_PROBE_ITERS of
     the band probes; min SDR of the written WAVs within SDR_SLACK of
-    CPU_SDR_SPEECH; a profile of the first pool chunk; then the same on
-    the fixture's other draws (SPEECH_SEEDS), whose median min SDR must
-    reach SPEECH_FLOOR. (b) --preset music cut in depth: finite images, launches of
-    variant c on the fine and the coarse grid as the stages' pools and
-    reseeds ask, SDR printed. (c) the other commands (cli_commands).
-    Every kernel call of the phase at a shape phase 2 checked
-    (cli_shapes); their launches go into shape_nums by label."""
+    CPU_SDR_SPEECH and at least SPEECH_FLOOR; a profile of the first pool
+    chunk; then the same on the fixture's other draws (SPEECH_SEEDS),
+    whose median min SDR must reach SPEECH_FLOOR. (b) --preset music cut
+    in depth: finite images, launches of variant c on the fine and the
+    coarse grid as the stages' pools and reseeds ask, SDR printed. (c)
+    the other commands (cli_commands). Every kernel call of the phase at
+    a shape phase 2 checked (cli_shapes); their launches go into
+    shape_nums by label."""
     t0 = time.perf_counter()
     bad = []
     checked = {v: k for k, v in cli_shapes().items()}
@@ -3406,6 +3438,9 @@ def phase_cli(card, shape_nums):
         if not med >= SPEECH_FLOOR:
             bad.append(f"speech: median min SDR over seeds {SPEECH_SEEDS} "
                        f"{med:.2f} dB < {SPEECH_FLOOR} dB")
+        if not draws[0] >= SPEECH_FLOOR:
+            bad.append(f"speech: seed {SPEECH_SEEDS[0]} min SDR "
+                       f"{draws[0]:.2f} dB < {SPEECH_FLOOR} dB")
 
         mix, ys_true = music_fixture(**MUSIC)
         music = blind_cli(tmp, "music", mix, ys_true, MUSIC["fs"])
@@ -3450,6 +3485,204 @@ def phase_cli(card, shape_nums):
         raise RuntimeError("phase 17: " + "; ".join(bad))
 
 
+# -- phase 18: the sharded path --------------------------------------------
+
+def mesh_pool(device, mesh):
+    """One chunk of phase 16's pool at its shapes: POOL_CHUNK runs (the
+    candidates of phase 16's mixture, repeated to fill the chunk, with EM
+    seeds 0 and 1) at J = 4, F = 513, N = 189, NITER_LADDER iterations,
+    through reverb._run_candidates on `mesh`. Returns the records and the
+    best run."""
+    import torch
+    from pyfasst_tpu_torch.models import reverb, spatial_init as si
+    from pyfasst_tpu_torch.ops.gem import annealing_endpoints
+    from pyfasst_tpu_torch.tf.stft import STFT
+    from pyfasst_tpu_torch.utils.config import GEMConfig
+    mix, _ = reverb_mixture(102)
+    X = STFT(wlen=WLEN_CONV, fs=FS_CONV, device=device).computeTransform(
+        mix).cpu().numpy()
+    _, _, pw, xx = si.tf_covariance_features(X)
+    cands = si.candidate_votes(si.consensus_votes(X, 4, device=device), pw)
+    cands = [(f"{name}#{i}", v) for i, (name, v) in
+             enumerate((cands * POOL_CHUNK)[:POOL_CHUNK // 2])]
+    X_d = torch.as_tensor(X, device=device)[None] / float(
+        np.sqrt(np.mean(np.abs(X) ** 2)))
+    cfg = GEMConfig(niter=NITER_LADDER, spatial_hold_frac=0.3)
+    return reverb._run_candidates(
+        X_d, cands, pw, xx, cfg, annealing_endpoints(X_d, cfg), mesh,
+        em_seeds=2, nmf_comps=6, rank=2, chunk=POOL_CHUNK)
+
+
+# phase 18's loglik bars against the unsharded runs: tests/test_sharding.py's
+# rtol 2e-4 over the depth that suite holds it at (its first 5 iterations),
+# and over the whole run 1e-3 of each clip's largest |loglik|. Float32 EM
+# carries a difference in the order of a sum into its trajectory: after
+# 400-500 iterations the card's fp = 2 legs lay 3.28e-4 (unfused) and
+# 4.89e-4 (fused) from the unsharded runs, and the dp = 2 leg, which sums
+# nothing across ranks and differs from phase 9 only by cuBLAS's batch
+# width, 1.76e-4 (first chip run of the phase; NVIDIA H100 80GB HBM3,
+# 700 W). The separation gates (SDR_GATE; phase 9's SDR_SLACK) hold the
+# result itself
+MESH_EARLY_ITERS, MESH_EARLY_RTOL, MESH_DRIFT = 5, 2e-4, 1e-3
+
+
+def loglik_err(got, ref):
+    """The largest |got - ref| over clips and iterations, each relative to
+    its clip's largest |loglik| (a loglik that crosses zero on its way up
+    has no relative error to speak of at the crossing)."""
+    ref = np.asarray(ref)
+    return float(np.max(np.abs(np.asarray(got) - ref)
+                        / np.abs(ref).max(axis=-1, keepdims=True)))
+
+
+def phase_mesh(device, card, unfused, fused, bucket):
+    """Phase 18: parallel/sharding.py on the card. (a) A process group of
+    one rank on NCCL in this process: phase 9's bucket through
+    batch_separate(mesh=make_mesh(1)) and one chunk of phase 16's pool
+    (mesh_pool) equal the unsharded runs bit for bit (phase 9's own; the
+    pool's made here before the group). (b) Two gloo ranks spawned by
+    parallel/dryrun.py, both on cuda:0: the bench path's B = 8 and 500
+    iterations at fp = 2 (F cut into 257 and 256 rows), unfused and
+    fused, logliks against phases 4 and 8 at MESH_EARLY_RTOL over the
+    first MESH_EARLY_ITERS iterations and MESH_DRIFT over the run
+    (loglik_err), rank 0's images over SDR_GATE; and phase 9's bucket at
+    dp = 2 (four clips a rank), logliks against phase 9's at the same
+    bars and every clip's min SDR within SDR_SLACK of phase 9's (the bar
+    phase 9 holds its B = 8 run to against B = 1). Each rank's launches
+    are counted in the rank and printed. Returns the launches by
+    kernel."""
+    import torch
+    import torch.distributed as dist
+    from pyfasst_tpu_torch import batch_separate, convert
+    from pyfasst_tpu_torch.parallel import dryrun
+    from pyfasst_tpu_torch.parallel.sharding import make_mesh
+    from pyfasst_tpu_torch.tf.stft import _istft_core, _stft_core
+    from pyfasst_tpu_torch.utils.config import GEMConfig
+    t0 = time.perf_counter()
+    bad = []
+    Xs, trees, cfg_c = bucket["Xs"], bucket["trees"], bucket["cfg"]
+
+    def make_params(F, n_pad, i):
+        return convert.params_from_numpy(trees[i], device=device)
+
+    def same_pool(a, b):
+        (ra, ba), (rb, bb) = a, b
+        return (ra == rb and torch.equal(ba[0]["Y"], bb[0]["Y"])
+                and all(np.array_equal(x, y) for x, y in zip(
+                    dryrun._host(ba[0]["params"]).values(),
+                    dryrun._host(bb[0]["params"]).values())))
+
+    pool_ref = mesh_pool(device, make_mesh(1, device=device))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, device=device)
+            _reset_counts()
+            imgs, lls = batch_separate(Xs, make_params, cfg_c, mesh=mesh)
+            total, counts = _counts()
+            pool = mesh_pool(device, mesh)
+            pool_total, _ = _counts()
+        finally:
+            dist.destroy_process_group()
+    bucket_same = all(np.array_equal(a, b) for a, b in zip(
+        imgs + lls, bucket["images"] + bucket["logliks"]))
+    pool_same = same_pool(pool, pool_ref)
+    ws1 = {"bucket": total, "pool": pool_total - total}
+    log(f"phase 18 (a) NCCL world size 1: phase 9's bucket through "
+        f"batch_separate(mesh=make_mesh(1)): launches {total} {counts}, "
+        f"logliks and images bit for bit {bucket_same}; phase 16's pool "
+        f"chunk ({POOL_CHUNK} runs, {NITER_LADDER} iters): launches "
+        f"{ws1['pool']}, records, best images and params bit for bit "
+        f"{pool_same} | {time.perf_counter() - t0:.2f}s")
+    if not (bucket_same and pool_same):
+        bad.append(f"world size 1 differs from the unsharded runs (bucket "
+                   f"{bucket_same}, pool {pool_same})")
+    if total != NITER_CONV or ws1["pool"] != NITER_LADDER:
+        bad.append(f"world size 1 launches {ws1} (expected {NITER_CONV} "
+                   f"and {NITER_LADDER})")
+
+    mix, y_true, window, nsamples, F, N, _ = bench_setup(device, DUR, BATCH)
+    X = _stft_core(mix, window, WLEN, HOP, "fft").cpu()
+    params = convert.params_from_numpy(
+        [bench_tree(F, N, seed=b) for b in range(BATCH)], device="cpu")
+    dev0 = "cuda:0"
+    cases = [
+        ("fp", "run_sharded", dict(params_b=params, X_b=X,
+                                   cfg=GEMConfig(niter=NITER), device=dev0,
+                                   separate="rank0")),
+        ("fp fused", "run_sharded", dict(
+            params_b=params, X_b=X,
+            cfg=GEMConfig(niter=NITER, fuse_spectral=True), device=dev0,
+            separate="rank0")),
+        ("dp", "bucket_case", dict(
+            Xs=[x.cpu() for x in Xs],
+            params_list=[convert.params_from_numpy(t, device="cpu")
+                         for t in trees],
+            cfg=cfg_c, dp=2, device=dev0, images="rank0"))]
+    t1 = time.perf_counter()
+    ranks = dryrun.spawn(dryrun.run_cases, 2, cases)
+    spawn_s = time.perf_counter() - t1
+    launches = {}
+    for label, ref, want in (
+            ("fp", unfused["logliks"], {"estep": NITER}),
+            ("fp fused", fused["logliks"],
+             {"estep": NITER, "fb_stats": NITER, "tw_stats": NITER}),
+            ("dp", np.stack(bucket["logliks"]), {"estep": NITER_CONV})):
+        ll = [np.stack(r[label]["logliks"]) for r in ranks]
+        err = max(loglik_err(x, ref) for x in ll)
+        k = MESH_EARLY_ITERS
+        early = max(float(np.max(np.abs(x[:, :k] - ref[:, :k])
+                                 / np.abs(ref[:, :k]))) for x in ll)
+        by_depth = {n: max(loglik_err(x[:, :n], ref[:, :n]) for x in ll)
+                    for n in (k, 50, 100, 250, ref.shape[1])}
+        same = all(np.array_equal(x, ref) for x in ll)
+        per_rank = [{k: v for k, v in r[label]["launches"].items() if v}
+                    for r in ranks]
+        launches[label] = per_rank
+        sdr = ""
+        if label != "dp":
+            Y = torch.as_tensor(ranks[0][label]["Y"], device=device)
+            sdrs = min_sdr(_istft_core(Y, window, WLEN, HOP, nsamples),
+                           y_true)
+            sdr = (" | rank 0's images: per-clip min SDR "
+                   + " ".join(f"{x:.2f}" for x in sdrs))
+            if not np.all(sdrs > SDR_GATE):
+                bad.append(f"{label}: separation below {SDR_GATE} dB: "
+                           f"{sdrs}")
+        else:
+            peak = max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                       for a, b in zip(ranks[0][label]["images"],
+                                       bucket["images"]))
+            sdrs = bucket["sdrs"](ranks[0][label]["images"])
+            sdr = (f" | rank 0's images {peak:.2e} of peak from phase 9's, "
+                   "per-clip min SDR " + " ".join(f"{x:.2f}" for x in sdrs)
+                   + " (phase 9: " + " ".join(f"{x:.2f}" for x in
+                                               bucket["sdr"]) + ")")
+            if any(abs(a - b) > SDR_SLACK
+                   for a, b in zip(sdrs, bucket["sdr"])):
+                bad.append(f"dp: per-clip min SDR {sdrs} not within "
+                           f"{SDR_SLACK} dB of phase 9's {bucket['sdr']}")
+        log(f"phase 18 (b) gloo 2 ranks on {dev0}, {label} mesh "
+            f"{ranks[0][label]['mesh']}: logliks from the unsharded run: "
+            f"first {k} iterations rel {early:.2e} (<= "
+            f"{MESH_EARLY_RTOL:.0e}), the run {err:.2e} of each clip's "
+            f"largest |loglik| (<= {MESH_DRIFT:.0e}; through iteration "
+            + ", ".join(f"{n} {e:.2e}" for n, e in by_depth.items())
+            + f"; bit for bit {same}), launches per rank {per_rank}{sdr}")
+        if not (early <= MESH_EARLY_RTOL and err <= MESH_DRIFT):
+            bad.append(f"{label}: logliks {early:.2e} (first {k}), "
+                       f"{err:.2e} (the run) from the unsharded run")
+        if any(p != want for p in per_rank):
+            bad.append(f"{label}: launches per rank {per_rank} (expected "
+                       f"{want})")
+    log(f"phase 18 done: the two ranks' spawn and runs {spawn_s:.2f}s | "
+        f"{card} | {time.perf_counter() - t0:.2f}s")
+    if bad:
+        raise RuntimeError("phase 18: " + "; ".join(bad))
+    return {"ws1": ws1, "ranks": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3476,7 +3709,8 @@ def main() -> int:
                      "d": phase_ns_inj(device)["d"]}
     fused = phase_fused(device, DUR, NITER, BATCH, card, timing)
     path_launches["e"] = fused["fused+fast_recip"]["counts"]["e"]
-    batch_launches = {"c": phase_conv_batch(device, "reverb", card)[0],
+    batch_c, batch_run = phase_conv_batch(device, "reverb", card)
+    batch_launches = {"c": batch_c,
                       "b": phase_conv_batch(device, "anechoic", card)[0]}
     phase_general(device, card)
     phase_k_big(device)
@@ -3485,6 +3719,8 @@ def main() -> int:
     stream_launches, _ = phase_stream(device, card)
     blind_launches, _ = phase_blind(device, card)
     phase_cli(card, cli_nums)
+    mesh = phase_mesh(device, card, timing, fused["fused"],
+                      batch_run.pop("bucket"))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     log(card)
 
@@ -3515,6 +3751,9 @@ def main() -> int:
         erblet48_nofma_floor_ms=erb_kernel["nofma_floor_ms"],
         erblet48_max_abs_err=erb_kernel["max_abs_err"],
         erblet48_launches=erb_launches, configs3_launches=hmm_launches,
+        mesh_fp_launches_per_rank=[r["estep"] for r in mesh["ranks"]["fp"]],
+        mesh_fp_fused_launches_per_rank=[
+            r["estep"] for r in mesh["ranks"]["fp fused"]],
         **cli_paths("inst", "batch"))]
     for key, label in GENERAL_HEADLINE.items():
         path = general[label]["path"]
@@ -3527,7 +3766,10 @@ def main() -> int:
                          batch_path_launches=batch_launches[key])
         if key == "c":
             pp = general[label]["pool_path"]
-            extra.update(pool_path_shape=pp["shape"], pool_path_ms=pp["ms"],
+            extra.update(mesh_ws1_launches=mesh["ws1"],
+                         mesh_dp_launches_per_rank=[
+                             r["estep"] for r in mesh["ranks"]["dp"]],
+                         pool_path_shape=pp["shape"], pool_path_ms=pp["ms"],
                          pool_path_plain_ms=pp["plain_ms"],
                          pool_path_bound_ms=pp["bound_ms"],
                          pool_path_bound_by=pp["bound_by"],
@@ -3565,9 +3807,11 @@ def main() -> int:
                       "no_ll (pallas_estep.py:446 is its only use in the "
                       "JAX package)"))
     for name in ("fb_stats", "tw_stats"):
-        kernels.append(entry(name, SPECTRAL_SOURCE, SPECTRAL_REPLACES[name],
-                             fused["fused"]["spectral"][name],
-                             spectral[name]))
+        kernels.append(dict(
+            entry(name, SPECTRAL_SOURCE, SPECTRAL_REPLACES[name],
+                  fused["fused"]["spectral"][name], spectral[name]),
+            mesh_fp_fused_launches_per_rank=[
+                r[name] for r in mesh["ranks"]["fp fused"]]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

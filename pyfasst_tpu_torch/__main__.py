@@ -8,6 +8,13 @@ inspection (`info`). `separate` and `lead` run on the card unless
 `--device cpu` is given; without a card they exit with code 2 (never
 falling back to the CPU). `demix`, `eval` and `info` run NumPy on the host,
 as in the JAX package.
+
+`separate --n-devices N` runs the blind pools (and `--batch`'s buckets)
+on a mesh of N ranks (parallel/sharding.py): launch it with
+`torchrun --nproc-per-node N -m pyfasst_tpu_torch separate ...`. Each
+rank joins the process group torchrun describes (NCCL on the card, gloo
+with `--device cpu`); only rank 0 writes the WAVs and prints the report.
+Without a launcher, N > 1 exits with code 2 and says how to launch.
 """
 from __future__ import annotations
 
@@ -72,15 +79,37 @@ def _report(model, wall, **fields) -> None:
         xrt=round(model.audio.duration / max(wall, 1e-9), 2))))
 
 
+def _join_launcher_group(args) -> None:
+    """With --n-devices > 1 under torchrun (WORLD_SIZE in the
+    environment), join its process group: NCCL on this rank's card, gloo
+    on the CPU. make_mesh then checks the group's size."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    if args.n_devices <= 1 or dist.is_initialized() \
+            or "WORLD_SIZE" not in os.environ:
+        return
+    if args.device == "cuda" and torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+
+
 def _cmd_separate(args) -> int:
     from pyfasst_tpu_torch.audio import AudioObject, wav_info
     from pyfasst_tpu_torch.models.variants import (
         MultiChanHMM, MultiChanNMFConv, MultiChanNMFInst_FASST,
     )
+    from pyfasst_tpu_torch.parallel.sharding import is_writer, make_mesh
     from pyfasst_tpu_torch.utils.device import resolve_device
 
     _apply_preset(args)
     device = resolve_device(args.device)
+    make_mesh(args.n_devices, device=device)   # raises without a launcher
+    writer = is_writer()
     if args.batch:
         return _cmd_separate_batch(args)
     if args.streaming:
@@ -111,7 +140,7 @@ def _cmd_separate(args) -> int:
             freq_basis=basis, n_bands=args.bands, **kw)
         t0 = time.perf_counter()
         logliks = model.estim_param_blind_mono(seed=args.seed)
-        paths = model.separate_spat_comps(args.out)
+        paths = model.separate_spat_comps(args.out) if writer else []
         _report(model, time.perf_counter() - t0, files=paths,
                 iterations=int(args.iters), init="mono-nmf-cluster",
                 final_loglik=float(logliks[-1]))
@@ -142,7 +171,7 @@ def _cmd_separate(args) -> int:
                 n_devices=args.n_devices, band_em=args.band_em,
                 noalign=args.noalign, select=args.select,
                 reseed_select=args.reseed_select, learned=args.learned)
-            paths = model.separate_spat_comps(args.out)
+            paths = model.separate_spat_comps(args.out) if writer else []
             _report(model, time.perf_counter() - t0, files=paths,
                     iterations=int(args.iters), picked=info["picked"],
                     stages=[h["picked"] for h in info["history"]],
@@ -197,7 +226,7 @@ def _cmd_separate(args) -> int:
     logliks = model.estim_param_a_posteriori(
         start_iter=start_iter, checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every)
-    paths = model.separate_spat_comps(args.out)
+    paths = model.separate_spat_comps(args.out) if writer else []
     # a resume from a finished checkpoint runs zero iterations: no loglik
     # was computed this run, so none is reported
     _report(model, time.perf_counter() - t0, files=paths,
@@ -214,6 +243,7 @@ def _cmd_separate_batch(args) -> int:
     import os
 
     from pyfasst_tpu_torch.parallel.batch import batch_separate_files
+    from pyfasst_tpu_torch.parallel.sharding import make_mesh
 
     if args.model != "inst":
         raise ValueError("--batch currently supports the inst model only")
@@ -231,7 +261,8 @@ def _cmd_separate_batch(args) -> int:
     report = batch_separate_files(
         paths, args.out, nbComps=args.sources, nbNMFComps=args.nmf_comps,
         wlen=args.wlen, iters=args.iters, freq_basis=basis,
-        n_bands=args.bands, seed=args.seed, device=args.device)
+        n_bands=args.bands, seed=args.seed,
+        mesh=make_mesh(args.n_devices, device=args.device))
     print(json.dumps({"clips": len(paths), "iterations": int(args.iters),
                       "wall_seconds": round(time.perf_counter() - t0, 3),
                       "results": report}))
@@ -406,9 +437,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "any front-end, any channel count")
     p.add_argument("--n-devices", dest="n_devices", type=int, default=1,
                    metavar="N",
-                   help="shard the --spatial-init candidate pool over N "
-                        "devices (not ported: N > 1 exits with code 2, "
-                        "ROADMAP item 15)")
+                   help="shard the --spatial-init candidate pool (and "
+                        "--batch's buckets) over N devices: launch with "
+                        "`torchrun --nproc-per-node N -m pyfasst_tpu_torch "
+                        "separate ...`; without a launcher N > 1 exits "
+                        "with code 2")
     p.add_argument("--band-em", dest="band_em", type=int, default=None,
                    metavar="W",
                    help="with --spatial-init --reseed: add the band-local"
@@ -497,12 +530,28 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from pyfasst_tpu_torch.parallel.sharding import is_writer
+
     args = build_parser().parse_args(argv)
+    joined = dist.is_initialized()
     try:
-        return args.fn(args)
+        if getattr(args, "n_devices", 1) > 1:
+            _join_launcher_group(args)
+        # on a mesh only rank 0 prints its report
+        with (contextlib.nullcontext() if is_writer()
+              else contextlib.redirect_stdout(io.StringIO())):
+            return args.fn(args)
     except (FileNotFoundError, ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

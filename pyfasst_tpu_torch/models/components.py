@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pyfasst_tpu_torch.utils import prng
+
 INST = "inst"
 CONV = "conv"
 
@@ -157,41 +159,40 @@ class FasstParams:
 
 # -- initializers --------------------------------------------------------------
 
-def uniform_init(generator: torch.Generator, shape, dtype=torch.float32,
-                 device="cpu", batch: int = 1) -> torch.Tensor:
-    """0.5 + U[0, 1) of shape (batch,) + shape, drawn in float64 from the
-    CPU `generator` (the same numbers on every device), then cast."""
-    u = torch.rand((batch,) + tuple(shape), generator=generator,
-                   dtype=torch.float64)
-    return (0.5 + u).to(dtype=dtype, device=device)
+def uniform_init(key, shape, dtype=torch.float32,
+                 device="cpu") -> torch.Tensor:
+    """0.5 + jax.random.uniform(key, shape, dtype) with a clip axis of 1:
+    drawn on the host (utils/prng.py, the JAX package's bits for the same
+    key), then moved to `device`."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    u = 0.5 + prng.uniform(key, tuple(shape), np_dtype)
+    return torch.as_tensor(u, device=device)[None]
 
 
-def init_nmf_comp(generator: torch.Generator, F: int, N: int, n_nmf: int,
-                  spat_ind: int, dtype=torch.float32, device="cpu",
-                  batch: int = 1,
+def init_nmf_comp(key, F: int, N: int, n_nmf: int, spat_ind: int,
+                  dtype=torch.float32, device="cpu",
                   fixed_FB: Optional[np.ndarray] = None) -> SpectralComp:
-    """Random-init NMF spectral component with a leading clip axis:
-    FB free random (B, F, K), FW/TB identity, TW free random (B, K, N).
+    """Random-init NMF spectral component with a clip axis of 1:
+    FB free random (1, F, K), FW/TB identity, TW free random (1, K, N).
     With fixed_FB (an (F, L) ERB/Mel tf.filterbank.spectral_basis), FB is
-    that fixed basis and FW (B, L, K) becomes the free pattern weights on
+    that fixed basis and FW (1, L, K) becomes the free pattern weights on
     the band grid: free = (False, True, True, False).
 
-    The draws come from `generator`, a CPU torch.Generator, so CPU and CUDA
-    runs start from the same numbers. They are NOT the numbers of the JAX
-    package's jax.random draws from the same seed: to compare the two
-    packages, hand both the same parameters (convert.params_from_numpy).
+    `key` (a utils.prng key) is split into (k1, k2) as the JAX package
+    splits it: FB (or FW) from k1, TW from k2, the JAX package's numbers
+    for the same key on every device. A bucket stacks its clips' draws.
     """
-    def uniform(*shape):
-        return uniform_init(generator, shape, dtype, device, batch)
-
+    k1, k2 = prng.split(key)
     if fixed_FB is None:
-        return SpectralComp(FB=uniform(F, n_nmf), TW=uniform(n_nmf, N),
+        return SpectralComp(FB=uniform_init(k1, (F, n_nmf), dtype, device),
+                            TW=uniform_init(k2, (n_nmf, N), dtype, device),
                             spat_ind=spat_ind)
     FB = torch.as_tensor(np.asarray(fixed_FB), dtype=dtype, device=device)
-    FW = uniform(FB.shape[1], n_nmf)
-    return SpectralComp(FB=FB[None].repeat(batch, 1, 1), FW=FW,
-                        TW=uniform(n_nmf, N), spat_ind=spat_ind,
-                        free=(False, True, True, False))
+    return SpectralComp(FB=FB[None],
+                        FW=uniform_init(k1, (FB.shape[1], n_nmf), dtype,
+                                        device),
+                        TW=uniform_init(k2, (n_nmf, N), dtype, device),
+                        spat_ind=spat_ind, free=(False, True, True, False))
 
 
 def init_inst_mixing(key, I: int, R: int, J: int, dtype=torch.float32,
@@ -203,16 +204,16 @@ def init_inst_mixing(key, I: int, R: int, J: int, dtype=torch.float32,
 
     Drawn with numpy exactly as the JAX package draws them, so the same key
     gives the same numbers in both packages. key: None keeps the
-    deterministic per-source draw; an int seed (or a torch.Generator, by its
-    initial seed) varies the perturbation.
+    deterministic per-source draw; an int seed, or a utils.prng key by its
+    last word, varies the perturbation.
     """
     thetas = (np.arange(J) + 1.0) / (J + 1.0) * (np.pi / 2)
     if key is None:
         noise = np.stack([np.random.default_rng(j).standard_normal((I, R))
                           for j in range(J)])
     else:
-        if isinstance(key, torch.Generator):
-            key = key.initial_seed()
+        if not isinstance(key, (int, np.integer)):
+            key = int(prng.key_data(key).ravel()[-1])
         noise = np.random.default_rng(int(key)).standard_normal((J, I, R))
     mats = []
     for j in range(J):

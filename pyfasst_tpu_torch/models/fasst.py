@@ -46,6 +46,7 @@ from pyfasst_tpu_torch.tf.erblet import ERBLetTransform
 from pyfasst_tpu_torch.tf.stft import STFT
 from pyfasst_tpu_torch.utils.checkpoint import load_params, save_params
 from pyfasst_tpu_torch.utils.config import GEMConfig
+from pyfasst_tpu_torch.utils import prng
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -84,9 +85,8 @@ class FASST:
         self.fs = self.audio.samplerate
         self.verbose = verbose
         self.seed = int(seed)
-        # CPU generator: the same draws whatever the device (they are not
-        # the JAX package's jax.random draws)
-        self.generator = torch.Generator().manual_seed(self.seed)
+        # the JAX package's jax.random.PRNGKey(seed), drawn from on the host
+        self.key = prng.PRNGKey(self.seed)
         if dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32/float64, got {dtype!r}")
         self.dtype = torch.float64 if dtype == "float64" else torch.float32

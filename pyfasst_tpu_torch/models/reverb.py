@@ -27,8 +27,9 @@ Selections come from argmax, argmin and rounded statistics, so every
 device computation here runs with TF32 off (utils/precision).
 blind_reverb_separate_multiscale runs the pipeline on a finer STFT grid
 and transports its winner to the coarse grid through time-domain
-dominance votes (the multiscale ladder). The multi-device pool
-(`n_devices > 1`) is not ported yet: ROADMAP item 15.
+dominance votes (the multiscale ladder). n_devices > 1 runs the pools
+on a mesh of that many ranks of an initialized process group
+(parallel/sharding.py; launch with torchrun).
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ import numpy as np
 import torch
 
 from pyfasst_tpu_torch.models import spatial_init as si
-from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from pyfasst_tpu_torch.parallel.sharding import make_mesh
+from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
 __all__ = ["blind_reverb_separate", "blind_reverb_separate_multiscale",
@@ -143,7 +145,7 @@ def _best_perm_mean(M) -> float:
     return float(best) / J
 
 
-def _run_candidates(X_d, cands, pw, xx, cfg, sigma, em_seeds: int,
+def _run_candidates(X_d, cands, pw, xx, cfg, sigma, mesh, em_seeds: int,
                     nmf_comps: int, rank: int, chunk: int, bests=None,
                     env_thr: float = 0.6, share_floor: float = 0.02,
                     verbose: bool = False, topk: int = 1, tiers=None,
@@ -152,11 +154,13 @@ def _run_candidates(X_d, cands, pw, xx, cfg, sigma, em_seeds: int,
     """Run every (candidate, seed) full-rank EM; return (records, bests).
 
     X_d: the (1, F, N, I) normalized mixture on the pool's device; sigma:
-    its (sigma0, sigma1) annealing endpoints, (1, F) each. Runs go in
-    chunks of `chunk` over the clip axis. On the card the last chunk is
-    padded with its first run (dropped after scoring), so every launch of
-    the E-step kernel has one width; the CPU runs it at its own width,
-    where padding would only add work.
+    its (sigma0, sigma1) annealing endpoints, (1, F) each; mesh: the
+    parallel.sharding.Mesh the runs go on. Runs go in chunks of `chunk`
+    over the clip axis, each rounded up to a multiple of the mesh's dp
+    axis. On the card the last chunk is padded with its first run
+    (dropped after scoring), so every launch of the E-step kernel has one
+    width; the CPU runs it at its own width, rounded up to the dp axis,
+    where more padding would only add work.
     `bests` carries the running top-`topk` runs across calls (sorted by
     `selection_key`, best first), each holding its own copies of the
     separation and the params. `tiers`, if given, maps candidate names to
@@ -164,9 +168,10 @@ def _run_candidates(X_d, cands, pw, xx, cfg, sigma, em_seeds: int,
     candidate's cross-seed consistency (chunks are then a multiple of
     em_seeds so seed pairs share a chunk)."""
     from pyfasst_tpu_torch.models.components import FasstParams
-    from pyfasst_tpu_torch.ops.gem import run_gem
-    from pyfasst_tpu_torch.ops.wiener import separate_sources
     from pyfasst_tpu_torch.parallel.batch import batch_params
+    from pyfasst_tpu_torch.parallel.sharding import (
+        batched_run_gem, sharded_batch_separate,
+    )
 
     J = cands[0][1].shape[-1]
     F, N = pw.shape
@@ -197,17 +202,19 @@ def _run_candidates(X_d, cands, pw, xx, cfg, sigma, em_seeds: int,
         # seed pairs must share a chunk for the cross-seed statistic
         chunk = max(em_seeds, chunk - chunk % em_seeds)
     csize = min(chunk, len(plist))
+    csize = -(-csize // mesh.dp) * mesh.dp
     for lo in range(0, len(plist), chunk):
         sub = plist[lo:lo + chunk]
         valid = len(sub)
-        if dev.type == "cuda":
-            sub = sub + [sub[0]] * (csize - valid)
+        width = (csize if dev.type == "cuda"
+                 else -(-valid // mesh.dp) * mesh.dp)
+        sub = sub + [sub[0]] * (width - valid)
         C = len(sub)
         X_b = X_d.expand(C, -1, -1, -1).contiguous()
         sig_b = tuple(s.repeat(C, 1) for s in sigma)
-        params_b, lls = run_gem(batch_params(sub), X_b, cfg,
-                                sigma_endpoints=sig_b)
-        Y_b = separate_sources(params_b, X_b, sig_b[1])
+        params_b, lls = batched_run_gem(batch_params(sub), X_b, cfg, mesh,
+                                        sigma_endpoints_b=sig_b)
+        Y_b = sharded_batch_separate(params_b, X_b, sig_b[1], mesh)
         ec, coh, sh, jconf, agree = _chunk_stats(
             Y_b, pw_d, jv_d, select == "consistency" and valid > 1)
         ll = lls[:, -1].cpu().numpy().astype(np.float64)
@@ -312,16 +319,16 @@ def blind_reverb_separate(
     band_em (a band width in bins, e.g. 32) adds two candidates from one
     set of band-local EM probes (spatial_init.band_em_votes): "bandem"
     (bands aligned by their converged envelopes) and "bandem-a" (each band
-    anchored to its init votes). n_devices > 1 raises NotImplementedError
-    (ROADMAP item 15).
+    anchored to its init votes). n_devices > 1 runs every pool on a mesh
+    of that many ranks (parallel/sharding.py), as the JAX package shards
+    it.
     """
     from pyfasst_tpu_torch.models.spatial_init import (
         band_em_votes, candidate_votes, consensus_votes,
         direction_split_candidates, realign_votes, tf_covariance_features,
     )
 
-    si._check_devices(n_devices)
-    dev = resolve_device(device)
+    dev = make_mesh(n_devices, device=device).device
     if select is None:
         select = "consistency" if (em_seeds >= 2 and band_em is not None) \
             else "envcorr"
@@ -383,7 +390,7 @@ def blind_reverb_separate(
         keep_pool_sep=keep_pool_sep,
         judge_votes=lv if (select == "learned"
                            or reseed_select == "learned") else None,
-        device=dev, dtype=dtype)
+        n_devices=n_devices, device=dev, dtype=dtype)
     info["stage_seconds"] = dict(seconds, **info["stage_seconds"])
     return Y, info
 
@@ -396,7 +403,8 @@ def _pool_and_reseed(X, cands, J, *, iters, em_seeds, reseed_rounds,
                      select: str = "envcorr",
                      reseed_select: Optional[str] = None,
                      keep_pool_sep: bool = False, judge_votes=None,
-                     device=DEFAULT_DEVICE, dtype=torch.float32):
+                     n_devices: int = 1, device=DEFAULT_DEVICE,
+                     dtype=torch.float32):
     """Run a candidate pool to convergence, select by `selection_key`,
     apply guarded EM reseeding. topk > 1 keeps the best run of each of the
     top-k CANDIDATES (info['tops']); reseeding always restarts from the
@@ -407,12 +415,14 @@ def _pool_and_reseed(X, cands, J, *, iters, em_seeds, reseed_rounds,
     alignment (realign_votes).
 
     The annealing endpoints are computed on X / rms(X), and the winner's
-    params are at that scale."""
+    params are at that scale. n_devices: the pools' mesh
+    (parallel/sharding.make_mesh)."""
     from pyfasst_tpu_torch.models.components import complex_dtype
     from pyfasst_tpu_torch.ops.gem import annealing_endpoints
     from pyfasst_tpu_torch.utils.config import GEMConfig
 
-    dev = resolve_device(device)
+    mesh = make_mesh(n_devices, device=device)
+    dev = mesh.device
     feat, w, pw, xx = si.tf_covariance_features(X)
     scale = float(np.sqrt(np.mean(np.abs(X) ** 2)))
     X_d = torch.as_tensor(np.ascontiguousarray(X), dtype=complex_dtype(dtype),
@@ -424,8 +434,8 @@ def _pool_and_reseed(X, cands, J, *, iters, em_seeds, reseed_rounds,
 
     t0 = time.perf_counter()
     records, bests = _run_candidates(
-        X_d, cands, pw, xx, cfg, sigma, em_seeds, nmf_comps, rank, chunk,
-        topk=topk, distinct=topk > 1, select=select, **run)
+        X_d, cands, pw, xx, cfg, sigma, mesh, em_seeds, nmf_comps, rank,
+        chunk, topk=topk, distinct=topk > 1, select=select, **run)
     seconds = {"pool": time.perf_counter() - t0}
     best = bests[0]
     history = [{"stage": "pool", "picked": best["name"],
@@ -454,8 +464,8 @@ def _pool_and_reseed(X, cands, J, *, iters, em_seeds, reseed_rounds,
             # reseeds compete in their own pool under the guard key,
             # then must BEAT the current best on that key to be kept
             _, bests_r = _run_candidates(
-                X_d, cands_r, pw, xx, cfg, sigma, em_seeds, nmf_comps, rank,
-                chunk, topk=1, select=reseed_select, **run)
+                X_d, cands_r, pw, xx, cfg, sigma, mesh, em_seeds, nmf_comps,
+                rank, chunk, topk=1, select=reseed_select, **run)
             gkey = lambda rec: selection_key(rec, env_thr, share_floor,
                                              reseed_select)
             cand_r = bests_r[0]
@@ -474,9 +484,9 @@ def _pool_and_reseed(X, cands, J, *, iters, em_seeds, reseed_rounds,
                 break
             continue
         _, bests = _run_candidates(
-            X_d, cands_r, pw, xx, cfg, sigma, em_seeds, nmf_comps, rank,
-            chunk, bests=bests, topk=topk, distinct=topk > 1, select=select,
-            **run)
+            X_d, cands_r, pw, xx, cfg, sigma, mesh, em_seeds, nmf_comps,
+            rank, chunk, bests=bests, topk=topk, distinct=topk > 1,
+            select=select, **run)
         best = bests[0]
         history.append({"stage": f"reseed{r + 1}", "picked": best["name"],
                         "envcorr": best["envcorr"],
@@ -538,8 +548,7 @@ def blind_reverb_separate_multiscale(
     """
     from pyfasst_tpu_torch.tf.stft import STFT
 
-    si._check_devices(n_devices)
-    dev = resolve_device(device)
+    dev = make_mesh(n_devices, device=device).device
     if select is None:
         select = "envcorr"
     x = np.asarray(x)
@@ -562,7 +571,8 @@ def blind_reverb_separate_multiscale(
         topk=topk, env_transform=env_transform,
         realign_reseeds=realign_reseeds, band_em=band_em, noalign=noalign,
         select=select, reseed_select=reseed_select, learned=learned,
-        learned_params=learned_params, device=dev, dtype=dtype)
+        learned_params=learned_params, n_devices=n_devices, device=dev,
+        dtype=dtype)
 
     # rung 2: each kept fine run's images -> coarse-grid dominance votes;
     # ranking stays with the FINE stage (tier = fine rank)
@@ -591,7 +601,8 @@ def blind_reverb_separate_multiscale(
         chunk=chunk, spatial_hold_frac=spatial_hold_frac, env_thr=env_thr,
         share_floor=share_floor, verbose=verbose, tiers=tiers,
         env_transform=env_transform, realign_reseeds=realign_reseeds,
-        select=select, reseed_select=reseed_select, device=dev, dtype=dtype)
+        select=select, reseed_select=reseed_select, n_devices=n_devices,
+        device=dev, dtype=dtype)
     info["fine"] = {k: v for k, v in info_f.items() if k != "params"}
     info["transform"] = tft_c
     return Y, info

@@ -40,7 +40,9 @@ Recipe (Duong/Sawada lineage, as the JAX package documents it):
 7. optionally, band-local EM probes whose converged dominance labels,
    aligned across bands, give one more vote plane (band_em_votes).
 
-The multi-device pool (n_devices > 1) is ROADMAP item 15 and raises.
+n_devices > 1 runs the pools on a mesh of that many ranks of an
+initialized process group (parallel/sharding.py; launch with torchrun),
+padded to a multiple of its dp axis as the JAX package pads them.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pyfasst_tpu_torch.parallel.sharding import make_mesh
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
@@ -840,24 +843,18 @@ def _band_coherence_stats(Y: torch.Tensor, n_bands: int = 8):
 
 # -- candidate runs on the device ---------------------------------------------
 
-def _check_devices(n_devices: int) -> None:
-    if n_devices != 1:
-        raise NotImplementedError("n_devices > 1: the multi-device pool is "
-                                  "not ported yet (ROADMAP item 15)")
-
-
 def _em_seed_spec(seed: int, J: int, F: int, N: int, nmf_comps: int,
                   dtype=torch.float32, device=DEFAULT_DEVICE):
-    """The random spectral init of EM seed `seed`: one NMF component per
-    source, drawn in turn from a CPU torch.Generator seeded with `seed`
-    (the same numbers on every device). The JAX package draws them with
-    jax.random from PRNGKey(seed) split J ways: different numbers, so a
-    parity test replaces this function to hand both packages the same
-    draws. Returns a tuple of J SpectralComp (B = 1)."""
+    """The random spectral init of EM seed `seed`: source j's NMF
+    component from the j-th key of split(PRNGKey(seed), J), the JAX
+    package's draws (utils/prng.py). Returns a tuple of J SpectralComp
+    (B = 1)."""
     from pyfasst_tpu_torch.models.components import init_nmf_comp
-    gen = torch.Generator().manual_seed(int(seed))
-    return tuple(init_nmf_comp(gen, F, N, nmf_comps, spat_ind=j, dtype=dtype,
-                               device=device) for j in range(J))
+    from pyfasst_tpu_torch.utils import prng
+    keys = prng.split(prng.PRNGKey(int(seed)), J)
+    return tuple(init_nmf_comp(keys[j], F, N, nmf_comps, spat_ind=j,
+                               dtype=dtype, device=device)
+                 for j in range(J))
 
 
 def _conv_spat(A: np.ndarray, dtype, device):
@@ -868,21 +865,27 @@ def _conv_spat(A: np.ndarray, dtype, device):
                              mix_type=CONV) for j in range(A.shape[0]))
 
 
-def _batched_runs(plist, xlist, cfg, dev):
-    """One batched GEM run (and its Wiener separation) over the clip axis:
-    params (B = 1 each) and host planes (F, N, I) -> (params_b, logliks
+def _batched_runs(plist, xlist, cfg, mesh):
+    """One batched GEM run (and its Wiener separation) over the clip axis
+    on `mesh`: params (B = 1 each) and host planes (F, N, I) -> (logliks
     (C, niter), Y_b (C, J, F, N, I)). Each run's annealing endpoints come
-    from its own plane."""
-    from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
-    from pyfasst_tpu_torch.ops.wiener import separate_sources
+    from its own plane. The batch is padded to a multiple of the mesh's dp
+    axis with copies of the first run, dropped from the results."""
+    from pyfasst_tpu_torch.ops.gem import annealing_endpoints
     from pyfasst_tpu_torch.parallel.batch import batch_params
+    from pyfasst_tpu_torch.parallel.sharding import (
+        batched_run_gem, sharded_batch_separate,
+    )
 
-    X_b = torch.as_tensor(np.stack(xlist), dtype=torch.complex64,
-                          device=dev)
+    C = len(plist)
+    pad = -C % mesh.dp
+    X_b = torch.as_tensor(np.stack(xlist + [xlist[0]] * pad),
+                          dtype=torch.complex64, device=mesh.device)
     sig = annealing_endpoints(X_b, cfg)
-    params_b, lls = run_gem(batch_params(plist), X_b, cfg,
-                            sigma_endpoints=sig)
-    return params_b, lls, separate_sources(params_b, X_b, sig[1])
+    params_b, lls = batched_run_gem(batch_params(plist + [plist[0]] * pad),
+                                    X_b, cfg, mesh, sigma_endpoints_b=sig)
+    Y_b = sharded_batch_separate(params_b, X_b, sig[1], mesh)
+    return lls[:C], Y_b[:C]
 
 
 def select_init_by_likelihood(X: np.ndarray, cands, xx, pw,
@@ -902,14 +905,14 @@ def select_init_by_likelihood(X: np.ndarray, cands, xx, pw,
 
     Returns (A_init, tw_prof, fb_prof, best_name). All probes run as ONE
     batched run_gem call and one separate_sources call over the clip axis
-    on `device` (kernel 1 on the card). n_devices > 1 raises: the
-    multi-device pool is ROADMAP item 15.
+    on `device` (kernel 1 on the card), or on a mesh of n_devices ranks
+    (parallel/sharding.py).
     """
     from pyfasst_tpu_torch.models.components import FasstParams
     from pyfasst_tpu_torch.utils.config import GEMConfig
 
-    _check_devices(n_devices)
-    dev = resolve_device(device)
+    mesh = make_mesh(n_devices, device=device)
+    dev = mesh.device
     J = cands[0][1].shape[-1]
     Xn = np.ascontiguousarray(X) / float(np.sqrt(np.mean(np.abs(X) ** 2)))
     cfg = GEMConfig(niter=probe_iters, spatial_hold_frac=0.3)
@@ -923,7 +926,7 @@ def select_init_by_likelihood(X: np.ndarray, cands, xx, pw,
         plist.append(apply_profiles(FasstParams(
             spat=_conv_spat(A, torch.complex64, dev), spec=spec), twp, fbp))
         inits.append((name, A, twp, fbp))
-    _, lls, Y_b = _batched_runs(plist, [Xn] * len(plist), cfg, dev)
+    lls, Y_b = _batched_runs(plist, [Xn] * len(plist), cfg, mesh)
     lls = lls[:, -1].cpu().numpy().astype(np.float64)
     ec = _max_env_corr(Y_b).cpu().numpy().astype(np.float64)
     ok = ec <= env_thr
@@ -981,8 +984,8 @@ def _band_em_probes(X: np.ndarray, J: int, *, band_width: int = 32,
     from pyfasst_tpu_torch.models.components import FasstParams
     from pyfasst_tpu_torch.utils.config import GEMConfig
 
-    _check_devices(n_devices)
-    dev = resolve_device(device)
+    mesh = make_mesh(n_devices, device=device)
+    dev = mesh.device
     F, N, I = X.shape
     feat, w, pw, xx = tf_covariance_features(X)
     if votes_init is None:
@@ -1015,7 +1018,7 @@ def _band_em_probes(X: np.ndarray, J: int, *, band_width: int = 32,
             names.append((bi, es))
 
     cfg = GEMConfig(niter=iters, spatial_hold_frac=0.3)
-    _, lls, Y_b = _batched_runs(plist, xlist, cfg, dev)
+    lls, Y_b = _batched_runs(plist, xlist, cfg, mesh)
     p = torch.sum(Y_b.abs() ** 2, dim=4)               # (C, J, Fb, N)
     lab_b = torch.argmax(p, dim=1).cpu().numpy()       # (C, Fb, N)
     env_b = torch.sum(p, dim=2).cpu().numpy().astype(np.float64)
@@ -1064,8 +1067,8 @@ def glue_band_perms(X: np.ndarray, J: int, probes: BandProbes, *,
     )
     from pyfasst_tpu_torch.utils.config import GEMConfig
 
-    _check_devices(n_devices)
-    dev = resolve_device(device)
+    mesh = make_mesh(n_devices, device=device)
+    dev = mesh.device
     starts, Fb, pick = probes.starts, probes.Fb, probes.pick
     B = len(starts)
     pw, xx = probes.pw, probes.xx
@@ -1104,8 +1107,8 @@ def glue_band_perms(X: np.ndarray, J: int, probes: BandProbes, *,
     nruns = len(plist)
     lls = np.full(nruns, -np.inf)
     for c0 in range(0, nruns, chunk):
-        _, ll_b, _ = _batched_runs(plist[c0:c0 + chunk],
-                                   xlist[c0:c0 + chunk], cfg, dev)
+        ll_b, _ = _batched_runs(plist[c0:c0 + chunk],
+                                xlist[c0:c0 + chunk], cfg, mesh)
         lls[c0:c0 + chunk] = ll_b[:, -1].cpu().numpy().astype(np.float64)
     llm = lls.reshape(B - 1, nP)
     order = np.argsort(llm, axis=1)[:, ::-1]

@@ -29,6 +29,7 @@ from pyfasst_tpu_torch.models.components import (
 )
 from pyfasst_tpu_torch.models.fasst import FASST
 from pyfasst_tpu_torch.tf.filterbank import spectral_basis
+from pyfasst_tpu_torch.utils import prng
 
 
 def _fixed_basis(model: FASST, freq_basis: Optional[str], n_bands: int):
@@ -39,17 +40,20 @@ def _fixed_basis(model: FASST, freq_basis: Optional[str], n_bands: int):
 
 
 def _nmf_comps(model: FASST, nbComps: int, nbNMFComps: int, fixed_FB):
+    """One NMF component per source, source j from the j-th key of
+    split(model.key, nbComps), as the JAX package draws them."""
+    keys = prng.split(model.key, nbComps)
     return tuple(
-        init_nmf_comp(model.generator, model.F, model.N, nbNMFComps,
+        init_nmf_comp(keys[j], model.F, model.N, nbNMFComps,
                       spat_ind=j, dtype=model.dtype, device=model.device,
                       fixed_FB=fixed_FB)
         for j in range(nbComps))
 
 
-def _uniform(model: FASST, *shape) -> torch.Tensor:
-    """0.5 + U[0, 1) of `shape` with a clip axis of 1, from the model's
-    generator, in its dtype on its device."""
-    return uniform_init(model.generator, shape, model.dtype, model.device)
+def _uniform(model: FASST, key, *shape) -> torch.Tensor:
+    """0.5 + jax.random.uniform(key, shape) with a clip axis of 1, in the
+    model's dtype on its device."""
+    return uniform_init(key, shape, model.dtype, model.device)
 
 
 def _inst_spat(model: FASST, nbComps: int, spatial_rank: int):
@@ -63,9 +67,8 @@ def _inst_spat(model: FASST, nbComps: int, spatial_rank: int):
 class MultiChanNMFInst_FASST(FASST):
     """Instantaneous multichannel NMF.
 
-    The mixing starts from the JAX package's numpy draw (the same numbers
-    for the same seed); the NMF factors from `self.generator`, which does
-    not reproduce jax.random's bits.
+    The mixing and the NMF factors start from the JAX package's draws:
+    the same numbers for the same seed.
     """
 
     def __init__(self, audio, nbComps: int = 2, nbNMFComps: int = 4,
@@ -139,7 +142,9 @@ class MultiChanHMM(FASST):
     priors, 'HMM' a transition matrix with `self_trans` on its diagonal;
     decode 'viterbi' takes the MAP state path instead of the posteriors.
     mix_type INST or CONV (the INST directions, frequency-independent, as
-    complex per-frequency mixing). FB and TW start from `self.generator`.
+    complex per-frequency mixing). FB and TW start from the JAX package's
+    draws: source j's FB from the j-th key of split(key, nbComps), its TW
+    from fold_in(that key, 1).
     """
 
     def __init__(self, audio, nbComps: int = 2, nbStates: int = 8,
@@ -169,10 +174,11 @@ class MultiChanHMM(FASST):
             trans = np.full(Q, 1.0 / Q)
         trans = torch.as_tensor(trans, dtype=self.dtype,
                                 device=self.device)[None]
+        keys = prng.split(self.key, nbComps)
         spec = []
         for j in range(nbComps):
-            FB = _uniform(self, self.F, Q)
-            TW = _uniform(self, Q, self.N)
+            FB = _uniform(self, keys[j], self.F, Q)
+            TW = _uniform(self, prng.fold_in(keys[j], 1), Q, self.N)
             spec.append(SpectralComp(
                 FB=FB, TW=TW, trans=trans, spat_ind=j,
                 free=(True, False, True, False),
@@ -299,8 +305,9 @@ class multiChanSourceF0Filter(FASST):
         U = WF0.shape[1]
         WGAMMA = spectral_basis("mel", n_filter_bands, self.F, self.fs,
                                 self.stft_wlen)
-        TW0 = _uniform(self, U, self.N)
-        TW20 = _uniform(self, n_filter_bands, self.N)
+        keys = prng.split(self.key, nbComps + 2)
+        TW0 = _uniform(self, keys[0], U, self.N)
+        TW20 = _uniform(self, keys[1], n_filter_bands, self.N)
         if init_from_lead:
             # run the SeparateLeadStereo pipeline first and seed the lead
             # source's F0/envelope activations from its melody-constrained
@@ -331,7 +338,7 @@ class multiChanSourceF0Filter(FASST):
             spat_ind=0, free=(False, False, True, False),
             free2=(False, True))
         spec = [lead] + [
-            init_nmf_comp(self.generator, self.F, self.N, nbNMFComps,
+            init_nmf_comp(keys[2 + j], self.F, self.N, nbNMFComps,
                           spat_ind=j, dtype=self.dtype, device=self.device)
             for j in range(1, nbComps)]
         self.params = FasstParams(spat=spat, spec=tuple(spec))

@@ -28,6 +28,7 @@ import torch
 from pyfasst_tpu_torch.models.components import NMF, FasstParams
 from pyfasst_tpu_torch.ops.cuda_estep import _check
 from pyfasst_tpu_torch.ops.mstep import _mul_upd
+from pyfasst_tpu_torch.parallel.collectives import contract, mean_over
 
 LAUNCHES = {"fb_stats": 0, "tw_stats": 0}
 """Launches of each CUDA kernel in this process (comparison launches
@@ -149,11 +150,14 @@ def fused_spectral_update(params: FasstParams, stats,
     FB = torch.stack([c.FB for c in params.spec], dim=1)     # (B, J, F, K)
     TW = torch.stack([c.TW for c in params.spec], dim=1)     # (B, J, K, N)
     xi = stats.xi.contiguous()                               # (B, J, F, N)
-    vfloor = (1e-12 * torch.mean(xi, dim=(2, 3)) + eps).contiguous()
+    vfloor = (1e-12 * mean_over(xi, (2, 3), "FN") + eps).contiguous()
+    # on a mesh (parallel/sharding.py) fb_stats contracts this rank's
+    # frames and tw_stats its frequencies: partials, finished between the
+    # kernel and the update
     fn, fd = fb_stats(xi, FB, TW, vfloor)
-    FB2 = _mul_upd(FB, fn, fd, eps)
+    FB2 = _mul_upd(FB, contract(fn, "N"), contract(fd, "N"), eps)
     tn, td = tw_stats(xi, FB2, TW, vfloor)
-    TW2 = _mul_upd(TW, tn, td, eps)
+    TW2 = _mul_upd(TW, contract(tn, "F"), contract(td, "F"), eps)
     spec = tuple(c.replace(FB=FB2[:, j], TW=TW2[:, j])
                  for j, c in enumerate(params.spec))
     return params.replace(spec=spec)

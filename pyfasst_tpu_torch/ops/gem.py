@@ -49,6 +49,7 @@ from pyfasst_tpu_torch.ops.estep import compute_suff_stats
 from pyfasst_tpu_torch.ops.mstep import (
     _as_conv_A, renormalize, update_spatial, update_spectral,
 )
+from pyfasst_tpu_torch.parallel.collectives import active_axis, reduce_stats
 from pyfasst_tpu_torch.utils.config import AnnealingMode, GEMConfig
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
@@ -144,24 +145,26 @@ def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,
     log-likelihood.
 
     X is the complex mixture STFT (B, F, N, I). x4 optionally carries
-    cuda_estep.pack_x4(X), hoisted out of the loop by run_gem.
+    cuda_estep.pack_x4(X), hoisted out of the loop by run_gem. Under a
+    shard of parallel/sharding.py X is this rank's slice, and the E-step's
+    sums over the sharded axis are finished by reduce_stats.
     """
     v = params.all_source_powers()                    # (B, J, F, N)
     if X.shape[-1] != 2:
         # the general-I engine, on either device, and the unfused spectral
         # M-step (pyfasst_tpu/ops/gem.py:92-103)
         F = X.shape[1]
-        stats = suff_stats_general(
+        stats = reduce_stats(suff_stats_general(
             X, v, tuple(_as_conv_A(c, F) for c in params.spat), sigma,
             tuple(c.rank for c in params.spat), eps=cfg.eps,
-            noise_inject=cfg.annealing == AnnealingMode.ANN_NS_INJ)
+            noise_inject=cfg.annealing == AnnealingMode.ANN_NS_INJ))
         params = update_spatial(params, stats, sigma,
                                 enabled=spatial_enabled)
         params = update_spectral(params, stats, eps=cfg.eps, v=v)
         if cfg.renormalize:
             params = renormalize(params)
         return params, stats.loglik
-    stats = _estep(params, X, v, sigma, cfg, x4)
+    stats = reduce_stats(_estep(params, X, v, sigma, cfg, x4))
     params = update_spatial(params, stats, sigma, enabled=spatial_enabled)
     if (cfg.fuse_spectral and X.device.type == "cuda"
             and cuda_spectral.eligible(params)):
@@ -192,6 +195,9 @@ def run_gem(params: FasstParams, X, cfg: GEMConfig, start_iter: int = 0,
 
     Matrix products run in full float32 (no TF32).
     """
+    if sigma_endpoints is None and active_axis() is not None:
+        raise ValueError("a sharded run_gem needs the endpoints of the "
+                         "whole plane (parallel/sharding.batched_run_gem)")
     sigma0, sigma1 = (annealing_endpoints(X, cfg) if sigma_endpoints is None
                       else sigma_endpoints)
     if logliks is None:

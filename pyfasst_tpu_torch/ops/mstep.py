@@ -34,6 +34,9 @@ from pyfasst_tpu_torch.models.components import (
 )
 from pyfasst_tpu_torch.ops import herm, hmm
 from pyfasst_tpu_torch.ops.estep import SuffStats
+from pyfasst_tpu_torch.parallel.collectives import (
+    contract, mean_over, sum_over,
+)
 
 
 def _as_conv_A(comp: SpatialComp, F: int) -> torch.Tensor:
@@ -69,7 +72,7 @@ def update_spatial(params: FasstParams, stats: SuffStats, sigma,
     A_all = [_as_conv_A(c, F) for c in params.spat]   # complex (B, F, I, Rj)
     new_spat: List[SpatialComp] = list(params.spat)
     w = 1.0 / torch.clamp(sigma, min=1e-30)
-    w = w / torch.mean(w, dim=-1, keepdim=True)        # (B, F)
+    w = w / mean_over(w, -1, "F", keepdim=True)        # (B, F)
 
     for j, comp in enumerate(params.spat):
         if not comp.free:
@@ -89,8 +92,8 @@ def update_spatial(params: FasstParams, stats: SuffStats, sigma,
         Rss = stats.Tss[j][j] + post                    # (B, F, R, R)
         if comp.mix_type == INST:
             wf = w[:, :, None, None]
-            target_p = torch.sum(wf * target, dim=1).real    # (B, I, R)
-            Rss_p = torch.sum(wf * Rss, dim=1).real          # (B, R, R)
+            target_p = sum_over(wf * target, 1, "F").real    # (B, I, R)
+            Rss_p = sum_over(wf * Rss, 1, "F").real          # (B, R, R)
             tr = torch.diagonal(Rss_p, dim1=-2, dim2=-1).sum(-1)
             Rss_p = Rss_p + eps * tr[:, None, None] * _eye(R, Rss_p)
             A_new = _solve(Rss_p.mT, target_p.mT).mT
@@ -100,7 +103,7 @@ def update_spatial(params: FasstParams, stats: SuffStats, sigma,
             # unbounded growth.
             A = A_all[j]
             tr = torch.diagonal(Rss, dim1=-2, dim2=-1).sum(-1).real  # (B, F)
-            ridge = (eps * tr + 1e-4 * torch.mean(tr, dim=-1, keepdim=True)
+            ridge = (eps * tr + 1e-4 * mean_over(tr, -1, "F", keepdim=True)
                      + 1e-30).to(tr.dtype)
             target = target + ridge[..., None, None] * A
             Rss = Rss + ridge[..., None, None] * _eye(R, A)
@@ -111,7 +114,7 @@ def update_spatial(params: FasstParams, stats: SuffStats, sigma,
             # bin's norm at 1e-3 of the source's rms ties them to the
             # source's global scale.
             r2 = torch.sum(A_new.abs() ** 2, dim=(2, 3))       # (B, F)
-            floor2 = 1e-6 * torch.mean(r2, dim=-1, keepdim=True)
+            floor2 = 1e-6 * mean_over(r2, -1, "F", keepdim=True)
             boost = torch.sqrt(floor2 / torch.clamp(r2, min=1e-38))
             boost = torch.clamp(boost, min=1.0).to(A_new.real.dtype)
             A_new = A_new * boost[..., None, None]
@@ -152,7 +155,7 @@ def _nmf_factor_updates(comp: SpectralComp, P, V, eps: float
         return _mul_upd(factor, num_term, den_term, eps)
 
     vk = comp.power()
-    v_floor = 1e-12 * torch.mean(P, dim=(-2, -1), keepdim=True) + eps
+    v_floor = 1e-12 * mean_over(P, (-2, -1), "FN", keepdim=True) + eps
     for idx in range(4):
         if not comp.free[idx]:
             continue
@@ -161,24 +164,32 @@ def _nmf_factor_updates(comp: SpectralComp, P, V, eps: float
         den = 1.0 / Vc
         W = comp.freq_pattern()          # (B, F, K)
         H = comp.time_activation()       # (B, K, N)
+        # each statistic is finished over the axes it contracts
         if idx == 0:                     # FB (B, F, L)
             rest = H if comp.FW is None else comp.FW @ H
-            comp = comp.replace(FB=mul_upd(comp.FB, num @ rest.mT,
-                                           den @ rest.mT))
+            comp = comp.replace(FB=mul_upd(
+                comp.FB, contract(num @ rest.mT, "N"),
+                contract(den @ rest.mT, "N")))
         elif idx == 1:                   # FW (B, L, K)
             lhs_n = comp.FB.mT @ num
             lhs_d = comp.FB.mT @ den
-            comp = comp.replace(FW=mul_upd(comp.FW, lhs_n @ H.mT,
-                                           lhs_d @ H.mT))
+            comp = comp.replace(FW=mul_upd(
+                comp.FW, contract(lhs_n @ H.mT, "FN"),
+                contract(lhs_d @ H.mT, "FN")))
         elif idx == 2:                   # TW (B, K, M)
             lhs_n = W.mT @ num
             lhs_d = W.mT @ den
+            axes = "F"
             if comp.TB is not None:
                 lhs_n, lhs_d = lhs_n @ comp.TB.mT, lhs_d @ comp.TB.mT
-            comp = comp.replace(TW=mul_upd(comp.TW, lhs_n, lhs_d))
+                axes = "FN"
+            comp = comp.replace(TW=mul_upd(comp.TW, contract(lhs_n, axes),
+                                           contract(lhs_d, axes)))
         else:                            # TB (B, M, N)
             G = W @ comp.TW
-            comp = comp.replace(TB=mul_upd(comp.TB, G.mT @ num, G.mT @ den))
+            comp = comp.replace(TB=mul_upd(comp.TB,
+                                           contract(G.mT @ num, "F"),
+                                           contract(G.mT @ den, "F")))
         vk_new = comp.power()
         V = V - vk + vk_new
         vk = vk_new
@@ -305,8 +316,8 @@ def renormalize(params: FasstParams) -> FasstParams:
         if comp.mix_type == INST:
             norm = torch.sum(comp.A ** 2, dim=(1, 2)) / comp.A.shape[1]
         else:
-            norm = torch.mean(torch.sum(comp.A.abs() ** 2, dim=(2, 3)),
-                              dim=1) / comp.A.shape[2]
+            norm = mean_over(torch.sum(comp.A.abs() ** 2, dim=(2, 3)),
+                             1, "F") / comp.A.shape[2]
         norm = torch.clamp(norm, min=1e-30)                   # (B,)
         scale = torch.sqrt(norm).to(comp.A.dtype)
         spat[j] = comp.replace(
@@ -347,7 +358,11 @@ def _chain_normalize(comp: SpectralComp, eps: float = 1e-30) -> SpectralComp:
     for (ia, na), (ib, nb) in zip(chain[:-1], chain[1:]):
         if not (comp.free[ia] and comp.free[ib]):
             continue
-        s = torch.clamp(torch.sum(mats[na], dim=-2), min=eps)  # (B, cols)
+        # FB's rows are frequencies; FW's and TW's rows are not sharded
+        s = torch.sum(mats[na], dim=-2)                        # (B, cols)
+        if na == "FB":
+            s = contract(s, "F")
+        s = torch.clamp(s, min=eps)
         mats[na] = mats[na] / s[:, None, :]
         mats[nb] = mats[nb] * s[:, :, None]
         upd[na], upd[nb] = mats[na], mats[nb]

@@ -1,12 +1,12 @@
-"""Batch separation over many clips on one device.
+"""Batch separation over many clips, on one device or a mesh of ranks.
 
-Port of pyfasst_tpu/parallel/batch.py and of the single-device half of
-pyfasst_tpu/parallel/sharding.py. Clips of different lengths are padded
-into frame BUCKETS; each bucket is one GEM run over a stacked clip axis B
-(every tensor of the port carries it, so a bucket is one run_gem call and
-one separate_sources call, with per-clip (B, F) annealing endpoints), and
-the per-clip results are cropped back. There is no mesh: the multi-device
-legs (clips and frequencies across devices) are ROADMAP item 15.
+Port of pyfasst_tpu/parallel/batch.py. Clips of different lengths are
+padded into frame BUCKETS; each bucket is one GEM run over a stacked clip
+axis B (every tensor of the port carries it, so a bucket is one run_gem
+call and one separate_sources call, with per-clip (B, F) annealing
+endpoints), and the per-clip results are cropped back. On a mesh
+(parallel/sharding.py) each bucket runs through batched_run_gem and
+sharded_batch_separate, padded to a multiple of the dp axis.
 """
 from __future__ import annotations
 
@@ -19,11 +19,10 @@ import torch
 
 from pyfasst_tpu_torch.convert import _SPEC_ARRAYS
 from pyfasst_tpu_torch.models.components import FasstParams, complex_dtype
-from pyfasst_tpu_torch.ops.gem import endpoints_from_power, run_gem
-from pyfasst_tpu_torch.ops.wiener import separate_sources
+from pyfasst_tpu_torch.ops.gem import endpoints_from_power
 from pyfasst_tpu_torch.utils.checkpoint import load_params, save_params
 from pyfasst_tpu_torch.utils.config import GEMConfig
-from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
 def batch_params(params_list: Sequence[FasstParams], device=None
@@ -79,8 +78,9 @@ def batch_separate(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     on_checkpoint: Optional[Callable[[int, int], None]] = None,
+    mesh=None,
 ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
-    """Estimate and separate a set of clips on `device`.
+    """Estimate and separate a set of clips on `device`, or on `mesh`.
 
     Xs: complex STFTs (F, N_i, I) (arrays or tensors), one F and I, varying
     N_i. make_params(F, N_padded, clip_index) builds one clip's initial
@@ -99,8 +99,21 @@ def batch_separate(
     with this call is ignored (fresh start), not trusted. A finished bucket
     deletes its checkpoint file. on_checkpoint(Npad, iteration), if given,
     is called after each save.
+
+    mesh: a parallel.sharding.Mesh; None is make_mesh over the current
+    process group (the single `device` when there is none), whose device
+    then replaces `device`. Each bucket is padded to a multiple of the dp
+    axis with copies of its last clip, as the JAX package pads it. Every
+    rank computes the whole result; only rank 0 writes checkpoints.
     """
-    device = resolve_device(device)
+    from pyfasst_tpu_torch.parallel.sharding import (
+        barrier, batched_run_gem, is_writer, make_mesh,
+        sharded_batch_separate,
+    )
+
+    mesh = mesh or make_mesh(device=device)
+    device, dp = mesh.device, mesh.dp
+    writer = is_writer()
     F = Xs[0].shape[0]
     n_frames = [int(x.shape[1]) for x in Xs]
     out_imgs: List[Optional[np.ndarray]] = [None] * len(Xs)
@@ -108,16 +121,20 @@ def batch_separate(
     every = int(checkpoint_every or 0)
     if every and not checkpoint_dir:
         raise ValueError("checkpoint_every requires checkpoint_dir")
-    if checkpoint_dir:
+    if checkpoint_dir and writer:
         os.makedirs(checkpoint_dir, exist_ok=True)
 
     for Npad, idxs in sorted(frame_buckets(n_frames, granularity).items()):
-        params_b = batch_params([make_params(F, Npad, i) for i in idxs],
+        # round the batch up to a multiple of the dp axis with repeats
+        batch_idx = list(idxs)
+        while len(batch_idx) % dp != 0:
+            batch_idx.append(idxs[-1])
+        params_b = batch_params([make_params(F, Npad, i) for i in batch_idx],
                                 device=device)
         real = params_b.spec[0].FB.dtype
         Xt = [torch.as_tensor(Xs[i]).to(device=device,
                                         dtype=complex_dtype(real))
-              for i in idxs]
+              for i in batch_idx]
         X_b = torch.stack([_pad_frames(x, Npad) for x in Xt])
         # per-clip endpoints from the true (unpadded) frames
         sig0_b, sig1_b = endpoints_from_power(
@@ -125,11 +142,12 @@ def batch_separate(
             cfg)
 
         start = 0
-        logliks = torch.zeros((len(idxs), cfg.niter), dtype=torch.float32,
-                              device=device)
+        logliks = torch.zeros((len(batch_idx), cfg.niter),
+                              dtype=torch.float32, device=device)
         ckpt = (_bucket_ckpt_path(checkpoint_dir, Npad)
                 if checkpoint_dir else None)
-        bucket_id = {"clips": list(map(int, idxs)), "niter": int(cfg.niter)}
+        bucket_id = {"clips": list(map(int, batch_idx)),
+                     "niter": int(cfg.niter)}
         if ckpt and os.path.exists(ckpt):
             saved, it, extra = load_params(ckpt, device=device, dtype=real)
             if extra.get("clips") == bucket_id["clips"] \
@@ -140,20 +158,28 @@ def batch_separate(
 
         while start < cfg.niter:
             end = min(start + every, cfg.niter) if every else cfg.niter
-            params_b, logliks = run_gem(params_b, X_b, cfg, start_iter=start,
-                                        end_iter=end, logliks=logliks,
-                                        sigma_endpoints=(sig0_b, sig1_b))
+            params_b, lls = batched_run_gem(
+                params_b, X_b, cfg, mesh, sigma_endpoints_b=(sig0_b, sig1_b),
+                bounds=(start, end))
+            logliks[:, start:end] = lls[:, start:end]
             start = end
             if ckpt and every and start < cfg.niter:
-                save_params(ckpt, params_b, iteration=start, extra=bucket_id,
-                            extra_arrays={"logliks": logliks.cpu().numpy()},
-                            stacked=True)
+                if writer:
+                    save_params(ckpt, params_b, iteration=start,
+                                extra=bucket_id,
+                                extra_arrays={
+                                    "logliks": logliks.cpu().numpy()},
+                                stacked=True)
+                barrier()
                 if on_checkpoint is not None:
                     on_checkpoint(Npad, start)
-        if ckpt and os.path.exists(ckpt):
-            os.remove(ckpt)
+        if ckpt:
+            if writer and os.path.exists(ckpt):
+                os.remove(ckpt)
+            barrier()
 
-        Y_b = separate_sources(params_b, X_b, sig1_b).cpu().numpy()
+        Y_b = sharded_batch_separate(params_b, X_b, sig1_b,
+                                     mesh).cpu().numpy()
         lls = logliks.cpu().numpy()
         for slot, i in enumerate(idxs):
             out_imgs[i] = Y_b[slot][:, :, :n_frames[i], :]
@@ -173,24 +199,29 @@ def batch_separate_files(
     seed: int = 0,
     granularity: int = 128,
     device=DEFAULT_DEVICE,
+    mesh=None,
 ) -> Dict[str, Dict]:
     """Batch-separate a directory's worth of WAV files.
 
     Variable-length clips ride the bucketed batch_separate path (the
-    instantaneous multichannel NMF model per clip, clip i seeded with
-    seed + i); each clip's stems are written as <out_dir>/<stem>_est_<j>.wav.
+    instantaneous multichannel NMF model per clip, clip i's NMF factors
+    from split(PRNGKey(seed + i), nbComps), the JAX package's draws);
+    each clip's stems are written as <out_dir>/<stem>_est_<j>.wav.
     Returns a per-clip report {stem: {"files": [...], "final_loglik": x}}.
-    The NMF draws come from a torch.Generator, not jax.random: the two
-    packages start from other numbers for the same seed.
+    mesh: as batch_separate; on a mesh only rank 0 writes the WAVs, and
+    every rank returns the report.
     """
     from pyfasst_tpu_torch.audio import AudioObject
     from pyfasst_tpu_torch.models.components import (
         SpatialComp, init_inst_mixing, init_nmf_comp,
     )
+    from pyfasst_tpu_torch.parallel.sharding import is_writer, make_mesh
     from pyfasst_tpu_torch.tf.filterbank import spectral_basis
     from pyfasst_tpu_torch.tf.stft import STFT
+    from pyfasst_tpu_torch.utils import prng
 
-    device = resolve_device(device)
+    mesh = mesh or make_mesh(device=device)
+    device = mesh.device
     objs = [AudioObject(p) for p in paths]
     n_ch = {o.channels for o in objs}
     if len(n_ch) != 1:
@@ -211,19 +242,21 @@ def batch_separate_files(
         if freq_basis in ("erb", "mel") else None for o in objs]
 
     def make_params(F_, Npad, i):
-        gen = torch.Generator().manual_seed(seed + i)
+        keys = prng.split(prng.PRNGKey(seed + i), nbComps)
         spat = tuple(SpatialComp(A=a[None]) for a in
                      init_inst_mixing(None, I, 1, nbComps, device=device))
         spec = tuple(
-            init_nmf_comp(gen, F_, Npad, nbNMFComps, spat_ind=j,
+            init_nmf_comp(keys[j], F_, Npad, nbNMFComps, spat_ind=j,
                           device=device, fixed_FB=fixed_FBs[i])
             for j in range(nbComps))
         return FasstParams(spat=spat, spec=spec)
 
     images, lls = batch_separate(Xs, make_params, GEMConfig(niter=int(iters)),
-                                 device=device, granularity=granularity)
+                                 granularity=granularity, mesh=mesh)
 
-    os.makedirs(out_dir, exist_ok=True)
+    writer = is_writer()
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
     report: Dict[str, Dict] = {}
     for p, o, tft, Y, ll, sc in zip(paths, objs, tfts, images, lls, scales):
         stem = os.path.splitext(os.path.basename(p))[0]
@@ -234,8 +267,9 @@ def batch_separate_files(
             y = ys[j]
             peak = np.max(np.abs(y))
             out = os.path.join(out_dir, f"{stem}_est_{j}.wav")
-            AudioObject(data=y / peak if peak > 1.0 else y,
-                        samplerate=o.samplerate)._write(out)
+            if writer:
+                AudioObject(data=y / peak if peak > 1.0 else y,
+                            samplerate=o.samplerate)._write(out)
             files.append(out)
         report[stem] = {"files": files, "final_loglik": float(ll[-1])}
     return report

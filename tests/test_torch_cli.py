@@ -319,13 +319,14 @@ def test_cuda_without_card_exits_2(mix_wav, tmp_path, capsys, monkeypatch,
 
 
 def test_n_devices_refused(mix_wav, tmp_path, capsys):
-    """--n-devices 2 exits with code 2 naming the multi-device item."""
+    """--n-devices 2 without a launcher (no torch.distributed group) exits
+    with code 2 and says how to launch it."""
     for extra in (["--reseed", "0"], []):
         assert main(["separate", mix_wav, "-o", str(tmp_path / "n"),
                      "--model", "fullrank", "--spatial-init", "--n-devices",
                      "2", "--iters", "2", "--wlen", "256", "-q"] + extra
                     + CPU) == 2
-        assert "ROADMAP item 15" in capsys.readouterr().err
+        assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
 
 
 def test_info_reads_float_and_pcm24(tmp_path, capsys):

@@ -1122,3 +1122,87 @@ def test_speech_preset_with_the_jax_draws_gives_the_jax_rows(dev, tmp_path):
             assert abs(r["min_sdr"] - want) <= 0.05, (seed, r["min_sdr"])
     finally:
         tsi._em_seed_spec = orig
+
+
+def test_speech_preset_gives_the_jax_rows_with_its_own_draws(dev, tmp_path):
+    """The port's own EM-seed draws are the JAX package's (utils/prng.py),
+    so the speech preset on fixture seeds 120 and 122 lands on the JAX
+    package's TPU rows with no draws injected (the test above)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    for seed, want in ((120, 9.46), (122, 6.84)):
+        mix, ys_true = cs.speech_fixture(**dict(cs.SPEECH, seed=seed))
+        r = cs.blind_cli(str(tmp_path), "speech", mix, ys_true,
+                         cs.SPEECH["fs"], name=f"speech{seed}")
+        assert abs(r["min_sdr"] - want) <= 0.05, (seed, r["min_sdr"])
+
+
+def _mesh_problem(dev):
+    from pyfasst_tpu_torch.parallel import dryrun
+    prob = dryrun.tiny_problem(B=4, F=65, N=40)
+    cfg = GEMConfig(niter=8)
+    X = torch.as_tensor(prob["X"], device=dev)
+    sig = gem.annealing_endpoints(X, cfg)
+    params, ll = gem.run_gem(dryrun.tiny_params(prob, device=dev), X, cfg,
+                             sigma_endpoints=sig)
+    return prob, cfg, params, ll
+
+
+def test_world_size_one_on_nccl_is_bit_for_bit(dev, tmp_path):
+    """A process group of one rank on NCCL: batched_run_gem and
+    sharded_batch_separate on make_mesh(1) give run_gem's and
+    separate_sources' bits on the card."""
+    import torch.distributed as dist
+
+    from pyfasst_tpu_torch.ops.wiener import separate_sources
+    from pyfasst_tpu_torch.parallel import dryrun, sharding
+    prob, cfg, params, ll = _mesh_problem(dev)
+    X = torch.as_tensor(prob["X"], device=dev)
+    Y = separate_sources(params, X, gem.annealing_endpoints(X, cfg)[1])
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(device=dev)
+        assert mesh.size == 1
+        out, ll1 = sharding.batched_run_gem(
+            dryrun.tiny_params(prob, device=dev), X, cfg, mesh)
+        Y1 = sharding.sharded_batch_separate(
+            out, X, gem.annealing_endpoints(X, cfg)[1], mesh)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(ll1, ll) and torch.equal(Y1, Y)
+    for k, v in dryrun._host(out).items():
+        np.testing.assert_array_equal(v, dryrun._host(params)[k])
+
+
+def test_fp2_on_gloo_with_both_ranks_on_one_card(dev):
+    """Two gloo ranks on cuda:0 (parallel/dryrun.py): the fp, dp and sp
+    legs, and fp with the fused spectral kernels, against the single-card
+    run at rtol 2e-4; every rank launches the E-step kernel once per
+    iteration on its slice (and the spectral kernels when fused)."""
+    from pyfasst_tpu_torch.parallel import dryrun
+    prob, cfg, params, ll = _mesh_problem(dev)
+    want = dryrun._host(params)
+    fused = dataclasses.replace(cfg, fuse_spectral=True)
+    cases = [("legs", "sharding_cases",
+              dict(prob=prob, niter=cfg.niter, device="cuda:0")),
+             ("fused", "run_sharded",
+              dict(params_b=dryrun.tiny_params(prob), X_b=prob["X"],
+                   cfg=fused, device="cuda:0", separate=None))]
+    for rank in dryrun.spawn(dryrun.run_cases, 2, cases):
+        runs = dict(rank["legs"], fused=rank["fused"])
+        for leg, got in runs.items():
+            np.testing.assert_allclose(got["logliks"], ll.cpu().numpy(),
+                                       rtol=dryrun.RTOL, err_msg=leg)
+            for k, v in got["params"].items():
+                np.testing.assert_allclose(
+                    v, want[k], rtol=dryrun.RTOL,
+                    atol=dryrun.RTOL * np.abs(want[k]).max(), err_msg=leg)
+            assert got["launches"]["estep"] == cfg.niter, (leg, got)
+        assert runs["fused"]["launches"]["fb_stats"] == cfg.niter
+        assert runs["fused"]["launches"]["tw_stats"] == cfg.niter

@@ -2,10 +2,10 @@
 
 The blind pipeline's decisions come from argmax, argmin and rounded
 statistics, so parity compares decisions: the same selection keys, the
-same picked run and the same stage history. The EM seeds' spectral draws
-differ between the packages (jax.random against a CPU torch.Generator), so
-the parity runs hand the port the JAX package's own draws
-(spatial_init._em_seed_spec replaced). Images: within 5e-4 of their peak
+same picked run and the same stage history. The parity runs hand the port
+the JAX package's own EM-seed draws (spatial_init._em_seed_spec replaced),
+which the port's own draws now equal bit for bit
+(tests/test_torch_prng.py). Images: within 5e-4 of their peak
 (float32 GEM in two packages, 40 iterations; tests/test_torch_conv.py's
 conv runs agree to ~1e-4). Everything here runs on the CPU, at
 tests/test_reverb_pipeline.py's sizes (J = 2, F = 65, N = 96, chunk 4).
@@ -248,12 +248,13 @@ def test_full_rank_init_feeds_the_host_api():
 
 
 def test_multi_device_pool_raises():
-    """The multi-device pool is ROADMAP item 15: every entry point that
-    takes n_devices refuses more than one."""
+    """Without a torch.distributed group every entry point that takes
+    n_devices refuses more than one, saying how to launch (the pools on a
+    mesh: tests/test_torch_sharding.py)."""
     X = _reverb_mixture()
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         trv.blind_reverb_separate(X, J=2, n_devices=2, device="cpu")
     mix, _ = _time_mixture()
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         trv.blind_reverb_separate_multiscale(mix, J=2, fs=4000,
                                              n_devices=2, device="cpu")

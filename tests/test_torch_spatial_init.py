@@ -298,7 +298,7 @@ def test_select_warns_when_all_hypotheses_degenerate():
             env_thr=-1.0, device="cpu")
     assert any("duplicated" in str(r.message) for r in rec)
     assert A.shape == (2, 64, 2, 2)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         tsi.select_init_by_likelihood(X, cands, xx, pw, n_devices=2,
                                       device="cpu")
 
@@ -441,5 +441,5 @@ def test_band_em_votes_rejects_an_unknown_alignment():
         feat=feat, w=w, pw=pw, xx=xx)
     with pytest.raises(ValueError, match="band_align"):
         tsi.band_em_votes(X, 2, band_align="bogus", probes=probes)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         tsi.band_em_votes(X, 2, n_devices=2, device="cpu")
