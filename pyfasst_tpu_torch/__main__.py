@@ -9,12 +9,14 @@ inspection (`info`). `separate` and `lead` run on the card unless
 falling back to the CPU). `demix`, `eval` and `info` run NumPy on the host,
 as in the JAX package.
 
-`separate --n-devices N` runs the blind pools (and `--batch`'s buckets)
-on a mesh of N ranks (parallel/sharding.py): launch it with
-`torchrun --nproc-per-node N -m pyfasst_tpu_torch separate ...`. Each
-rank joins the process group torchrun describes (NCCL on the card, gloo
-with `--device cpu`); only rank 0 writes the WAVs and prints the report.
-Without a launcher, N > 1 exits with code 2 and says how to launch.
+`separate --n-devices N` runs the blind pools of `--spatial-init` on
+conv/fullrank (and `--batch`'s buckets) on a mesh of N ranks
+(parallel/sharding.py): launch it with `torchrun --nproc-per-node N -m
+pyfasst_tpu_torch separate ...`. Each rank joins the process group
+torchrun describes (NCCL on the card, gloo with `--device cpu`); only
+rank 0 writes files (WAVs, checkpoints) and prints the report. Without a
+launcher, N > 1 exits with code 2 and says how to launch; so does N > 1
+with a mode that shards nothing.
 """
 from __future__ import annotations
 
@@ -107,6 +109,15 @@ def _cmd_separate(args) -> int:
     from pyfasst_tpu_torch.utils.device import resolve_device
 
     _apply_preset(args)
+    if args.n_devices > 1 and not (args.batch or (
+            args.model in ("conv", "fullrank") and args.spatial_init
+            and not args.streaming
+            and wav_info(args.audio)["channels"] > 1)):
+        raise ValueError(
+            f"--n-devices {args.n_devices} shards only --spatial-init's "
+            "candidate pools (--model conv or fullrank, multichannel) and "
+            "--batch's buckets; this mode runs on one device: drop "
+            "--n-devices")
     device = resolve_device(args.device)
     make_mesh(args.n_devices, device=device)   # raises without a launcher
     writer = is_writer()
@@ -223,9 +234,11 @@ def _cmd_separate(args) -> int:
         if not args.quiet:
             print(f"resumed from {args.resume} at iteration {start_iter}")
     t0 = time.perf_counter()
+    # on a mesh every rank runs this fit; rank 0 alone saves checkpoints
     logliks = model.estim_param_a_posteriori(
-        start_iter=start_iter, checkpoint_path=args.checkpoint,
-        checkpoint_every=args.checkpoint_every)
+        start_iter=start_iter,
+        checkpoint_path=args.checkpoint if writer else None,
+        checkpoint_every=args.checkpoint_every if writer else None)
     paths = model.separate_spat_comps(args.out) if writer else []
     # a resume from a finished checkpoint runs zero iterations: no loglik
     # was computed this run, so none is reported
@@ -440,8 +453,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the --spatial-init candidate pool (and "
                         "--batch's buckets) over N devices: launch with "
                         "`torchrun --nproc-per-node N -m pyfasst_tpu_torch "
-                        "separate ...`; without a launcher N > 1 exits "
-                        "with code 2")
+                        "separate ...`; without a launcher, or in a mode "
+                        "that shards nothing, N > 1 exits with code 2")
     p.add_argument("--band-em", dest="band_em", type=int, default=None,
                    metavar="W",
                    help="with --spatial-init --reseed: add the band-local"

@@ -41,7 +41,9 @@ import numpy as np
 import torch
 
 from pyfasst_tpu_torch.models import spatial_init as si
-from pyfasst_tpu_torch.parallel.sharding import make_mesh
+from pyfasst_tpu_torch.parallel.sharding import (
+    batch_params, batched_run_gem, make_mesh, sharded_batch_separate,
+)
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
@@ -168,10 +170,6 @@ def _run_candidates(X_d, cands, pw, xx, cfg, sigma, mesh, em_seeds: int,
     candidate's cross-seed consistency (chunks are then a multiple of
     em_seeds so seed pairs share a chunk)."""
     from pyfasst_tpu_torch.models.components import FasstParams
-    from pyfasst_tpu_torch.parallel.batch import batch_params
-    from pyfasst_tpu_torch.parallel.sharding import (
-        batched_run_gem, sharded_batch_separate,
-    )
 
     J = cands[0][1].shape[-1]
     F, N = pw.shape

@@ -52,7 +52,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from pyfasst_tpu_torch.parallel.sharding import make_mesh
+from pyfasst_tpu_torch.parallel.sharding import (
+    batch_params, batched_run_gem, make_mesh, sharded_batch_separate,
+)
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
@@ -872,10 +874,6 @@ def _batched_runs(plist, xlist, cfg, mesh):
     from its own plane. The batch is padded to a multiple of the mesh's dp
     axis with copies of the first run, dropped from the results."""
     from pyfasst_tpu_torch.ops.gem import annealing_endpoints
-    from pyfasst_tpu_torch.parallel.batch import batch_params
-    from pyfasst_tpu_torch.parallel.sharding import (
-        batched_run_gem, sharded_batch_separate,
-    )
 
     C = len(plist)
     pad = -C % mesh.dp

@@ -28,7 +28,7 @@ import torch
 from pyfasst_tpu_torch.models.components import NMF, FasstParams
 from pyfasst_tpu_torch.ops.cuda_estep import _check
 from pyfasst_tpu_torch.ops.mstep import _mul_upd
-from pyfasst_tpu_torch.parallel.collectives import contract, mean_over
+from pyfasst_tpu_torch.ops.collectives import contract, mean_over
 
 LAUNCHES = {"fb_stats": 0, "tw_stats": 0}
 """Launches of each CUDA kernel in this process (comparison launches

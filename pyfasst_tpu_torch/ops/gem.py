@@ -49,7 +49,7 @@ from pyfasst_tpu_torch.ops.estep import compute_suff_stats
 from pyfasst_tpu_torch.ops.mstep import (
     _as_conv_A, renormalize, update_spatial, update_spectral,
 )
-from pyfasst_tpu_torch.parallel.collectives import active_axis, reduce_stats
+from pyfasst_tpu_torch.ops.collectives import active_axis, reduce_stats
 from pyfasst_tpu_torch.utils.config import AnnealingMode, GEMConfig
 from pyfasst_tpu_torch.utils.precision import highest_precision
 

@@ -34,7 +34,7 @@ from pyfasst_tpu_torch.models.components import (
 )
 from pyfasst_tpu_torch.ops import herm, hmm
 from pyfasst_tpu_torch.ops.estep import SuffStats
-from pyfasst_tpu_torch.parallel.collectives import (
+from pyfasst_tpu_torch.ops.collectives import (
     contract, mean_over, sum_over,
 )
 

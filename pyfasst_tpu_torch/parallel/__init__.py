@@ -1,26 +1,14 @@
 """Batch separation over many clips, on one device or a mesh of ranks
 (port of pyfasst_tpu/parallel: the bucketed batch path and sharding.py on
-torch.distributed). Names load on first use, so that the GEM loop can
-import parallel.collectives without loading the batch path."""
+torch.distributed)."""
 
-import importlib
+from pyfasst_tpu_torch.parallel.batch import (  # noqa: F401
+    batch_separate, batch_separate_files, frame_buckets,
+)
+from pyfasst_tpu_torch.parallel.sharding import (  # noqa: F401
+    Mesh, batch_params, batched_run_gem, make_mesh, sharded_batch_separate,
+)
 
-_LAZY = {
-    "batch_params": "pyfasst_tpu_torch.parallel.batch",
-    "batch_separate": "pyfasst_tpu_torch.parallel.batch",
-    "batch_separate_files": "pyfasst_tpu_torch.parallel.batch",
-    "frame_buckets": "pyfasst_tpu_torch.parallel.batch",
-    "Mesh": "pyfasst_tpu_torch.parallel.sharding",
-    "make_mesh": "pyfasst_tpu_torch.parallel.sharding",
-    "batched_run_gem": "pyfasst_tpu_torch.parallel.sharding",
-    "sharded_batch_separate": "pyfasst_tpu_torch.parallel.sharding",
-}
-
-__all__ = list(_LAZY)
-
-
-def __getattr__(name):
-    if name in _LAZY:
-        return getattr(importlib.import_module(_LAZY[name]), name)
-    raise AttributeError(
-        f"module 'pyfasst_tpu_torch.parallel' has no attribute {name!r}")
+__all__ = ["batch_params", "batch_separate", "batch_separate_files",
+           "frame_buckets", "Mesh", "make_mesh", "batched_run_gem",
+           "sharded_batch_separate"]

@@ -17,35 +17,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pyfasst_tpu_torch.convert import _SPEC_ARRAYS
 from pyfasst_tpu_torch.models.components import FasstParams, complex_dtype
 from pyfasst_tpu_torch.ops.gem import endpoints_from_power
+from pyfasst_tpu_torch.parallel.sharding import (
+    barrier, batch_params, batched_run_gem, is_writer, make_mesh,
+    sharded_batch_separate,
+)
 from pyfasst_tpu_torch.utils.checkpoint import load_params, save_params
 from pyfasst_tpu_torch.utils.config import GEMConfig
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE
-
-
-def batch_params(params_list: Sequence[FasstParams], device=None
-                 ) -> FasstParams:
-    """Concatenate parameter trees along the clip axis (each usually B = 1),
-    on `device` when given. The structure comes from the first tree."""
-    def cat(tensors):
-        if tensors[0] is None:
-            if any(t is not None for t in tensors):
-                raise ValueError("clips disagree on which factors are "
-                                 "present")
-            return None
-        out = torch.cat(tensors)
-        return out if device is None else out.to(device)
-
-    first = params_list[0]
-    spat = tuple(c.replace(A=cat([p.spat[j].A for p in params_list]))
-                 for j, c in enumerate(first.spat))
-    spec = tuple(c.replace(**{n: cat([getattr(p.spec[k], n)
-                                      for p in params_list])
-                              for n in _SPEC_ARRAYS})
-                 for k, c in enumerate(first.spec))
-    return FasstParams(spat=spat, spec=spec)
 
 
 def frame_buckets(n_frames: Sequence[int], granularity: int = 128
@@ -106,11 +86,6 @@ def batch_separate(
     axis with copies of its last clip, as the JAX package pads it. Every
     rank computes the whole result; only rank 0 writes checkpoints.
     """
-    from pyfasst_tpu_torch.parallel.sharding import (
-        barrier, batched_run_gem, is_writer, make_mesh,
-        sharded_batch_separate,
-    )
-
     mesh = mesh or make_mesh(device=device)
     device, dp = mesh.device, mesh.dp
     writer = is_writer()
@@ -215,7 +190,6 @@ def batch_separate_files(
     from pyfasst_tpu_torch.models.components import (
         SpatialComp, init_inst_mixing, init_nmf_comp,
     )
-    from pyfasst_tpu_torch.parallel.sharding import is_writer, make_mesh
     from pyfasst_tpu_torch.tf.filterbank import spectral_basis
     from pyfasst_tpu_torch.tf.stft import STFT
     from pyfasst_tpu_torch.utils import prng

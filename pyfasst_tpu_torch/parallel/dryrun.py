@@ -4,7 +4,7 @@ The port's counterpart of the JAX package's ``dryrun_multichip``: it
 spawns n processes (torch.multiprocessing, start method "spawn"), joins
 them in a gloo process group through a ``file://`` rendezvous under a
 temporary directory, and runs a worker function of this module on every
-rank. Each rank sets ``torch.set_num_threads(threads)`` first. The
+rank. Each rank runs on one thread (``torch.set_num_threads(1)``). The
 workers take their inputs as arguments (CPU tensors or numpy arrays) and
 put every rank's tensors on `device`: "cpu" in the tests, "cuda:0" to put
 every rank on one card. Gloo carries CUDA tensors through the host.
@@ -32,8 +32,8 @@ package's tests/test_sharding.py (reductions in another order)."""
 
 
 def _rank_entry(rank: int, n: int, init_file: str, out_dir: str,
-                fn: Callable, args: tuple, threads: int) -> None:
-    torch.set_num_threads(threads)
+                fn: Callable, args: tuple) -> None:
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=n)
     try:
@@ -43,13 +43,13 @@ def _rank_entry(rank: int, n: int, init_file: str, out_dir: str,
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, n: int, *args, threads: int = 1,
-          tmpdir: Optional[str] = None) -> List:
+def spawn(fn: Callable, n: int, *args, tmpdir: Optional[str] = None
+          ) -> List:
     """Run fn(*args) on n gloo ranks; return each rank's result, in rank
     order. fn must be a module-level function (the ranks import it)."""
     with tempfile.TemporaryDirectory(dir=tmpdir) as tmp:
         init_file = os.path.join(tmp, "rendezvous")
-        mp.spawn(_rank_entry, args=(n, init_file, tmp, fn, args, threads),
+        mp.spawn(_rank_entry, args=(n, init_file, tmp, fn, args),
                  nprocs=n, join=True)
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False) for r in range(n)]
@@ -110,12 +110,6 @@ def _launches() -> Dict[str, int]:
     return {"estep": cuda_estep.LAUNCHES, **cuda_spectral.LAUNCHES}
 
 
-def _ships(which: Optional[str]) -> bool:
-    """Whether this rank returns a large result: which is "all", "rank0"
-    or None."""
-    return which == "all" or (which == "rank0" and dist.get_rank() == 0)
-
-
 def run_sharded(params_b, X_b, cfg, dp: Optional[int] = None,
                 shard_frames: bool = False, device="cpu",
                 separate: Optional[str] = "all", sigma_endpoints_b=None
@@ -144,26 +138,25 @@ def run_sharded(params_b, X_b, cfg, dp: Optional[int] = None,
     out["launches"] = {k: v - before[k] for k, v in _launches().items()}
     if separate is not None:
         Y = sharded_batch_separate(params, X_b, sig[1], mesh)
-        out["Y"] = Y.cpu().numpy() if _ships(separate) else None
+        ships = separate == "all" or dist.get_rank() == 0
+        out["Y"] = Y.cpu().numpy() if ships else None
     return out
 
 
-def bucket_case(Xs, params_list, cfg, dp: Optional[int] = None,
-                device="cpu", images: Optional[str] = "all"
-                ) -> Dict[str, object]:
+def bucket_case(Xs, params_list, cfg, device="cpu") -> Dict[str, object]:
     """batch_separate of clips `Xs` from the initial params `params_list`
-    (B = 1 each, clip i's for clip i) on the mesh make_mesh(dp=dp), as one
-    bucket or several. Returns the logliks per clip, the images from every
-    rank ("all") or rank 0 ("rank0"), and this rank's kernel launches."""
+    (B = 1 each, clip i's for clip i) with every rank a slice of the clips
+    (make_mesh(dp=world size)). Returns the logliks per clip, the images
+    (rank 0 only) and this rank's kernel launches."""
     from pyfasst_tpu_torch.parallel.batch import batch_separate
     from pyfasst_tpu_torch.parallel.sharding import make_mesh
 
-    mesh = make_mesh(dp=dp, device=device)
+    mesh = make_mesh(dp=dist.get_world_size(), device=device)
     before = _launches()
     imgs, lls = batch_separate(Xs, lambda F, N, i: params_list[i], cfg,
                                mesh=mesh)
     return {"mesh": mesh.shape, "logliks": lls,
-            "images": imgs if _ships(images) else None,
+            "images": imgs if dist.get_rank() == 0 else None,
             "launches": {k: v - before[k] for k, v in _launches().items()}}
 
 
@@ -260,17 +253,31 @@ def pool_case(X, J: int, votes, iters: int = 20, band_width: int = 16,
 
 
 def cli_case(argv: List[str]) -> Dict[str, object]:
-    """`python -m pyfasst_tpu_torch` in this rank: its exit code and what
-    it printed."""
+    """`python -m pyfasst_tpu_torch` in this rank: its exit code, what it
+    printed and how many checkpoints this rank saved (FASST's
+    save_checkpoint calls)."""
     import contextlib
     import io
 
     from pyfasst_tpu_torch.__main__ import main
+    from pyfasst_tpu_torch.models.fasst import FASST
+
+    saves = 0
+    save = FASST.save_checkpoint
+
+    def counted(self, *a, **kw):
+        nonlocal saves
+        saves += 1
+        return save(self, *a, **kw)
 
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = main(argv)
-    return {"rc": rc, "stdout": buf.getvalue()}
+    FASST.save_checkpoint = counted
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        FASST.save_checkpoint = save
+    return {"rc": rc, "stdout": buf.getvalue(), "saves": saves}
 
 
 def refusal_case(prob: Dict[str, np.ndarray], device="cpu") -> str:

@@ -5,7 +5,7 @@ Port of pyfasst_tpu/parallel/sharding.py. The JAX package lays a (dp, fp)
 mesh over its devices and lets GSPMD insert the collectives; here each
 rank of an initialized process group is one device of the mesh and runs
 the GEM loop on its own slice, and the cross-shard reductions are
-explicit all-reduces (parallel/collectives.py):
+explicit all-reduces (ops/collectives.py):
 
   - dp: clips. Each rank takes a contiguous slice of the clip axis B (B
     must divide by dp); no collective inside the loop.
@@ -30,19 +30,18 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from pyfasst_tpu_torch.convert import _SPEC_ARRAYS
 from pyfasst_tpu_torch.models.components import (
     CONV, NMF, FasstParams,
 )
 # through the module, so that a wrapper of gem.run_gem sees every run
-from pyfasst_tpu_torch.ops import gem
+from pyfasst_tpu_torch.ops import collectives, gem
 from pyfasst_tpu_torch.ops.wiener import separate_sources
-from pyfasst_tpu_torch.parallel import collectives
-from pyfasst_tpu_torch.parallel.batch import batch_params  # noqa: F401
 from pyfasst_tpu_torch.utils.config import GEMConfig
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -154,6 +153,29 @@ def barrier() -> None:
         dist.barrier()
 
 
+def batch_params(params_list: Sequence[FasstParams], device=None
+                 ) -> FasstParams:
+    """Concatenate parameter trees along the clip axis (each usually B = 1),
+    on `device` when given. The structure comes from the first tree."""
+    def cat(tensors):
+        if tensors[0] is None:
+            if any(t is not None for t in tensors):
+                raise ValueError("clips disagree on which factors are "
+                                 "present")
+            return None
+        out = torch.cat(tensors)
+        return out if device is None else out.to(device)
+
+    first = params_list[0]
+    spat = tuple(c.replace(A=cat([p.spat[j].A for p in params_list]))
+                 for j, c in enumerate(first.spat))
+    spec = tuple(c.replace(**{n: cat([getattr(p.spec[k], n)
+                                      for p in params_list])
+                              for n in _SPEC_ARRAYS})
+                 for k, c in enumerate(first.spec))
+    return FasstParams(spat=spat, spec=spec)
+
+
 # -- slicing and gathering ----------------------------------------------------
 
 def _span(total: int, parts: int, index: int) -> Tuple[int, int]:
@@ -169,8 +191,7 @@ def _span(total: int, parts: int, index: int) -> Tuple[int, int]:
 def _map_fields(params: FasstParams, spat_fn, spec_fn) -> FasstParams:
     spat = tuple(c.replace(A=spat_fn(c, c.A)) for c in params.spat)
     spec = tuple(c.replace(**{n: spec_fn(c, n, getattr(c, n))
-                              for n in ("FB", "TW", "FW", "TB", "trans",
-                                        "FB2", "TW2")
+                              for n in _SPEC_ARRAYS
                               if getattr(c, n) is not None})
                  for c in params.spec)
     return FasstParams(spat=spat, spec=spec)
@@ -238,7 +259,7 @@ def _check_routed(params: FasstParams) -> None:
             raise NotImplementedError(
                 "frequency or frame sharding of a GMM/HMM or source-filter "
                 "spectral model: its reductions are not routed through "
-                "parallel/collectives yet (ROADMAP item 15); run it with "
+                "ops/collectives yet (ROADMAP item 15); run it with "
                 "fp = 1 (make_mesh(n, dp=n)) or on one device")
 
 

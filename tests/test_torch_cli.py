@@ -329,6 +329,22 @@ def test_n_devices_refused(mix_wav, tmp_path, capsys):
         assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("mode", (
+    ["--model", "inst"], ["--model", "hmm"], ["--model", "fullrank"],
+    ["--streaming"], ["--streaming", "--model", "fullrank",
+                      "--spatial-init"]))
+def test_n_devices_refused_where_nothing_is_sharded(mix_wav, tmp_path,
+                                                    capsys, mode):
+    """--n-devices 2 in a mode with no pool or bucket to shard exits with
+    code 2 before any work (under a launcher every rank would run the
+    same fit and write the same files)."""
+    out = tmp_path / "n"
+    assert main(["separate", mix_wav, "-o", str(out), "--n-devices", "2",
+                 "--iters", "2", "--wlen", "256", "-q"] + mode + CPU) == 2
+    assert "shards only --spatial-init" in capsys.readouterr().err
+    assert not out.exists()
+
+
 def test_info_reads_float_and_pcm24(tmp_path, capsys):
     """info prints the header's five fields for the codec's other
     formats."""

@@ -139,9 +139,9 @@ def test_port_imports_no_jax(tmp_path):
     batch_separate, separate_streaming with both inits, the blind mono
     init, the blind reverberant pipeline with the learned candidate and
     judge), the random draws (utils/prng.py) and the mesh modules
-    (parallel/sharding.py, collectives.py, dryrun.py) load neither jax nor
-    pyfasst_tpu; nor does the CLI, run as `python -m pyfasst_tpu_torch`
-    with those imports blocked."""
+    (parallel/sharding.py, ops/collectives.py, parallel/dryrun.py) load
+    neither jax nor pyfasst_tpu; nor does the CLI, run as
+    `python -m pyfasst_tpu_torch` with those imports blocked."""
     code = """
 import sys
 import numpy as np
@@ -200,7 +200,8 @@ info = blind.estim_param_blind_reverb(reseed_rounds=1, em_seeds=1, chunk=4,
 assert info["picked"] and blind.separated_images().shape == (2, 4000, 2)
 from pyfasst_tpu_torch.ops import cuda_estep, _build  # kernel modules too
 from pyfasst_tpu_torch.utils import prng              # the JAX draws
-from pyfasst_tpu_torch.parallel import collectives, dryrun, sharding
+from pyfasst_tpu_torch.ops import collectives
+from pyfasst_tpu_torch.parallel import dryrun, sharding
 assert prng.uniform(prng.split(prng.PRNGKey(0))[1], (3,)).shape == (3,)
 assert sharding.make_mesh(device="cpu").size == 1
 bad = sorted(n for n in sys.modules

@@ -93,7 +93,13 @@ def _cases(n, tmp):
                 "separate", wav, "-o", str(tmp / "cli"), "--model",
                 "fullrank", "--spatial-init", "--n-devices", "2", "--iters",
                 "3", "--wlen", "256", "--nmf-comps", "2", "-q", "--device",
-                "cpu"]))]
+                "cpu"])),
+            ("cli_ckpt", "cli_case", dict(argv=[
+                "separate", wav, "-o", str(tmp / "cli_ckpt"), "--model",
+                "fullrank", "--spatial-init", "--n-devices", "2", "--iters",
+                "3", "--wlen", "256", "--nmf-comps", "2", "-q", "--device",
+                "cpu", "--checkpoint", str(tmp / "ck.npz"),
+                "--checkpoint-every", "1"]))]
     return cases
 
 
@@ -320,6 +326,21 @@ def test_cli_n_devices_on_two_ranks(ranks, tmp_path):
     assert len(rep["files"]) == 2
     assert all(os.path.exists(f) for f in rep["files"])
     assert np.isfinite(rep["final_loglik"])
+
+
+def test_cli_checkpoint_on_two_ranks(ranks):
+    """`--checkpoint` with `--n-devices 2`: both ranks run the fit, rank 0
+    alone saves the checkpoints (once per chunk of one iteration), and the
+    file it leaves loads at the last iteration."""
+    from pyfasst_tpu_torch.utils.checkpoint import load_params
+    r0, r1 = (rank["cli_ckpt"] for rank in ranks(2))
+    assert r0["rc"] == 0 and r1["rc"] == 0
+    assert r0["saves"] == 3 and r1["saves"] == 0
+    rep = json.loads(r0["stdout"].strip().splitlines()[-1])
+    path = os.path.join(os.path.dirname(os.path.dirname(rep["files"][0])),
+                        "ck.npz")
+    params, it, _ = load_params(path, device="cpu")
+    assert it == 3 and len(params.spec) == 2
 
 
 def test_world_size_one_is_bit_for_bit(single, tmp_path):
