@@ -35,7 +35,12 @@ Phases (each prints one line with its numbers and seconds):
      probes' (66, 32, 158), at the music ladder's fine (24 and 2, 1025,
      260) and coarse (6 and 2, 4097, 66) stages; 1a at the inst and
      batch commands' shapes; 1b at the stream block), two runs bit for
-     bit, timed with the bound;
+     bit, timed with the bound; the general kernel at J = 5 to 8
+     (WIDE_CASES: real rank 1 and complex rank 2 at each J, mixed ranks
+     and ns_inj at J = 5) at the bench shapes, two runs bit for bit,
+     timed, and at a ragged one, and at phase 19's path shapes; fb_stats
+     and tw_stats at K = 40 and 64 (their wide form: chunks of 32
+     components) at the bench shapes, timed, and two ragged ones;
   3. the host API: MultiChanNMFInst_FASST on a 10 s stereo WAV, 500 GEM
      iterations, WAVs written; the kernel must carry every E-step and the
      separation must reach 60 dB SDR;
@@ -82,9 +87,12 @@ Phases (each prints one line with its numbers and seconds):
      kernel launch, finite loglik, the I3 images summing to the mixture,
      min SDR within 1 dB of the port's CPU runs; a profiler window of the
      I3 loop;
-  12. the bench model at K = 40 (> cuda_spectral.MAX_K) with fuse_spectral,
-     20 iterations: no fb_stats/tw_stats launch and the unfused run's
-     numbers bit for bit;
+  12. the bench pipeline (B = 8, 500 iterations) at K = 40 and 64 with
+     fuse_spectral: 500 launches each of fb_stats and tw_stats (their wide
+     form), every clip over 60 dB, logliks within 2e-4 of the unfused run
+     at the same K over the first 50 iterations and K_BIG_DRIFT_RTOL over
+     the run (the unfused run in two halves printed beside, the witness of
+     float32 drift);
   13. erblet48 (bench.py:187-220's row): the bench mixture through
      MultiChanNMFInst_FASST over ERBLetTransform(fs=44100, n_bands=48),
      J = 2, K = 8, 200 iterations unfused: 200 launches of variant a at
@@ -103,8 +111,8 @@ Phases (each prints one line with its numbers and seconds):
      profiler window of the HMM (kernels per iteration: the
      forward-backward recursion's);
   15. the long-form rows of tools/validate_hw.py (16 kHz, wlen 1024, 64
-     frames per block, J = 2, K = 8, 6 inner iterations), on the card and
-     then through the port's CPU run of the same recipe: the 120 s stereo
+     frames per block, J = 2, K = 8, 6 inner iterations) on the card: the
+     120 s stereo
      stream through the host-driven online_block loop (two passes) and
      through separate_streaming(init="blind") (DEMIX on its first 12 s),
      variant b launched 7 times per block step of each; an
@@ -112,7 +120,8 @@ Phases (each prints one line with its numbers and seconds):
      to the uninterrupted run bit for bit; the 60 s diffuse stream with
      spatial_rank=-1 (no E-step launch) and its rank-1 twin; and the
      blind mono row (estim_param_blind_mono, 300 iterations, no launch):
-     every min SDR within 1 dB of the CPU run; the streams' xRT, a
+     every min SDR within 1 dB of the port's CPU run of the same recipe
+     (CPU_SDR_STREAM, cpu_reference_stream()); the streams' xRT, a
      profiler window of 10 block steps and the bounded path's peak
      device memory beside the full plane's bytes;
   16. BASELINE configs[2] blind (tools/validate_hw.py:374-410, the CLI's
@@ -165,7 +174,20 @@ Phases (each prints one line with its numbers and seconds):
      same loglik bars, every clip within 1 dB of phase 9's; each rank's
      launches counted and printed (phase 2 checks variant a and the
      spectral kernels at the 257- and 256-row slices and variant c at the
-     half bucket).
+     half bucket); (c) the same two ranks on phase 14's recipes at reduced
+     depth (50 iterations): configs[3]'s 6-state HMM, its Viterbi row and
+     the source-filter model, each at fp = 2 and sp = 2, logliks within
+     rtol 2e-4 of the unsharded run on the card (the unsharded run of the
+     clip twice, B = 2, printed beside as the witness of float32 drift),
+     one E-step launch per iteration per rank;
+  19. five sources at full width: (a) a 10 s, 44.1 kHz stereo mix of five
+     sources panned apart (five_mixture) through the CLI, `separate
+     mix.wav --sources 5 --iters 500` (F = 513, N = 863): 500 launches of
+     the general kernel at J = 5 (real rank 1), WAVs written and scored;
+     (b) configs[2]'s recipe with a fifth source (16 kHz, 6 s, wlen 1024:
+     F = 513, N = 189; rank 2, principal-direction init, 400 iterations):
+     400 launches of variant c at J = 5; each min SDR within 1 dB of the
+     port's CPU run (CPU_SDR_FIVE, cpu_reference_five()).
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -191,6 +213,19 @@ NITER = 500
 J, K = 2, 8
 BATCH = 8
 SDR_GATE = 60.0
+# phase 12: the bench pipeline at NMF ranks past one chunk of 32
+# components (the spectral kernels' wide form, csrc/spectral.cu), with
+# fuse_spectral, against the unfused run at the same K
+K_BIG = (40, 64)
+# phase 12's bar over the whole run. Float32 EM carries the kernels'
+# order of summation through the run as it carries any other: the first
+# card run of the phase (NVIDIA H100 80GB HBM3, 700.00 W) read the fused
+# runs 2.19e-3 (K = 40) and 4.06e-4 (K = 64) from the unfused ones over
+# 500 iterations, and the witnesses, the unfused runs in two halves of
+# four clips, 2.87e-3 and 5.80e-4: 1.5 times the largest, as phase 18's
+# MESH_DRIFT_RTOL was set. Over the first MESH_EARLY_ITERS iterations the
+# fused runs read 1.0e-6 and 3.6e-7, held at MESH_EARLY_RTOL
+K_BIG_DRIFT_RTOL = 4.3e-3
 REPLACES = "pyfasst_tpu/ops/pallas_estep.py:108"
 KERNEL_SOURCE = "pyfasst_tpu_torch/csrc/estep.cu"
 GENERAL_SOURCE = "pyfasst_tpu_torch/csrc/estep_general.cuh"
@@ -245,20 +280,25 @@ SPECTRAL_REPLACES = {
     "tw_stats": "pyfasst_tpu/ops/pallas_spectral.py:155 (tw_stats; body "
                 "_make_tw_kernel :90)"}
 # phase 18 cuts the bench path's F = 513 over fp = 2 ranks
-# (parallel/sharding._span: 257 rows and 256): variant a and the spectral
+# (ops/collectives.span: 257 rows and 256): variant a and the spectral
 # kernels run at these slices, which phase 2 checks too
 MESH_F = (257, 256)
 # (B, J, F, N, K): the bench shapes, tests/test_pallas_spectral.py's, two
 # that cross fb_stats' tiles of 8 rows and 128 frames, and the ones that
 # cross tw_stats' strips of 16 frames (N = 1, 31, 33, 7), its batches of 128
 # rows (F = 3 and 64 below one, 129 one past one) and its chunk of FB in
-# shared memory (F = 530 at K = 32: two chunks), with K = 16 and 32
+# shared memory (F = 530 at K = 32: two chunks), with K = 16 and 32; then
+# phase 12's ranks past 32 (the wide kernels: chunks of 32 components) at
+# the bench shapes, timed, and two ragged ones (F, N off their 8-row tiles
+# and 32-frame stages and strips)
+SPECTRAL_WIDE = tuple((BATCH, J, 513, 863, k) for k in K_BIG)
 SPECTRAL_SHAPES = ((BATCH, J, 513, 863, K), (2, 2, 37, 95, 5),
                    (2, 2, 130, 300, 5), (2, 3, 70, 211, 4),
                    (2, 2, 13, 31, 8), (1, 2, 513, 189, 8),
                    (1, 2, 3, 1, 8), (1, 2, 129, 33, 16), (2, 1, 64, 7, 32),
                    (1, 2, 530, 45, 32), (1, 2, 513, 863, 16)) + tuple(
-                      (BATCH, J, f, 863, K) for f in MESH_F)
+                      (BATCH, J, f, 863, K) for f in MESH_F) \
+    + SPECTRAL_WIDE + ((2, 2, 37, 95, 40), (1, 3, 130, 33, 64))
 # (B, J, F, N) of estep_r1_real's checks: the bench shape, two ragged ones,
 # and the ones that cross its tiles of 32 frames (N = 1, 31, 33, and 7 below
 # one tile), at J = 2 and 3; each of the small ones also with each flag
@@ -323,8 +363,44 @@ NITER_MONO = 200
 # from the host API's seed-0 draw, the JAX package's); the card's runs
 # must lie within SDR_SLACK of them
 CPU_SDR_GENERAL = {"I3": 80.18, "mono": 3.20}
-# phase 12: an NMF rank above cuda_spectral.MAX_K
-K_BIG, NITER_K_BIG = 40, 20
+# phase 2's cases of the general kernel at J = 5 to 8 (csrc/estep_j5.cu ..
+# estep_j8.cu): (key, label, J, ranks, real_cov, ns_inj, path); each at the
+# bench shapes, timed and run twice bit for bit, and at one ragged shape;
+# path names the phase-19 run whose shape is checked and timed too ("inst":
+# `separate --sources 5` at (1, 513, 863); "reverb5": the five-source
+# configs[2] model at (1, 513, 189)). Variant a's model (real rank 1, no
+# ns_inj) counts as variant a in cuda_estep.VARIANT_LAUNCHES
+WIDE_CASES = (
+    ("a", "real J=5 rank 1", 5, (1,) * 5, True, False, "inst"),
+    ("c", "complex J=5 rank 2", 5, (2,) * 5, False, False, "reverb5"),
+    ("c", "complex J=5 ranks (1,2,2,1,2)", 5, (1, 2, 2, 1, 2), False, False,
+     None),
+    ("d", "ns_inj complex J=5 rank 1", 5, (1,) * 5, False, True, None),
+    ("a", "real J=6 rank 1", 6, (1,) * 6, True, False, None),
+    ("c", "complex J=6 rank 2", 6, (2,) * 6, False, False, None),
+    ("a", "real J=7 rank 1", 7, (1,) * 7, True, False, None),
+    ("c", "complex J=7 rank 2", 7, (2,) * 7, False, False, None),
+    ("a", "real J=8 rank 1", 8, (1,) * 8, True, False, None),
+    ("c", "complex J=8 rank 2", 8, (2,) * 8, False, False, None),
+)
+WIDE_RAGGED = (1, 33, 70)
+# phase 19: five sources at full width. (a) a 10 s, 44.1 kHz stereo mix of
+# five of band_sources' kinds panned apart at FIVE_PANS degrees
+# (instantaneous, rank 1; five_mixture, seed SEED_FIVE) through the CLI,
+# `separate mix.wav --sources 5 --iters 500` (wlen 1024: F = 513, N = 863):
+# 500 launches of kernel 1 at J = 5; (b) reverb_mixture's recipe (seed 102)
+# with a fifth source (tone_switch) at configs[2]'s widths (16 kHz, 6 s,
+# wlen 1024: F = 513, N = 189; 100-tap rooms), rank 2, started from the
+# true images' principal directions, 400 iterations: 400 launches of
+# variant c at J = 5. Not cut
+FIVE_KINDS = ("harm", "noise_lo", "noise_hi", "clicks", "tone_switch")
+FIVE_PANS = (10.0, 28.0, 45.0, 62.0, 80.0)
+SEED_FIVE = 130
+# min SDR (dB) of the port's CPU run of each recipe (python3 -c "import
+# chip_smoke; chip_smoke.cpu_reference_five()" on the 8-core host of an
+# H100 machine: 14.2555 and 11.8711 dB, 191 s and 76 s); the card's runs
+# must lie within SDR_SLACK of them
+CPU_SDR_FIVE = {"inst": 14.26, "reverb5": 11.87}
 # phase 15: the long-form rows of tools/validate_hw.py at 16 kHz, wlen 1024:
 # scenario_streaming (:677-806, seed 112: 120 s of two panned dense-band
 # noises; 64 frames per block, J = 2, K = 8, forgetting 0.95, 6 inner
@@ -339,6 +415,12 @@ K_BIG, NITER_K_BIG = 40, 20
 SEED_STREAM, SEED_STREAM_FR, SEED_MONO = 112, 113, 110
 DUR_STREAM, DUR_STREAM_FR = 120.0, 60.0
 NB_STREAM, K_STREAM, INNER_STREAM, FORGET_STREAM = 64, 8, 6, 0.95
+# min SDR (dB) of the port's CPU run of each row (python3 -c "import
+# chip_smoke; chip_smoke.cpu_reference_stream()" on the 8-core host of an
+# H100 machine, ~97 s: 6.68, 37.77, 7.49, -0.94 and 10.65 dB); the card's
+# rows must lie within SDR_SLACK of them
+CPU_SDR_STREAM = {"stream": 6.68, "blind": 37.77, "fullrank": 7.49,
+                  "fullrank_r1": -0.94, "mono": 10.65}
 NOISE_STREAM = 1e-3                # the host loop's sigma: validate_hw's
 STREAM_CUT, STREAM_CK_EVERY = 20, 10
 NITER_BLIND_MONO = 300
@@ -379,7 +461,8 @@ STREAM_SHAPE = (1, 2, WLEN_CONV // 2 + 1, NB_STREAM)
 # general E-step instantiations the paths take: (J, rmax, real_cov, ns_inj)
 GENERAL_PATH_INSTANCES = {"b": (3, 1, 0, 0), "c": (4, 2, 0, 0),
                           "d": (3, 1, 0, 1), "b stream": (2, 1, 0, 0),
-                          "c cli": (3, 2, 0, 0)}
+                          "c cli": (3, 2, 0, 0), "a five": (5, 1, 1, 0),
+                          "c five": (5, 2, 0, 0)}
 # phase 17: the CLI, in this process through pyfasst_tpu_torch.__main__.main.
 # (a) `separate --preset speech --sources 3` at full width and depth on the
 # SiSEC-regime speech fixture, tools/speech_lab.py::_fixture(3, 0.25, 120)
@@ -567,12 +650,15 @@ def anechoic_mixture(seed=101):
     return ys.sum(0).astype(np.float32), ys
 
 
-def reverb_mixture(seed=102):
+def reverb_mixture(seed=102, kinds=("harm", "noise_lo", "noise_hi",
+                                     "clicks")):
     """configs[2]: four sources, each convolved with 100-tap two-channel
-    responses (a direct path plus a decaying tail)."""
+    responses (a direct path plus a decaying tail). With more `kinds` the
+    first four sources and rooms are the same draws (phase 19's fifth
+    source)."""
     rng = np.random.default_rng(seed)
     n = int(FS_CONV * DUR_CONV)
-    srcs = band_sources(rng, n, ["harm", "noise_lo", "noise_hi", "clicks"])
+    srcs = band_sources(rng, n, list(kinds))
     ys = []
     for j, s in enumerate(srcs):
         chs = []
@@ -623,8 +709,8 @@ def best_perm_sdr(ys, ys_true):
 
 def conv_model(case, device, niter=NITER_CONV, annealing="ann"):
     """(model, true images) for configs[1] ("anechoic": DEMIX init, rank 1,
-    ERB basis) or configs[2] ("reverb": principal-direction init, rank 2)
-    on `device`."""
+    ERB basis), configs[2] ("reverb": principal-direction init, rank 2) or
+    its five-source recipe ("reverb5", phase 19) on `device`."""
     from pyfasst_tpu_torch import DEMIX, MultiChanNMFConv
     kw = dict(fs=FS_CONV, nbNMFComps=6, wlen=WLEN_CONV, iter_num=niter,
               spatial_hold_frac=0.3, annealing=annealing, device=device)
@@ -636,8 +722,9 @@ def conv_model(case, device, niter=NITER_CONV, annealing="ann"):
                                  init_mixing=dm.mixing(WLEN_CONV // 2 + 1),
                                  freq_basis="erb", n_bands=32, **kw)
     else:
-        mix, ys_true = reverb_mixture()
-        model = MultiChanNMFConv(mix, nbComps=4, spatial_rank=2,
+        mix, ys_true = (reverb_mixture(kinds=FIVE_KINDS) if case == "reverb5"
+                        else reverb_mixture())
+        model = MultiChanNMFConv(mix, nbComps=len(ys_true), spatial_rank=2,
                                  init_mixing=principal_directions(ys_true),
                                  **kw)
     return model, ys_true
@@ -702,13 +789,14 @@ def phase_build():
 
 def occupancy_report():
     """Resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    and registers / local bytes per thread of the 24 general E-step
-    instantiations, the three each of fb_stats and tw_stats and the two of
-    estep_r1_real; the ones a path takes are marked."""
+    and registers / local bytes per thread of the 56 general E-step
+    instantiations (J = 2 to 8; with shared bytes, static and dynamic), the
+    three each of fb_stats and tw_stats and their wide form at K_BIG, and
+    the two of estep_r1_real; the ones a path takes are marked."""
     import itertools
     from pyfasst_tpu_torch.ops import _build
     path = {v: k for k, v in GENERAL_PATH_INSTANCES.items()}
-    for J_ in (2, 3, 4):
+    for J_ in range(2, 9):
         cells = []
         for rmax, real, ns in itertools.product((1, 2), (0, 1), (0, 1)):
             i = _build.kernel_info(f"estep_j{J_}", rmax, real, ns)
@@ -716,15 +804,17 @@ def occupancy_report():
             cells.append(f"R{rmax}{'real' if real else 'cplx'}"
                          f"{'+ns' if ns else ''}{'[' + tag + ']' if tag else ''}"
                          f" {i['warps_per_sm']}w/{i['registers']}r/"
-                         f"{i['local_bytes']}B")
+                         f"{i['local_bytes']}B/{i['shared_bytes']}B")
         log(f"  occupancy estep_general J={J_} (warps per SM / registers / "
-            f"local bytes): " + ", ".join(cells))
+            f"local bytes / shared bytes): " + ", ".join(cells))
     F = WLEN // 2 + 1
     for label, kernel, cases in (
             ("fb_stats", "fb_stats",
-             [(f"KMAX={k}", (k,), k == K) for k in (8, 16, 32)]),
+             [(f"KMAX={k}", (k,), k == K) for k in (8, 16, 32)]
+             + [(f"wide K={k}", (k,), True) for k in K_BIG]),
             (f"tw_stats (F={F})", "tw_stats",
-             [(f"KMAX={k}", (k, F), k == K) for k in (8, 16, 32)]),
+             [(f"KMAX={k}", (k, F), k == K) for k in (8, 16, 32)]
+             + [(f"wide K={k}", (k, F), True) for k in K_BIG]),
             ("estep_r1_real", "estep_r1_real",
              [(f"J={j}", (j,), j == J) for j in (2, 3)])):
         cells = []
@@ -1046,6 +1136,81 @@ def phase_general_vs_plain(device):
     return out
 
 
+def wide_path_shapes():
+    """(B, F, N) of phase 19's E-steps by run: `separate --sources 5` on the
+    10 s, 44.1 kHz mix (wlen 1024) and the five-source configs[2] model."""
+    from pyfasst_tpu_torch.tf.stft import _frame_geometry
+    return {"inst": (1, WLEN // 2 + 1,
+                     _frame_geometry(int(FS * DUR), WLEN, HOP)[2]),
+            "reverb5": (1, WLEN_CONV // 2 + 1, conv_frames())}
+
+
+def phase_wide_vs_plain(device):
+    """The general kernel at J = 5 to 8 (WIDE_CASES) against its plain
+    version at the bench shapes (timed in turns, with its bound and
+    float32 floor without FMA, two runs bit for bit), at phase 19's path
+    shape where it has one (timed too) and at WIDE_RAGGED. Returns the
+    bench-shape numbers by label, with "path" where timed there, and the
+    launches of each case in this phase ("phase2_launches": checks,
+    warm-ups and the timing's eager calls; replays do not count)."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_estep
+    t0 = time.perf_counter()
+    paths = wide_path_shapes()
+    out = {}
+    for key, label, J_, ranks, real, ns, path in WIDE_CASES:
+        tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
+        kw = dict(ns_inj=ns, real_cov=real)
+        before = cuda_estep.LAUNCHES
+        timed = ((BATCH, 513, 863),) + ((paths[path],) if path else ())
+        for (B, F, N) in timed + (WIDE_RAGGED,):
+            inp = _general_inputs(B, J_, F, N, ranks, real,
+                                  seed=F * N + 10 * J_ + max(ranks),
+                                  device=device)
+            got = cuda_estep.estep_general(*inp, ranks, **kw)
+            want = cuda_estep.estep_ref(*inp, ranks, **kw)
+            torch.cuda.synchronize()
+            errs, abs_err = _estep_errors(got, want)
+            bad = [n for n, e in errs.items() if not e <= tol[n]]
+            timing = ""
+            if (B, F, N) in timed:
+                again = cuda_estep.estep_general(*inp, ranks, **kw)
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    bad.append("two runs differ")
+                kern, plain = _turns(
+                    lambda: cuda_estep.estep_general(*inp, ranks, **kw),
+                    lambda: cuda_estep.estep_ref(*inp, ranks, **kw),
+                    plain_reps=2, plain_inner=1)
+                ops = general_ops(inp, ranks, **kw)
+                b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
+                nums = {"max_abs_err": abs_err, "shape": [B, F, N],
+                        "ms": statistics.median(kern),
+                        "plain_ms": statistics.median(plain),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3}
+                if (B, F, N) == timed[0]:
+                    out[label] = dict(nums, key=key, J=J_, ranks=list(ranks))
+                else:
+                    out[label]["path"] = nums
+                timing = (f" | kernel {nums['ms']:.4f} ms (min "
+                          f"{min(kern):.4f}), plain {nums['plain_ms']:.3f} "
+                          f"ms, medians in turns | bound {b_ms:.4f} ms by "
+                          f"{b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
+                          f"Gop; without FMA {nums['nofma_floor_ms']:.4f} "
+                          "ms) | two runs bit for bit")
+            log(f"phase 2 {key} {label} B={B} F={F} N={N}: "
+                + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}"
+                           for n, e in errs.items())
+                + f" | max_abs_err {abs_err:.3e}{timing}")
+            if bad:
+                raise RuntimeError(f"the general kernel ({label}) disagrees "
+                                   f"with its plain version at B={B} F={F} "
+                                   f"N={N}: {bad}")
+        out[label]["phase2_launches"] = cuda_estep.LAUNCHES - before
+    log(f"phase 2 J = 5..8 done | {time.perf_counter() - t0:.2f}s")
+    return out
+
+
 def phase_variants_ef(device):
     """Variants e (fast_recip) and f (no_ll) against the plain versions (the
     exact reciprocal; the loglik without log det), in variant a's kernel and
@@ -1128,7 +1293,8 @@ def _spectral_inputs(B, J_, F, N, K_, seed, device):
 def phase_spectral_vs_plain(device):
     """fb_stats and tw_stats against their plain versions at
     SPECTRAL_SHAPES, relative per element (every output is positive) at
-    rtol 2e-5; times the bench shapes in turns."""
+    rtol 2e-5; times the bench shapes in turns (K = 8, and K_BIG's under
+    "<name> K=<k>")."""
     import torch
     from pyfasst_tpu_torch.ops import cuda_spectral
     t0 = time.perf_counter()
@@ -1151,15 +1317,19 @@ def phase_spectral_vs_plain(device):
             abs_err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
             timing = ""
-            if (B, J_, F, N, K_) == SPECTRAL_SHAPES[0]:
+            shape = (B, J_, F, N, K_)
+            if shape == SPECTRAL_SHAPES[0] or shape in SPECTRAL_WIDE:
                 ms, plain_ms = map(statistics.median, _turns(
                     lambda: kernel(*inp), lambda: plain(*inp),
                     plain_reps=11, plain_inner=10))
                 ops = count_ops(plain, *inp)
                 b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
-                out[name] = {"max_abs_err": abs_err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": b_by}
+                key = name if K_ == K else f"{name} K={K_}"
+                out[key] = {"max_abs_err": abs_err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "shape": list(shape),
+                            "nofma_floor_ms":
+                                ops / FP32_NOFMA_OPS_PER_S * 1e3}
                 timing = (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
                           f" medians in turns | bound {b_ms:.4f} ms by "
                           f"{b_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} "
@@ -1863,44 +2033,86 @@ def phase_general(device, card):
     return {"xrt": DUR / i3["seconds"], "profile": prof}
 
 
-def phase_k_big(device):
-    """Phase 12: the bench model at K = K_BIG > cuda_spectral.MAX_K with
-    fuse_spectral on runs through the plain update_spectral (no fb_stats or
-    tw_stats launch) and equals the run with fusion off bit for bit."""
+def phase_k_big(device, card):
+    """Phase 12: the bench pipeline (B = 8 clips, NITER iterations) at each
+    NMF rank of K_BIG (past one chunk of 32 components: the spectral
+    kernels' wide form) with fuse_spectral, and the same pipeline unfused:
+    NITER launches each of fb_stats and tw_stats in the fused run, none in
+    the unfused one, every clip over SDR_GATE in both, and the fused
+    logliks within MESH_EARLY_RTOL of the unfused run's over the first
+    MESH_EARLY_ITERS iterations and K_BIG_DRIFT_RTOL over the run
+    (loglik_rel; the kernels sum in another order than cuBLAS). The
+    witness of float32 drift: the unfused run in two halves of four clips
+    against the whole batch. Returns the fused runs' launches by K."""
     import torch
     from pyfasst_tpu_torch import convert
     from pyfasst_tpu_torch.ops import cuda_spectral
-    from pyfasst_tpu_torch.ops.gem import run_gem
-    from pyfasst_tpu_torch.tf.stft import _stft_core, sine_window
+    from pyfasst_tpu_torch.ops.gem import annealing_endpoints, run_gem
+    from pyfasst_tpu_torch.tf.stft import _stft_core
     from pyfasst_tpu_torch.utils.config import GEMConfig
     t0 = time.perf_counter()
-    mix = torch.as_tensor(make_mixture()[0], device=device)[None]
-    window = torch.as_tensor(sine_window(WLEN), dtype=torch.float32,
-                             device=device)
+    mix, y_true, window, nsamples, F, N, _ = bench_setup(device, DUR, BATCH)
     X = _stft_core(mix, window, WLEN, HOP, "fft")
-    tree = bench_tree(X.shape[1], X.shape[2], K_=K_BIG)
-    runs = {}
-    for fuse in (True, False):
-        _reset_counts()
-        p, ll = run_gem(convert.params_from_numpy(tree, device=device), X,
-                        GEMConfig(niter=NITER_K_BIG, fuse_spectral=fuse))
-        torch.cuda.synchronize()
-        runs[fuse] = (convert.params_to_numpy(p)[0], ll.cpu().numpy(),
-                      dict(cuda_spectral.LAUNCHES), _counts()[0])
-    (pf, llf, spec_f, est_f), (pu, llu, _, _) = runs[True], runs[False]
-    leaves = [(a[n], b[n]) for part in ("spat", "spec")
-              for a, b in zip(pf[part], pu[part])
-              for n in a if isinstance(a[n], np.ndarray)]
-    same = bool(np.array_equal(llf, llu)) and all(
-        np.array_equal(a, b) for a, b in leaves)
-    log(f"phase 12 K={K_BIG} fuse_spectral: {NITER_K_BIG} iters, spectral "
-        f"launches {spec_f}, E-step launches {est_f}, finite "
-        f"{bool(np.all(np.isfinite(llf)))}, equal to the unfused run bit "
-        f"for bit {same} | {time.perf_counter() - t0:.2f}s")
-    if any(spec_f.values()) or est_f != NITER_K_BIG or not same \
-            or not np.all(np.isfinite(llf)):
-        raise RuntimeError("phase 12: K > MAX_K with fuse_spectral did not "
-                           "take the plain spectral M-step")
+    half = BATCH // 2
+    bad, launches = [], {}
+    for K_ in K_BIG:
+        def params(lo=0, hi=BATCH):
+            return convert.params_from_numpy(
+                [bench_tree(F, N, seed=b, K_=K_) for b in range(lo, hi)],
+                device=device)
+        runs = {}
+        for fuse in (True, False):
+            cfg = GEMConfig(niter=NITER, fuse_spectral=fuse)
+            _reset_counts()
+            t1 = time.perf_counter()
+            ys, ll = pipeline(mix, params(), cfg, window, nsamples)
+            torch.cuda.synchronize()
+            runs[fuse] = {"ll": ll.cpu().numpy(), "sdr": min_sdr(ys, y_true),
+                          "spectral": dict(cuda_spectral.LAUNCHES),
+                          "estep": _counts()[0],
+                          "seconds": time.perf_counter() - t1}
+        cfg = GEMConfig(niter=NITER)
+        sig = annealing_endpoints(X, cfg)
+        wit = np.concatenate([run_gem(
+            params(lo, lo + half), X[lo:lo + half].contiguous(), cfg,
+            sigma_endpoints=tuple(s_[lo:lo + half].contiguous()
+                                  for s_ in sig))[1].cpu().numpy()
+            for lo in (0, half)])
+        fused, unfused = runs[True], runs[False]
+        k = MESH_EARLY_ITERS
+        early = loglik_rel(fused["ll"][:, :k], unfused["ll"][:, :k])
+        whole = loglik_rel(fused["ll"], unfused["ll"])
+        witness = loglik_rel(wit, unfused["ll"])
+        launches[K_] = fused["spectral"]
+        log(f"phase 12 K={K_} B={BATCH} {NITER} iters fuse_spectral: "
+            f"launches {fused['spectral']}, E-step {fused['estep']}; per-clip"
+            " min SDR " + " ".join(f"{x:.2f}" for x in fused["sdr"])
+            + f" ({fused['seconds']:.2f}s) | unfused: launches "
+            f"{unfused['spectral']}, min SDR "
+            + " ".join(f"{x:.2f}" for x in unfused["sdr"])
+            + f" ({unfused['seconds']:.2f}s) | logliks rel fused from "
+            f"unfused: first {k} iterations {early:.2e} (<= "
+            f"{MESH_EARLY_RTOL:.0e}), the run {whole:.2e} (<= "
+            f"{K_BIG_DRIFT_RTOL:.1e}); the witness, unfused in two halves of "
+            f"{half} clips: {witness:.2e} | {card}")
+        if fused["spectral"] != {"fb_stats": NITER, "tw_stats": NITER} \
+                or fused["estep"] != NITER or any(
+                    unfused["spectral"].values()):
+            bad.append(f"K={K_}: launches fused {fused['spectral']} E-step "
+                       f"{fused['estep']}, unfused {unfused['spectral']}")
+        for label, r in (("fused", fused), ("unfused", unfused)):
+            if not (np.all(np.isfinite(r["ll"])) and np.all(
+                    r["sdr"] > SDR_GATE)):
+                bad.append(f"K={K_} {label}: per-clip min SDR {r['sdr']} "
+                           f"(needs > {SDR_GATE} dB), finite "
+                           f"{bool(np.all(np.isfinite(r['ll'])))}")
+        if not (early <= MESH_EARLY_RTOL and whole <= K_BIG_DRIFT_RTOL):
+            bad.append(f"K={K_}: fused logliks rel {early:.2e} over the "
+                       f"first {k} iterations, {whole:.2e} over the run")
+    log(f"phase 12 done | {time.perf_counter() - t0:.2f}s")
+    if bad:
+        raise RuntimeError("phase 12: " + "; ".join(bad))
+    return launches
 
 
 # -- phases 13 and 14: the front-ends and the state models --------------------
@@ -2448,25 +2660,22 @@ def cpu_reference_stream():
 
 
 def phase_stream(device, card):
-    """Phase 15: the long-form rows on the card, then on the CPU. Gates:
+    """Phase 15: the long-form rows on the card. Gates:
     variant b launched 7 times per block step of every rank-1 stereo row
     (pass 1 and pass 2) and nothing else launched; no launch in the
     full-rank and mono rows; the resumed stream equal to the uninterrupted
     one bit for bit; finite logliks; every row's min SDR within SDR_SLACK
-    of the CPU run. Prints the streams' xRT, the profile window and the
-    peak device memory of the bounded path beside the full plane's bytes.
-    Returns the host loop's variant-b launches and the profile."""
-    import torch
+    of the CPU run (CPU_SDR_STREAM). Prints the streams' xRT, the profile
+    window and the peak device memory of the bounded path beside the full
+    plane's bytes. Returns the host loop's variant-b launches and the
+    profile."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         card_rows, windows = stream_runs(device, tmp, resume=True)
         profs = {label: _profile(*w) for label, w in windows.items()}
         del windows
     card_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        cpu_rows, _ = stream_runs(torch.device("cpu"), tmp)
-    cpu_s = time.perf_counter() - t1
+    cpu_rows = {k: {"min_sdr": v} for k, v in CPU_SDR_STREAM.items()}
     per_step = INNER_STREAM + 1
     s, b = card_rows["stream"], card_rows["blind"]
     b_run = b["parts"]["pass1"] + b["parts"]["pass2"]
@@ -2511,8 +2720,7 @@ def phase_stream(device, card):
     for label, prof in profs.items():
         name, window = label.split(", ", 1)
         log(_profile_line(f"phase 15 profile {name}", prof, card, window))
-    log(f"phase 15 done: card {card_s:.2f}s, CPU runs {cpu_s:.2f}s (torch "
-        f"{torch.get_num_threads()} threads)")
+    log(f"phase 15 done | {card_s:.2f}s")
     bad = []
     for name, steps in (("stream", s["steps"]),
                         ("blind", b["blocks"] + b["pass2_blocks"]),
@@ -3487,6 +3695,116 @@ def phase_cli(card, shape_nums):
 
 # -- phase 18: the sharded path --------------------------------------------
 
+# -- phase 19: five sources at full width ---------------------------------
+
+def five_mixture(seed=SEED_FIVE):
+    """Phase 19 (a)'s mix: FIVE_KINDS' sources (band_sources at 44.1 kHz,
+    DUR seconds) panned apart at FIVE_PANS degrees, (cos, sin) gains
+    (instantaneous, rank 1), the mix scaled to peak 1, as make_mixture.
+    Returns (mix (T, 2) float32, true images (5, T, 2))."""
+    rng = np.random.default_rng(seed)
+    srcs = band_sources(rng, int(FS * DUR), FIVE_KINDS, fs=FS)
+    ys = np.stack([np.outer(s, (np.cos(np.deg2rad(a)), np.sin(np.deg2rad(a))))
+                   for s, a in zip(srcs, FIVE_PANS)])
+    scale = np.max(np.abs(ys.sum(0)))
+    return (ys.sum(0) / scale).astype(np.float32), ys / scale
+
+
+def five_runs(device, tmp):
+    """Phase 19's runs on `device` ("cuda" or "cpu"): (a) `separate
+    --sources 5 --iters NITER` through the CLI on five_mixture's WAV, the
+    WAVs it writes scored against the true images; (b) the five-source
+    configs[2] model through the host API. Each with its min SDR, E-step
+    launches by variant, the E-step shapes it called and its seconds."""
+    import torch
+    from pyfasst_tpu_torch.audio import wavread
+    dev = "cuda" if str(device).startswith("cuda") else "cpu"
+    out = {}
+    mix, ys_true = five_mixture()
+    wav = os.path.join(tmp, "five.wav")
+    ys_true = write_mixture(wav, mix, FS, ys_true)
+    argv = ["separate", wav, "--sources", str(len(FIVE_KINDS)), "--iters",
+            str(NITER), "-o", os.path.join(tmp, "five"), "-q", "--device",
+            dev]
+    _reset_counts()
+    with spy_kernels() as shapes:
+        t0 = time.perf_counter()
+        rep = run_cli(argv)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    ys = np.stack([wavread(p)[0] for p in rep["files"]])
+    sdrs = best_perm(ys, ys_true)[1]
+    out["inst"] = {"min_sdr": float(min(sdrs)), "sdrs": sdrs,
+                   "counts": _counts(), "shapes": set(shapes),
+                   "seconds": seconds, "report": rep,
+                   "finite": bool(np.all(np.isfinite(ys)))}
+    model, truth = conv_model("reverb5", device)
+    _reset_counts()
+    with spy_kernels() as shapes:
+        ll, sdr, seconds, _ = drive_conv(model, truth,
+                                         os.path.join(tmp, "reverb5"))
+    out["reverb5"] = {"min_sdr": sdr[0], "mean_sdr": sdr[1], "loglik": ll,
+                      "counts": _counts(), "shapes": set(shapes),
+                      "seconds": seconds, "grid": (model.F, model.N)}
+    return out
+
+
+def cpu_reference_five():
+    """Phase 19's two runs on the CPU: the figures CPU_SDR_FIVE holds."""
+    import torch
+    print(f"threads {torch.get_num_threads()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = five_runs("cpu", tmp)
+    print(json.dumps({k: {"min_sdr": v["min_sdr"], "seconds": v["seconds"]}
+                      for k, v in out.items()}), flush=True)
+
+
+def phase_five(device, card):
+    """Phase 19: five sources at full width on the card (five_runs): (a)
+    `separate --sources 5` makes NITER launches of the general kernel at
+    J = 5 (real rank 1: variant a's model) at phase 2's path shape and no
+    other; (b) the five-source configs[2] model makes NITER_CONV launches
+    of variant c at J = 5, rank 2, at its path shape; each min SDR within
+    SDR_SLACK of CPU_SDR_FIVE, the port's CPU run of the same recipe.
+    Returns the launches of each run."""
+    t0 = time.perf_counter()
+    paths = wide_path_shapes()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = five_runs(device, tmp)
+    want = {"inst": (NITER, "a", ("general",) + (1, 5) + paths["inst"][1:]
+                     + ((1,) * 5, True, False)),
+            "reverb5": (NITER_CONV, "c", ("general",) + (1, 5)
+                        + paths["reverb5"][1:] + ((2,) * 5, False, False))}
+    bad = []
+    for name, r in out.items():
+        total, counts = r["counts"]
+        n, key, shape = want[name]
+        cpu = CPU_SDR_FIVE[name]
+        per = (" per source " + " ".join(f"{x:.2f}" for x in r["sdrs"])
+               if "sdrs" in r else f" mean {r['mean_sdr']:.2f}")
+        log(f"phase 19 {name}: J=5, {n} iters, min SDR {r['min_sdr']:.2f} "
+            f"dB (CPU run {cpu} dB;{per} dB), launches {total} {counts}, "
+            f"shapes {sorted(r['shapes'])}, "
+            f"{r['seconds']:.2f}s -> xRT "
+            f"{(DUR if name == 'inst' else DUR_CONV) / r['seconds']:.2f} | "
+            f"{card}")
+        if total != n or counts[key] != n or r["shapes"] != {shape}:
+            bad.append(f"{name}: launches {total} {counts} at shapes "
+                       f"{r['shapes']} (expected {n} of variant {key} at "
+                       f"{shape})")
+        if cpu is None or abs(r["min_sdr"] - cpu) > SDR_SLACK:
+            bad.append(f"{name}: min SDR {r['min_sdr']:.2f} dB not within "
+                       f"{SDR_SLACK} dB of the CPU run ({cpu})")
+    if not (out["inst"]["finite"]
+            and np.all(np.isfinite(out["reverb5"]["loglik"]))):
+        bad.append("non-finite images or loglik")
+    log(f"phase 19 done | {time.perf_counter() - t0:.2f}s")
+    if bad:
+        raise RuntimeError("phase 19: " + "; ".join(bad))
+    return {name: r["counts"][1] for name, r in out.items()}
+
+
 def mesh_pool(device, mesh):
     """One chunk of phase 16's pool at its shapes: POOL_CHUNK runs (the
     candidates of phase 16's mixture, repeated to fill the chunk, with EM
@@ -3511,6 +3829,130 @@ def mesh_pool(device, mesh):
     return reverb._run_candidates(
         X_d, cands, pw, xx, cfg, annealing_endpoints(X_d, cfg), mesh,
         em_seeds=2, nmf_comps=6, rank=2, chunk=POOL_CHUNK)
+
+
+# phase 18 (c): the state and source-filter models of phase 14 on the mesh,
+# at reduced depth (a check of the path): the 6-state HMM of configs[3],
+# its Viterbi row and the source-filter model, each at fp = 2 and sp = 2,
+# held as the NMF legs are: MESH_EARLY_RTOL over the first
+# MESH_STATE_EARLY iterations, MESH_DRIFT_RTOL over the run. The soft HMM
+# carries float32 rounding through its log-space recursion faster than
+# NMF: on two CPU ranks (gloo) its fp leg reads 2.7e-5, 1.1e-4, 4.0e-4 and
+# 8.7e-4 through iterations 2, 5, 10 and 50, and the witness (the
+# unsharded run at B = 2) 3.7e-5, 1.6e-4, 1.6e-4 and 8.6e-4; the sp leg
+# 7.7e-5, the Viterbi row 4.6e-5 and the source-filter model 1.4e-4 over
+# the 50 (cpu_mesh_states(), on a CPU of 8 cores). A sum left unrouted is
+# off by a share of its terms
+# from the first M-step on, orders of magnitude past either bar
+NITER_MESH_STATE, MESH_STATE_EARLY = 50, 3
+
+
+def mesh_state_models():
+    """Phase 18 (c)'s models, built on the CPU from phase 14's recipes
+    (hmm_mixtures, vibrato_mixture) with NITER_MESH_STATE iterations: by
+    name, (params, X (1, F, N, 2), cfg), CPU tensors, the inits the
+    models draw (the JAX package's numbers)."""
+    from pyfasst_tpu_torch import MultiChanHMM, multiChanSourceF0Filter
+    (mix, _), (mix2, _) = hmm_mixtures()
+    vmix = vibrato_mixture()[0]
+    n = NITER_MESH_STATE
+    models = {
+        "hmm": MultiChanHMM(mix, fs=FS_CONV, nbComps=2, nbStates=6,
+                            wlen=WLEN_CONV, iter_num=n, sparsity="HMM",
+                            device="cpu"),
+        "hmm_hard": MultiChanHMM(mix2, nbStates=2, sparsity="HMM",
+                                 self_trans=0.97, decode="viterbi",
+                                 fs=FS_CONV, wlen=512, iter_num=n,
+                                 nbComps=2, seed=0, device="cpu"),
+        "simm": multiChanSourceF0Filter(
+            vmix, fs=FS_CONV, nbComps=2, nbNMFComps=4, wlen=WLEN_CONV,
+            n_f0=60, f0_min=100, f0_max=500, iter_num=n, device="cpu")}
+    return {k: (m.params, m.Xs, m.cfg) for k, m in models.items()}
+
+
+def mesh_state_cases(states, sigs, device):
+    """parallel/dryrun.run_cases' cases of phase 18 (c): each model of
+    mesh_state_models at fp and sp on `device`, from endpoints `sigs`."""
+    return [(f"{name} {leg}", "run_sharded", dict(
+        params_b=p_s, X_b=X_s, cfg=cfg_s, device=device, separate=None,
+        shard_frames=leg == "sp",
+        sigma_endpoints_b=tuple(x.cpu() for x in sigs[name])))
+        for name, (p_s, X_s, cfg_s) in states.items() for leg in ("fp", "sp")]
+
+
+def mesh_state_check(ranks, states, sigs, device):
+    """Phase 18 (c)'s comparison: each model's unsharded run on `device`
+    against the ranks' fp and sp legs (MESH_EARLY_RTOL over the first
+    MESH_STATE_EARLY iterations, MESH_DRIFT_RTOL over the run, one E-step
+    launch per iteration per rank on the card), and the witness of
+    float32 drift, the unsharded run of a batch of two copies of the clip
+    (a change of batch width alone). Returns (a line per model, what
+    failed, the launches per rank by leg)."""
+    import torch
+    from pyfasst_tpu_torch.ops.gem import run_gem
+    from pyfasst_tpu_torch.parallel.sharding import batch_params
+    lines, bad, launches = [], [], {}
+    k = MESH_STATE_EARLY
+    for name, (p_s, X_s, cfg_s) in states.items():
+        X_d = X_s.to(device)
+        sig_s = tuple(x.to(device) for x in sigs[name])
+        _, ref = run_gem(batch_params([p_s], device=device), X_d, cfg_s,
+                         sigma_endpoints=sig_s)
+        _, two = run_gem(batch_params([p_s, p_s], device=device),
+                         torch.cat([X_d, X_d]), cfg_s,
+                         sigma_endpoints=tuple(torch.cat([x, x])
+                                               for x in sig_s))
+        ref, two = ref.cpu().numpy(), two.cpu().numpy()[:1]
+        depths = (k, 5, 10, 20, cfg_s.niter)
+        parts = []
+        for leg in ("fp", "sp"):
+            label = f"{name} {leg}"
+            ll = [np.stack(r[label]["logliks"]) for r in ranks]
+            rel = {n: max(loglik_rel(x[:, :n], ref[:, :n]) for x in ll)
+                   for n in depths}
+            per_rank = [{kk: v for kk, v in r[label]["launches"].items()
+                         if v} for r in ranks]
+            launches[label] = per_rank
+            parts.append(f"{leg} mesh {ranks[0][label]['mesh']}: logliks rel"
+                         " through iteration " + ", ".join(
+                             f"{n} {e:.2e}" for n, e in rel.items())
+                         + f" (<= {MESH_EARLY_RTOL:.0e} through {k}, <= "
+                         f"{MESH_DRIFT_RTOL:.0e} over the run), launches "
+                         f"per rank {per_rank}")
+            if not (rel[k] <= MESH_EARLY_RTOL
+                    and rel[cfg_s.niter] <= MESH_DRIFT_RTOL
+                    and all(np.all(np.isfinite(x)) for x in ll)):
+                bad.append(f"{label}: logliks rel {rel[k]:.2e} over the first"
+                           f" {k} iterations, {rel[cfg_s.niter]:.2e} over "
+                           "the run")
+            if str(device).startswith("cuda") and any(
+                    p != {"estep": cfg_s.niter} for p in per_rank):
+                bad.append(f"{label}: launches per rank {per_rank} (expected"
+                           f" {cfg_s.niter} E-steps)")
+        lines.append(
+            f"{name} (F={X_s.shape[1]} N={X_s.shape[2]}, {cfg_s.niter} iters)"
+            ": " + "; ".join(parts) + "; the witness, the unsharded run at "
+            "B = 2, through iteration " + ", ".join(
+                f"{n} {loglik_rel(two[:, :n], ref[:, :n]):.2e}"
+                for n in depths))
+    return lines, bad, launches
+
+
+def cpu_mesh_states():
+    """Phase 18 (c) on two gloo ranks on the CPU, with its comparison: the
+    drift figures of MESH_STATE_EARLY's note (a few minutes of CPU)."""
+    from pyfasst_tpu_torch.ops.gem import annealing_endpoints
+    from pyfasst_tpu_torch.parallel import dryrun
+    states = mesh_state_models()
+    sigs = {name: annealing_endpoints(X_s, cfg_s)
+            for name, (_, X_s, cfg_s) in states.items()}
+    ranks = dryrun.spawn(dryrun.run_cases, 2,
+                         mesh_state_cases(states, sigs, "cpu"))
+    lines, bad, _ = mesh_state_check(ranks, states, sigs, "cpu")
+    for line in lines:
+        print(line, flush=True)
+    print("failed: " + "; ".join(bad) if bad else "within the bars",
+          flush=True)
 
 
 # phase 18's loglik bars against the unsharded runs, relative per element
@@ -3623,6 +4065,12 @@ def phase_mesh(device, card, unfused, fused, bucket):
         Xs=[x.cpu() for x in Xs],
         params_list=[convert.params_from_numpy(t, device="cpu")
                      for t in trees], cfg=cfg_c, device=dev0)))
+    # (c) the routed state and source-filter models at fp = 2 and sp = 2,
+    # from the card's annealing endpoints
+    states = mesh_state_models()
+    state_sig = {name: annealing_endpoints(X_s.to(device), cfg_s)
+                 for name, (_, X_s, cfg_s) in states.items()}
+    cases += mesh_state_cases(states, state_sig, dev0)
     t1 = time.perf_counter()
     ranks = dryrun.spawn(dryrun.run_cases, 2, cases)
     spawn_s = time.perf_counter() - t1
@@ -3714,9 +4162,17 @@ def phase_mesh(device, card, unfused, fused, bucket):
         if any(p != want for p in per_rank):
             bad.append(f"{label}: launches per rank {per_rank} (expected "
                        f"{want})")
+    t1 = time.perf_counter()
+    lines, bad_c, launches_c = mesh_state_check(ranks, states, state_sig,
+                                                device)
+    for line in lines:
+        log(f"phase 18 (c) gloo 2 ranks on {dev0}, {line}")
+    bad += bad_c
+    launches.update(launches_c)
+    states_s = time.perf_counter() - t1
     log(f"phase 18 done: the two ranks' spawn and runs {spawn_s:.2f}s, the "
-        f"witnesses {halves_s:.2f}s | {card} | "
-        f"{time.perf_counter() - t0:.2f}s")
+        f"witnesses {halves_s:.2f}s, (c)'s unsharded runs {states_s:.2f}s | "
+        f"{card} | {time.perf_counter() - t0:.2f}s")
     if bad:
         raise RuntimeError("phase 18: " + "; ".join(bad))
     return {"ws1": ws1, "ranks": launches, "drift": drift}
@@ -3735,6 +4191,7 @@ def main() -> int:
     phase_build()
     main_abs, erb_kernel = phase_kernel_vs_plain(device)
     general = phase_general_vs_plain(device)
+    wide = phase_wide_vs_plain(device)
     ef, f_launches = phase_variants_ef(device)
     spectral = phase_spectral_vs_plain(device)
     stream_kernel = stream_kernel_check(device)
@@ -3752,7 +4209,7 @@ def main() -> int:
     batch_launches = {"c": batch_c,
                       "b": phase_conv_batch(device, "anechoic", card)[0]}
     phase_general(device, card)
-    phase_k_big(device)
+    k_big = phase_k_big(device, card)
     erb_launches, _ = phase_erblet(device, card)
     hmm_launches, _ = phase_hmm(device, card)
     stream_launches, _ = phase_stream(device, card)
@@ -3760,6 +4217,7 @@ def main() -> int:
     phase_cli(card, cli_nums)
     mesh = phase_mesh(device, card, timing, fused["fused"],
                       batch_run.pop("bucket"))
+    five = phase_five(device, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     log(card)
 
@@ -3851,6 +4309,48 @@ def main() -> int:
                   fused["fused"]["spectral"][name], spectral[name]),
             mesh_fp_fused_launches_per_rank=[
                 r[name] for r in mesh["ranks"]["fp fused"]]))
+    # the wide form (K past 32: chunks of 32 components), phase 12's path
+    # at each K of K_BIG; the first K's numbers stand for it
+    for name in ("fb_stats", "tw_stats"):
+        nums = [spectral[f"{name} K={k}"] for k in K_BIG]
+        kernels.append(dict(
+            entry(f"{name} (wide: K > 32, chunks of 32 components)",
+                  SPECTRAL_SOURCE, SPECTRAL_REPLACES[name],
+                  sum(k_big[k][name] for k in K_BIG), nums[0]),
+            shape=nums[0]["shape"],
+            nofma_floor_ms=nums[0]["nofma_floor_ms"],
+            launches_by_k={str(k): k_big[k][name] for k in K_BIG},
+            **{f"k{k}_{f}": n[f] for k, n in zip(K_BIG, nums)
+               for f in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "max_abs_err")}))
+    # the general kernel at J = 5 to 8: phase 19's paths take the first two
+    # cases; the others run in phase 2 only
+    path_of = {"inst": ("a", five["inst"]["a"]),
+               "reverb5": ("c", five["reverb5"]["c"])}
+    for key, label, J_, ranks, real, ns, path in WIDE_CASES:
+        nums = wide[label]
+        extra = {"shape": [BATCH, J_, 513, 863], "ranks": list(ranks),
+                 "nofma_floor_ms": nums["nofma_floor_ms"]}
+        if path:
+            launches = path_of[path][1]
+            pn = nums["path"]
+            extra.update(path_shape=pn["shape"], path_ms=pn["ms"],
+                         path_plain_ms=pn["plain_ms"],
+                         path_bound_ms=pn["bound_ms"],
+                         path_bound_by=pn["bound_by"],
+                         launches_from=f"phase 19 ({path})")
+        else:
+            launches = nums["phase2_launches"]
+            extra["launches_from"] = (
+                "phase 2: its checks against the plain version and the "
+                "timing's warm-up and eager calls (replays do not count); "
+                "no path runs this instantiation")
+        kernels.append(dict(
+            entry(f"estep_general J={J_} (variant {key}: {label})",
+                  f"pyfasst_tpu_torch/csrc/estep_j{J_}.cu ({GENERAL_SOURCE})",
+                  f"{REPLACES} (J = {J_}, ranks {ranks}, "
+                  f"real_cov={real}, ns_inj={ns})", launches, nums),
+            **extra))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

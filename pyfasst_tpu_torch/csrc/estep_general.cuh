@@ -36,8 +36,9 @@
 //     own running sums over its frames, and the next tile's x4 and v are
 //     loaded while this one is computed. At the end of the row the lanes'
 //     sums go through the warp's tile (below) once, lanes in order.
-//   - more (rank 2, J = 4; up to 224 at J = 4 rank 2: T4 16, Txs 32,
-//     Tss 80, T7 96): through the warp's tile in shared memory, 32 sums at
+//   - more (J = 4 at rank 2, and every J >= 5: 224 sums at J = 4 rank 2,
+//     T4 16, Txs 32, Tss 80, T7 96; 832 at J = 8 rank 2, T4 32, Txs 64,
+//     Tss 288, T7 448): through the warp's tile in shared memory, 32 sums at
 //     a time. w_jr and z_jr go into a per-warp buffer (feature-major, lane
 //     = frame) as phase 1 forms them; then, chunk by chunk, each lane forms
 //     its frame's products for the chunk's 32 sums from the buffer and
@@ -45,12 +46,18 @@
 //     both ways), and lane = sum adds its row of the tile, frames in order,
 //     to a register. The T4 terms go straight into the first chunk's rows.
 // So each frame sum lives in registers (one per lane per chunk in the
-// tiled case: 7 at J = 4 rank 2), and shared memory sees one store and one
-// load per product, with no read-modify-write. A block holds 17 KB of
-// tiles and up to 24 KB of buffer, static; __launch_bounds__(128, 4) holds
-// a thread to 128 registers, so four blocks (16 warps) fit on an SM, with
-// no spill at J = 4 rank 2 (chip_smoke.py phase 1 prints each
-// instantiation's resident warps, registers and local bytes). The
+// tiled case: 7 at J = 4 rank 2, 26 at J = 8 rank 2), and shared memory
+// sees one store and one load per product, with no read-modify-write. A
+// block holds 17 KB of tiles, static, and 3 KB of buffer per source and
+// rank, dynamic (up to 48 KB at J = 8 rank 2; the runtime is asked once
+// per instantiation for what passes its 48 KB default);
+// __launch_bounds__(128, 4) holds a thread to 128 registers, so up to four
+// blocks (16 warps) fit on an SM, with 16 B of spill at J = 4 rank 2; at
+// J >= 7 rank 2 shared memory holds an SM to three blocks, and
+// __launch_bounds__(128, 3) lets a thread have 168 registers
+// (chip_smoke.py phase 1 prints each instantiation's resident warps,
+// registers, local and shared bytes). J runs from 2 to 8: the T4 sums of
+// every source lie in the first chunk of 32 (J * 4 at rank 2). The
 // loglik's per-lane sums end in a shuffle tree. At the end of the row the
 // four warps' sums are added in warp order through shared memory: a fixed
 // order, no atomics, the same results from run to run. The row's mixing
@@ -109,7 +116,6 @@ namespace pyfasst_general {
 
 constexpr int kGenWarps = 4;
 constexpr int kGenThreads = 32 * kGenWarps;
-constexpr int kGenMinBlocks = 4;  // resident blocks per SM asked of ptxas
 constexpr int kRegSums = 40;      // at most this many sums: in registers
 constexpr int kTile = 32;         // frames per warp tile, sums per chunk
 constexpr int kTileStride = kTile + 1;
@@ -257,18 +263,34 @@ struct Plan {
   static constexpr int Z = 2 * J * R;  // z_jr: 4 words at Z + 4 (j R + r)
 };
 
+// Resident blocks per SM asked of ptxas: four (at most 128 registers a
+// thread), or three where the block's shared memory (tiles and w/z
+// buffers, past 56 KB: J >= 7 at rank 2) already holds the SM to three,
+// which leaves a thread 168 registers instead of spilling.
+template <int J, int R>
+constexpr int kGenMinBlocks =
+    kGenWarps * (Plan<J, R>::NF * kTile + kTile * kTileStride) * 4 >
+            56 * 1024
+        ? 3
+        : 4;
+
 template <int J, int R, bool REAL, bool NS>
-__global__ void __launch_bounds__(kGenThreads, kGenMinBlocks)
+__global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
     estep_general_kernel(Args g) {
   using S = Slots<J, R>;
   using P = Plan<J, R>;
   __shared__ Row<J, R> c;
   // the warps' tiles; at the end of the row, the warps' sums
   __shared__ float tiles[kGenWarps][kTile * kTileStride];
-  __shared__ float feats[kGenWarps][P::NF * kTile];
+  // the warps' w/z buffers, [kGenWarps][P::NF * kTile] (dynamic: 48 KB at
+  // J = 8 rank 2, beside the tiles, past the 48 KB of static memory)
+  extern __shared__ __align__(16) float feats[];
   static_assert(kGenWarps * (S::COUNT + 1) <= kGenWarps * kTile * kTileStride,
                 "the block's sums must fit in the tiles");
   static_assert(J * S::NT4 <= kTile, "T4 must lie in the first chunk");
+  static_assert(J * R * 2 <= kGenThreads && J + J * J <= kGenThreads &&
+                    32 + J * J <= kGenThreads,
+                "one thread per mixing entry, invariant and output block");
 
   const int F = g.F, N = g.N;
   const int row = blockIdx.x;  // b * F + f
@@ -291,7 +313,7 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks)
   const float* vrow = g.v + (size_t)b * J * FN + (size_t)f * N;
   float* xirow = g.xi + (size_t)b * J * FN + (size_t)f * N;
   float* tile = tiles[warp];
-  float* feat = feats[warp];
+  float* feat = feats + warp * P::NF * kTile;
   const float sig = c.sig;
   const float eps = g.eps;
   const bool fast = g.fast_recip;
@@ -687,24 +709,53 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks)
 
 using Kernel = void (*)(Args);
 
-// The instantiation that rmax, real_cov and ns_inj name; null for no rank
-// the kernel is built for.
+// The dynamic shared bytes of one instantiation: the warps' w/z buffers.
+template <int J, int R>
+constexpr size_t feat_bytes() {
+  return (size_t)kGenWarps * Plan<J, R>::NF * kTile * sizeof(float);
+}
+
+// An instantiation and its launch's dynamic shared bytes.
+struct Pick {
+  Kernel kernel;
+  size_t smem;
+};
+
+template <int J, int R, bool REAL, bool NS>
+Pick pick_one() {
+  return Pick{&estep_general_kernel<J, R, REAL, NS>, feat_bytes<J, R>()};
+}
+
+// The instantiation that rmax, real_cov and ns_inj name, allowed its
+// dynamic shared bytes (asked of the runtime once per instantiation where
+// the block passes 48 KB); a null kernel for no rank it is built for, or
+// with the runtime's error.
 template <int J>
-Kernel pick(int rmax, int real_cov, int ns_inj) {
+Pick pick(int rmax, int real_cov, int ns_inj, cudaError_t* err) {
   const bool re = real_cov != 0, ns = ns_inj != 0;
+  Pick p{nullptr, 0};
   if (rmax == 1) {
-    if (re) return ns ? &estep_general_kernel<J, 1, true, true>
-                      : &estep_general_kernel<J, 1, true, false>;
-    return ns ? &estep_general_kernel<J, 1, false, true>
-              : &estep_general_kernel<J, 1, false, false>;
+    if (re) p = ns ? pick_one<J, 1, true, true>() : pick_one<J, 1, true, false>();
+    else p = ns ? pick_one<J, 1, false, true>() : pick_one<J, 1, false, false>();
+  } else if (rmax == 2) {
+    if (re) p = ns ? pick_one<J, 2, true, true>() : pick_one<J, 2, true, false>();
+    else p = ns ? pick_one<J, 2, false, true>() : pick_one<J, 2, false, false>();
   }
-  if (rmax == 2) {
-    if (re) return ns ? &estep_general_kernel<J, 2, true, true>
-                      : &estep_general_kernel<J, 2, true, false>;
-    return ns ? &estep_general_kernel<J, 2, false, true>
-              : &estep_general_kernel<J, 2, false, false>;
+  *err = p.kernel ? cudaSuccess : cudaErrorInvalidValue;
+  if (!p.kernel) return p;
+  static bool allowed[2][2][2];  // [rmax - 1][real_cov][ns_inj]
+  bool& done = allowed[rmax - 1][re][ns];
+  if (!done) {
+    cudaFuncAttributes attr;
+    *err = cudaFuncGetAttributes(&attr, p.kernel);
+    if (*err == cudaSuccess && attr.sharedSizeBytes + p.smem > 48 * 1024)
+      *err = cudaFuncSetAttribute(p.kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)p.smem);
+    done = *err == cudaSuccess;
   }
-  return nullptr;
+  if (*err != cudaSuccess) p.kernel = nullptr;
+  return p;
 }
 
 template <int J>
@@ -713,33 +764,36 @@ int entry(const float* x4, const float* v, const float* A4,
           float* t7, float* ll, int B, int F, int N, int rank_mask,
           int rmax, int real_cov, int ns_inj, float eps, int fast_recip,
           int no_ll, void* stream) {
-  const Kernel kernel = pick<J>(rmax, real_cov, ns_inj);
-  if (!kernel || B <= 0 || F <= 0 || N <= 0 ||
-      (long long)B * F > 2147483647LL)
+  if (B <= 0 || F <= 0 || N <= 0 || (long long)B * F > 2147483647LL)
     return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  const Pick p = pick<J>(rmax, real_cov, ns_inj, &e);
+  if (!p.kernel) return (int)e;
+  const Kernel kernel = p.kernel;
   const Args g{x4, v, A4, sigma, xi, txs, tss, t4, t7, ll, F, N, rank_mask,
                eps, fast_recip != 0, no_ll != 0};
-  kernel<<<B * F, kGenThreads, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  kernel<<<B * F, kGenThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(g);
   return (int)cudaGetLastError();
 }
 
-// Resident warps per SM, registers, local (spill) bytes and static shared
-// bytes of one instantiation, as the runtime reports them.
+// Resident warps per SM, registers, local (spill) bytes and shared bytes
+// (static and dynamic) of one instantiation, as the runtime reports them.
 template <int J>
 int entry_info(int rmax, int real_cov, int ns_inj, int* out) {
-  const Kernel kernel = pick<J>(rmax, real_cov, ns_inj);
-  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  const Pick p = pick<J>(rmax, real_cov, ns_inj, &e);
+  if (!p.kernel) return (int)e;
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  e = cudaFuncGetAttributes(&attr, p.kernel);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                    kGenThreads, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.kernel,
+                                                    kGenThreads, p.smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = blocks * kGenWarps;
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
-  out[3] = (int)attr.sharedSizeBytes;
+  out[3] = (int)(attr.sharedSizeBytes + p.smem);
   return 0;
 }
 
@@ -748,9 +802,9 @@ int entry_info(int rmax, int real_cov, int ns_inj, int* out) {
 // C entry points for J sources, bound with ctypes (ops/cuda_estep.py,
 // ops/_build.py). The E-step launches on `stream`, does not synchronise,
 // allocates nothing. The info call writes [resident warps per SM,
-// registers per thread, local bytes per thread, static shared bytes per
-// block] of the instantiation that rmax, real_cov and ns_inj name. Each
-// returns a cudaError_t: 0 on success.
+// registers per thread, local bytes per thread, shared bytes per block,
+// static and dynamic] of the instantiation that rmax, real_cov and ns_inj
+// name. Each returns a cudaError_t: 0 on success.
 #define PYFASST_ESTEP_GENERAL_ENTRY(J)                                        \
   extern "C" int pyfasst_estep_j##J(                                          \
       const float* x4, const float* v, const float* A4, const float* sigma,   \

@@ -454,9 +454,262 @@ cudaError_t info_tw(int F, int K, int* out) {
   return cudaSuccess;
 }
 
+// -- K > kMaxK: the NMF components in chunks of kMaxK ------------------------
+//
+// A thread holds kMaxK sums of each kind at most, so a larger K takes a
+// grid axis of chunks (blockIdx.z): the block of chunk c forms the sums of
+// components c kMaxK .. c kMaxK + kc - 1 (kc = kMaxK, the last chunk
+// ragged), and V = FB TW over ALL K, rebuilt in every chunk's block, in the
+// order k = 0 .. K - 1, from the K values of FB and TW staged in shared
+// memory (dynamic: 164 K bytes for fb_stats, 128 (K + 64) for tw_stats;
+// the runtime is asked for more than 48 KB once per kernel). The sums of a
+// component past K are never formed: a uniform test skips them.
+//   fb_stats_wide: one block of eight warps per (b, j), tile of eight rows
+//     and chunk; each warp one row, lane = frame. The block stages the
+//     tile's rows of FB once, and TW (all K rows) for 32 frames at a time
+//     (row stride 33 words); each lane builds V for its frame, and its
+//     row's terms of the chunk's 2 kc sums; a row ends in a shuffle tree.
+//   tw_stats_wide: one block of eight warps per (b, j), strip of 32 frames
+//     and chunk; lane = frame, warp w walks the rows w, w + 8, ... The block
+//     stages the strip's TW (all K rows) once; a row's K values of FB are
+//     read from global memory by the whole warp at once (one broadcast,
+//     through L1). At the end the warps' sums go through shared memory in
+//     warp order, one warp at a time.
+// Both keep the fixed orders of the kernels above and use no atomics.
+
+constexpr int kWideFrames = 32;  // frames per stage (fb) or strip (tw)
+constexpr int kWideStride = kWideFrames + 1;
+
+__global__ void __launch_bounds__(kFbThreads)
+fb_stats_wide_kernel(const float* __restrict__ xi,
+                     const float* __restrict__ FB,
+                     const float* __restrict__ TW,
+                     const float* __restrict__ vfloor, float* __restrict__ num,
+                     float* __restrict__ den, int F, int N, int K) {
+  // [kFbRows][K] the tile's rows of FB; then [K][kWideStride] a stage of TW
+  extern __shared__ __align__(16) float wide[];
+  float* fbs = wide;
+  float* tws = wide + kFbRows * K;
+
+  const int bj = blockIdx.y;
+  const int k0 = blockIdx.z * kMaxK;
+  const int kc = min(kMaxK, K - k0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int f0 = blockIdx.x * kFbRows;
+  const int f = f0 + warp;
+  const bool live = f < F;  // uniform across the warp
+  const size_t row = (size_t)bj * F + (live ? f : 0);
+  const float* xrow = xi + row * N;
+  const float* tw = TW + (size_t)bj * K * N;
+  const float vf = vfloor[bj];
+
+  for (int i = threadIdx.x; i < kFbRows * K; i += kFbThreads) {
+    const int r = i / K, k = i - r * K;
+    fbs[i] = f0 + r < F ? FB[((size_t)bj * F + f0 + r) * K + k] : 0.f;
+  }
+  float an[kMaxK], ad[kMaxK];
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    an[k] = 0.f;
+    ad[k] = 0.f;
+  }
+  const float* w = fbs + warp * K;
+  for (int n0 = 0; n0 < N; n0 += kWideFrames) {
+    __syncthreads();  // the last stage is read (and FB is staged)
+    for (int i = threadIdx.x; i < K * kWideFrames; i += kFbThreads) {
+      const int k = i / kWideFrames, m = i - k * kWideFrames;
+      tws[k * kWideStride + m] =
+          n0 + m < N ? tw[(size_t)k * N + n0 + m] : 0.f;
+    }
+    __syncthreads();
+    if (live) {
+      const int n = n0 + lane;
+      const bool valid = n < N;
+      const float x = valid ? xrow[n] : 0.f;
+      const float* h = tws + lane;
+      float V = 0.f;
+      for (int k = 0; k < K; ++k) V += w[k] * h[k * kWideStride];
+      const float Vc = fmaxf(V, vf);
+      const float d = valid ? 1.0f / Vc : 0.f;
+      const float q = valid ? x / (Vc * Vc) : 0.f;
+      const float* hc = h + k0 * kWideStride;
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) {
+        if (k < kc) {  // uniform
+          an[k] += q * hc[k * kWideStride];
+          ad[k] += d * hc[k * kWideStride];
+        }
+      }
+    }
+  }
+
+  // The row's sums: a shuffle tree in its warp, in a fixed order.
+  if (!live) return;
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    if (k >= kc) continue;
+    float sn = an[k], sd = ad[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sn += __shfl_down_sync(0xffffffffu, sn, off);
+      sd += __shfl_down_sync(0xffffffffu, sd, off);
+    }
+    if (lane == 0) {
+      num[row * K + k0 + k] = sn;
+      den[row * K + k0 + k] = sd;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTwThreads)
+tw_stats_wide_kernel(const float* __restrict__ xi,
+                     const float* __restrict__ FB,
+                     const float* __restrict__ TW,
+                     const float* __restrict__ vfloor, float* __restrict__ num,
+                     float* __restrict__ den, int F, int N, int K) {
+  // [K][kWideFrames] the strip's TW; then [2 kMaxK][kWideFrames] the
+  // warps' sums
+  extern __shared__ __align__(16) float wide[];
+  float* tws = wide;
+  float* red = wide + K * kWideFrames;
+
+  const int bj = blockIdx.y;
+  const int k0 = blockIdx.z * kMaxK;
+  const int kc = min(kMaxK, K - k0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * kWideFrames + lane;
+  const bool valid = n < N;
+  // a lane past N reads its strip's last frame and is never written
+  const float* xcol = xi + (size_t)bj * F * N + (valid ? n : N - 1);
+  const float* fb = FB + (size_t)bj * F * K;
+  const float vf = vfloor[bj];
+
+  for (int i = threadIdx.x; i < K * kWideFrames; i += kTwThreads) {
+    const int k = i / kWideFrames, m = i - k * kWideFrames;
+    const int nn = blockIdx.x * kWideFrames + m;
+    tws[i] = nn < N ? TW[((size_t)bj * K + k) * N + nn] : 0.f;
+  }
+  __syncthreads();
+
+  float an[kMaxK], ad[kMaxK];
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    an[k] = 0.f;
+    ad[k] = 0.f;
+  }
+  const float* h = tws + lane;
+  for (int f = warp; f < F; f += kTwWarps) {
+    const float* w = fb + (size_t)f * K;  // the same words for every lane
+    const float x = xcol[(size_t)f * N];
+    float V = 0.f;
+    for (int k = 0; k < K; ++k) V += w[k] * h[k * kWideFrames];
+    const float Vc = fmaxf(V, vf);
+    const float d = valid ? 1.0f / Vc : 0.f;
+    const float q = valid ? x / (Vc * Vc) : 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < kc) {  // uniform
+        an[k] = mul_add(w[k0 + k], q, an[k]);
+        ad[k] = mul_add(w[k0 + k], d, ad[k]);
+      }
+    }
+  }
+
+  // The warps' sums in warp order: warp 0 writes, then each warp adds its
+  // own in turn.
+  for (int w2 = 0; w2 < kTwWarps; ++w2) {
+    if (warp == w2) {
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) {
+        if (k >= kc) continue;
+        float* rn = red + k * kWideFrames + lane;
+        float* rd = red + (kMaxK + k) * kWideFrames + lane;
+        *rn = w2 == 0 ? an[k] : *rn + an[k];
+        *rd = w2 == 0 ? ad[k] : *rd + ad[k];
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < 2 * kMaxK * kWideFrames; i += kTwThreads) {
+    const int s = i / kWideFrames, m = i - s * kWideFrames;
+    const bool is_num = s < kMaxK;
+    const int k = is_num ? s : s - kMaxK;
+    const int nn = blockIdx.x * kWideFrames + m;
+    if (k < kc && nn < N)
+      (is_num ? num : den)[((size_t)bj * K + k0 + k) * N + nn] = red[i];
+  }
+}
+
+// The wide kernels' dynamic shared bytes at rank K, allowed past the 48 KB
+// default where they pass it.
+template <class Kernel>
+cudaError_t plan_wide(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+size_t fb_wide_smem(int K) {
+  return (size_t)K * (kFbRows + kWideStride) * sizeof(float);
+}
+
+size_t tw_wide_smem(int K) {
+  return (size_t)(K + 2 * kMaxK) * kWideFrames * sizeof(float);
+}
+
+cudaError_t launch_fb_wide(const float* xi, const float* FB, const float* TW,
+                           const float* vfloor, float* num, float* den,
+                           int BJ, int F, int N, int K, cudaStream_t stream) {
+  const size_t smem = fb_wide_smem(K);
+  auto kernel = fb_stats_wide_kernel;
+  const cudaError_t e = plan_wide(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((F + kFbRows - 1) / kFbRows, BJ, (K + kMaxK - 1) / kMaxK);
+  kernel<<<grid, kFbThreads, smem, stream>>>(xi, FB, TW, vfloor, num, den, F,
+                                             N, K);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tw_wide(const float* xi, const float* FB, const float* TW,
+                           const float* vfloor, float* num, float* den,
+                           int BJ, int F, int N, int K, cudaStream_t stream) {
+  const size_t smem = tw_wide_smem(K);
+  auto kernel = tw_stats_wide_kernel;
+  const cudaError_t e = plan_wide(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kWideFrames - 1) / kWideFrames, BJ,
+                  (K + kMaxK - 1) / kMaxK);
+  kernel<<<grid, kTwThreads, smem, stream>>>(xi, FB, TW, vfloor, num, den, F,
+                                             N, K);
+  return cudaGetLastError();
+}
+
+// As info_fb / info_tw, of a wide kernel at rank K (dynamic bytes added).
+template <class Kernel>
+cudaError_t info_wide(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t e = plan_wide(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  out[0] = blocks * threads / 32;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = (int)(attr.sharedSizeBytes + smem);
+  return cudaSuccess;
+}
+
 bool bad_shape(int B, int J, int F, int N, int K) {
-  return B <= 0 || J <= 0 || F <= 0 || N <= 0 || K <= 0 || K > kMaxK ||
-         (long long)B * J * F > 2147483647LL || (long long)B * J > 65535LL;
+  return B <= 0 || J <= 0 || F <= 0 || N <= 0 || K <= 0 ||
+         (long long)B * J * F > 2147483647LL || (long long)B * J > 65535LL ||
+         (K + kMaxK - 1) / kMaxK > 65535;
 }
 
 }  // namespace
@@ -464,8 +717,8 @@ bool bad_shape(int B, int J, int F, int N, int K) {
 // C entry points, bound with ctypes (ops/cuda_spectral.py, ops/_build.py).
 // Each kernel launches on `stream`, does not synchronise and allocates
 // nothing; the info calls write a kernel's occupancy and resources for the
-// KMAX that K takes (tw_stats: at F rows). Each returns a cudaError_t: 0 on
-// success.
+// KMAX that K takes, or the wide kernel's above kMaxK (tw_stats: at F
+// rows). Each returns a cudaError_t: 0 on success.
 extern "C" int pyfasst_fb_stats(const float* xi, const float* FB,
                                 const float* TW, const float* vfloor,
                                 float* num, float* den, int B, int J, int F,
@@ -477,7 +730,9 @@ extern "C" int pyfasst_fb_stats(const float* xi, const float* FB,
     return (int)launch_fb<8>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
   if (K <= 16)
     return (int)launch_fb<16>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
-  return (int)launch_fb<32>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
+  if (K <= kMaxK)
+    return (int)launch_fb<32>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
+  return (int)launch_fb_wide(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
 }
 
 extern "C" int pyfasst_tw_stats(const float* xi, const float* FB,
@@ -491,19 +746,25 @@ extern "C" int pyfasst_tw_stats(const float* xi, const float* FB,
     return (int)launch_tw<8>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
   if (K <= 16)
     return (int)launch_tw<16>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
-  return (int)launch_tw<32>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
+  if (K <= kMaxK)
+    return (int)launch_tw<32>(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
+  return (int)launch_tw_wide(xi, FB, TW, vfloor, num, den, BJ, F, N, K, s);
 }
 
 extern "C" int pyfasst_tw_stats_info(int K, int F, int* out) {
-  if (K <= 0 || K > kMaxK || F <= 0) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   if (K <= 8) return (int)info_tw<8>(F, K, out);
   if (K <= 16) return (int)info_tw<16>(F, K, out);
-  return (int)info_tw<32>(F, K, out);
+  if (K <= kMaxK) return (int)info_tw<32>(F, K, out);
+  return (int)info_wide(tw_stats_wide_kernel, kTwThreads, tw_wide_smem(K),
+                        out);
 }
 
 extern "C" int pyfasst_fb_stats_info(int K, int* out) {
-  if (K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  if (K <= 0) return (int)cudaErrorInvalidValue;
   if (K <= 8) return (int)info_fb<8>(out);
   if (K <= 16) return (int)info_fb<16>(out);
-  return (int)info_fb<32>(out);
+  if (K <= kMaxK) return (int)info_fb<32>(out);
+  return (int)info_wide(fb_stats_wide_kernel, kFbThreads, fb_wide_smem(K),
+                        out);
 }

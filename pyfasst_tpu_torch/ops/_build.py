@@ -12,7 +12,7 @@ A stamp beside the library holds a hash of the sources and flags, so an
 unchanged tree is not rebuilt. Only the sources in the package and the CUDA
 toolkit's headers go into the build. A failed build raises with nvcc's
 output; nothing falls back to the plain PyTorch versions. Each J of the
-general E-step kernel is its own source (csrc/estep_j{2,3,4}.cu), so its
+general E-step kernel is its own source (csrc/estep_j{2..8}.cu), so its
 instantiations compile in parallel, beside csrc/estep.cu and
 csrc/spectral.cu. No --use_fast_math: the kernels rely on exact IEEE
 divides and logf (the E-step's fast_recip flag asks for its approximate
@@ -132,6 +132,7 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
+    from pyfasst_tpu_torch.ops.cuda_estep import GENERAL_J
     info = build()
     lib = ctypes.CDLL(info["path"])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -140,7 +141,7 @@ def load() -> ctypes.CDLL:
     # stream
     fn.argtypes = [p] * 10 + [i] * 4 + [f] + [i] * 2 + [p]
     fn.restype = i
-    for J in (2, 3, 4):
+    for J in GENERAL_J:
         fn = getattr(lib, f"pyfasst_estep_j{J}")
         # x4 v A4 sigma, xi txs tss t4 t7 ll; B F N rank_mask rmax
         # real_cov ns_inj; eps; fast_recip no_ll; stream
@@ -151,7 +152,7 @@ def load() -> ctypes.CDLL:
         # xi FB TW vfloor, num den; B J F N K; stream
         fn.argtypes = [p] * 6 + [i] * 5 + [p]
         fn.restype = i
-    for J in (2, 3, 4):
+    for J in GENERAL_J:
         fn = getattr(lib, f"pyfasst_estep_j{J}_info")
         fn.argtypes = [i] * 3 + [p]             # rmax real_cov ns_inj; out
         fn.restype = i
@@ -168,12 +169,12 @@ def load() -> ctypes.CDLL:
 def kernel_info(name: str, *args: int) -> dict:
     """What the runtime reports of one kernel instantiation: resident warps
     per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
-    local (spill) bytes per thread, shared bytes per block (static; for
-    tw_stats the launch's dynamic bytes too).
+    local (spill) bytes per thread, shared bytes per block (static, and
+    the launch's dynamic bytes for the general E-step and tw_stats).
 
-    name is "estep_j2", "estep_j3" or "estep_j4" with args (rmax, real_cov,
-    ns_inj), "estep_r1_real" with args (J,), "fb_stats" with args (K,), or
-    "tw_stats" with args (K, F). Needs a CUDA device.
+    name is "estep_j{J}" (J in cuda_estep.GENERAL_J) with args (rmax,
+    real_cov, ns_inj), "estep_r1_real" with args (J,), "fb_stats" with
+    args (K,), or "tw_stats" with args (K, F). Needs a CUDA device.
     """
     out = (ctypes.c_int * 4)()
     err = getattr(load(), f"pyfasst_{name}_info")(*args, out)

@@ -8,10 +8,16 @@ an ``all_reduce`` over the group, a fixed-order collective (no float
 atomics, so a chunked or resumed run repeats itself bit for bit). A mean
 divides the finished sum by the axis' global length.
 
+The frame recursions of the state models (ops/hmm.py) need the whole
+sequence: ``gather_frames`` all-gathers a frame-sharded tensor in rank
+order, so every rank runs the same recursion on the same bits and keeps
+its own span of the result.
+
 With no shard active every helper is the plain ``torch.sum`` /
-``torch.mean`` it replaces, so the single-device path computes what it
-computed before, bit for bit. The E-step's own frame sums are finished
-once per step by ``reduce_stats`` (ops/gem.py).
+``torch.mean`` it replaces (``gather_frames`` the identity), so the
+single-device path computes what it computed before, bit for bit. The
+E-step's own frame sums are finished once per step by ``reduce_stats``
+(ops/gem.py).
 """
 from __future__ import annotations
 
@@ -54,6 +60,58 @@ def active_axis() -> Optional[str]:
     return None if _ACTIVE is None else _ACTIVE.axis
 
 
+def axis_length(axis: str, local: int) -> int:
+    """The global length of `axis` ("F" or "N") whose slice on this rank
+    has `local` entries: the shard's total when `axis` is sharded."""
+    if _ACTIVE is not None and _ACTIVE.axis == axis:
+        return _ACTIVE.total
+    return local
+
+
+def span(total: int, parts: int, index: int) -> Tuple[int, int]:
+    """[lo, hi) of slice `index` of `parts` contiguous slices of an axis:
+    equal slices of ceil(total / parts), the last one shorter."""
+    size = -(-total // parts)
+    if size * (parts - 1) >= total:
+        raise ValueError(f"an axis of {total} cannot be cut into {parts} "
+                         "non-empty contiguous slices")
+    return index * size, min(total, (index + 1) * size)
+
+
+def all_gather(t: torch.Tensor, dim: int, group, size: int,
+               total: int) -> torch.Tensor:
+    """Concatenate the ranks' slices of `t` along `dim`, in rank order,
+    into the axis' `total` length (span's slices, the last one padded for
+    the collective and cropped after)."""
+    if size == 1:
+        return t
+    if t.is_complex():
+        return torch.view_as_complex(all_gather(
+            torch.view_as_real(t), dim, group, size, total).contiguous())
+    width = -(-total // size)
+    if t.shape[dim] < width:
+        pad = list(t.shape)
+        pad[dim] = width - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim).narrow(dim, 0, total)
+
+
+def gather_frames(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(the whole frame axis, lo): `t`, whose last dim holds this rank's
+    frames, all-gathered over the active group in rank order into the
+    axis' global length, and the first frame of this rank's span in it.
+    (t, 0) when the frames are not sharded."""
+    if _ACTIVE is None or _ACTIVE.axis != "N":
+        return t, 0
+    g = _ACTIVE.group
+    parts = dist.get_world_size(g)
+    lo = span(_ACTIVE.total, parts, dist.get_rank(g))[0]
+    return all_gather(t, t.ndim - 1, g, parts, _ACTIVE.total), lo
+
+
 def all_reduce_many(tensors: Sequence[torch.Tensor], group
                     ) -> List[torch.Tensor]:
     """Sum each tensor over `group`, in one all_reduce per real dtype:
@@ -64,6 +122,9 @@ def all_reduce_many(tensors: Sequence[torch.Tensor], group
         r = torch.view_as_real(t) if t.is_complex() else t
         by_dtype.setdefault(r.dtype, []).append((i, r))
     for items in by_dtype.values():
+        # complex tensors first: each takes an even number of words, so
+        # every complex view of the buffer starts at an even offset
+        items.sort(key=lambda item: not tensors[item[0]].is_complex())
         buf = torch.cat([r.reshape(-1) for _, r in items])
         dist.all_reduce(buf, group=group)
         pos = 0

@@ -8,9 +8,10 @@ ops/_build.py:
                                            mixing, no noise injection;
                                            J = 2, 3 (the main path)
     estep_general   csrc/estep_general.cuh variants b, c, d and their
-                    (estep_j{2,3,4}.cu)    combinations: complex mixing,
+                    (estep_j{2..8}.cu)     combinations: complex mixing,
                                            ranks in {1, 2} per source,
-                                           'ann_ns_inj'; J = 2, 3, 4
+                                           'ann_ns_inj'; J = 2 to 8 (and
+                                           variant a's model at J = 4-8)
 
 Both take the flags fast_recip (variant e: approximate reciprocals with a
 Newton step, csrc/recip.cuh) and no_ll (variant f: the loglik without
@@ -24,7 +25,7 @@ launch of a complex rank-2 E-step with fast_recip counts for b, c and e).
 ``suff_stats_cuda`` returns an estep.SuffStats laid out as
 pallas_suff_stats lays it out.
 
-Still to port: float64, I != 2 and J outside 2-4: kernel_eligible names
+Still to port: float64, I != 2 and J outside 2-8: kernel_eligible names
 them and suff_stats_cuda raises.
 """
 from __future__ import annotations
@@ -47,8 +48,10 @@ VARIANT_LAUNCHES = {"a": 0, "b": 0, "c": 0, "d": 0, "e": 0, "f": 0}
 on real rank-1 mixing without noise injection), b (complex mixing),
 c (a rank-2 source), d (noise injection), e (fast_recip), f (no_ll)."""
 
-GENERAL_J = (2, 3, 4)
-"""Source counts the general kernel is built for."""
+GENERAL_J = (2, 3, 4, 5, 6, 7, 8)
+"""Source counts the general kernel is built for (one translation unit
+each, csrc/estep_j{J}.cu). Above 8 the T4 sums of a rank-2 model no longer
+fit the kernel's first chunk of 32 (csrc/estep_general.cuh)."""
 
 
 def pack_x4(X: torch.Tensor) -> torch.Tensor:
@@ -480,7 +483,8 @@ def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
     _check("sigma", sigma, (B, F), dev)
     if J not in GENERAL_J:
         raise NotImplementedError(
-            f"the E-step kernel is built for J = 2, 3 and 4 sources, got {J}")
+            f"the E-step kernel is built for J = 2 to 8 sources, got {J} "
+            "(ROADMAP kernel queue 2)")
     if any(r not in (1, 2) for r in ranks):
         raise NotImplementedError(f"the E-step kernel takes ranks 1 and 2, "
                                   f"got {ranks}")
@@ -525,7 +529,7 @@ def kernel_eligible(ranks: Tuple[int, ...], real_cov: bool,
                 "the CPU, ROADMAP kernel queue 1)")
     if len(ranks) not in GENERAL_J:
         return (f"J = {len(ranks)} sources (the kernels are built for "
-                "J = 2, 3 and 4; ROADMAP kernel queue 1)")
+                "J = 2 to 8; ROADMAP kernel queue 2)")
     if any(r not in (1, 2) for r in ranks):
         return (f"ranks {tuple(ranks)} (the kernels take ranks 1 and 2; "
                 "ROADMAP kernel queue 1)")

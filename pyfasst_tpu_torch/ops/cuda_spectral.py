@@ -15,9 +15,11 @@ with V = FB TW rebuilt inside the kernel and Vc = max(V, vfloor). Each
 launches its kernel on a CUDA tensor and runs its plain PyTorch version
 (``fb_stats_ref``, ``tw_stats_ref``) on a CPU tensor; there is no fallback
 on CUDA. ``LAUNCHES`` counts the kernels' launches by name. The kernels
-take K <= MAX_K: ``eligible`` is False for a larger K, so gem_step takes
-the plain update_spectral there, and a direct call raises
-NotImplementedError on CUDA.
+take any NMF rank K: up to 32 each thread keeps its K values and 2K sums in
+registers; above it the components go in chunks of 32 along a grid axis,
+V over all K rebuilt in each chunk (csrc/spectral.cu's wide kernels), one
+launch either way. ``eligible`` puts no bound on K, as the JAX package's
+does not (pallas_spectral.py:192-212).
 """
 from __future__ import annotations
 
@@ -34,10 +36,6 @@ LAUNCHES = {"fb_stats": 0, "tw_stats": 0}
 """Launches of each CUDA kernel in this process (comparison launches
 included; callers reset the counts before the run they want to count).
 Calls under CUDA-graph capture, and the graph's replays, do not count."""
-
-MAX_K = 32
-"""The largest NMF rank K the kernels take (their 2K per-thread sums)."""
-
 
 def _vc(FB, TW, vfloor):
     """Vc = max(FB @ TW, vfloor), (B, J, F, N)."""
@@ -71,9 +69,6 @@ def _launch(name, xi, FB, TW, vfloor, out_shape):
     _check("FB", FB, (B, J, F, K), dev)
     _check("TW", TW, (B, J, K, N), dev)
     _check("vfloor", vfloor, (B, J), dev)
-    if K > MAX_K:
-        raise NotImplementedError(
-            f"the {name} kernel takes NMF ranks K <= {MAX_K}, got K = {K}")
     from pyfasst_tpu_torch.ops import _build
 
     fn = getattr(_build.load(), f"pyfasst_{name}")
@@ -121,8 +116,8 @@ def tw_stats(xi, FB, TW, vfloor):
 def eligible(params: FasstParams) -> bool:
     """Every spectral component is a plain two-factor free IS-NMF chain (FB
     and TW free, no FW/TB/FB2, NMF constraint), one per spatial source in
-    source order, float32, all of one rank K <= MAX_K: the shapes the
-    kernels stack (pallas_spectral.py:192-212) and the ranks they take."""
+    source order, float32, all of one rank K: the shapes the kernels stack
+    (pallas_spectral.py:192-212)."""
     if len(params.spec) != params.n_spat:
         return False
     K = None
@@ -137,7 +132,7 @@ def eligible(params: FasstParams) -> bool:
             K = c.FB.shape[-1]
         elif c.FB.shape[-1] != K:
             return False
-    return K <= MAX_K
+    return True
 
 
 def fused_spectral_update(params: FasstParams, stats,

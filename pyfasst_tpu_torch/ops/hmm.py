@@ -14,6 +14,11 @@ on the order of ten launches per frame and pass: the first path whose
 launch count grows with N. The
 Viterbi backtrack stays on the device, one gather per frame. Transitions
 and GMM priors are never re-estimated, as in the reference.
+
+On a mesh (parallel/sharding.py) the sums over F of the state gains and
+log-likelihoods are finished over the ranks (ops/collectives.py); under a
+frame shard each rank gathers the (B, Q, N) log-likelihoods, runs the
+recursion over the whole sequence and keeps its own frames.
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ from typing import Tuple
 import torch
 
 from pyfasst_tpu_torch.models.components import GMM, HMM, SpectralComp
+from pyfasst_tpu_torch.ops.collectives import (
+    axis_length, contract, gather_frames, sum_over,
+)
 
 
 def _state_gains_and_loglik(P: torch.Tensor, W: torch.Tensor, eps: float):
@@ -32,12 +40,13 @@ def _state_gains_and_loglik(P: torch.Tensor, W: torch.Tensor, eps: float):
     gain is g(q,n) = mean_f P(f,n)/w_q(f), and the (negative) divergence at
     the optimum gives the state log-likelihood
         L(q,n) = -sum_f [ log(g w_q) + 1 ]  (- sum_f log P, const in q)
-    Returns g, L, each (B, Q, N).
+    Returns g, L, each (B, Q, N). Under a frequency shard both sums over F
+    are finished over the ranks and F is the global count.
     """
-    F = P.shape[-2]
+    F = axis_length("F", P.shape[-2])
     Winv = 1.0 / torch.clamp(W, min=eps)                      # (B, F, Q)
-    g = torch.clamp((Winv.mT @ P) / F, min=eps)               # (B, Q, N)
-    logw = torch.sum(torch.log(torch.clamp(W, min=eps)), dim=-2)  # (B, Q)
+    g = torch.clamp(contract(Winv.mT @ P, "F") / F, min=eps)  # (B, Q, N)
+    logw = sum_over(torch.log(torch.clamp(W, min=eps)), -2, "F")  # (B, Q)
     L = -(F * torch.log(g) + logw[..., None] + F)             # (B, Q, N)
     return g, L
 
@@ -98,6 +107,16 @@ def viterbi_decode(delta0: torch.Tensor, Ln: torch.Tensor,
     return path
 
 
+def _whole_sequence(recursion, L: torch.Tensor, *args) -> torch.Tensor:
+    """recursion(L, *args) over the whole frame sequence, whose last dim
+    is the frames; this rank's frames of it. Under a frame shard every
+    rank gathers L and runs the same recursion on the same bits."""
+    n = L.shape[-1]
+    L_all, lo = gather_frames(L)
+    out = recursion(L_all, *args)
+    return out if L_all is L else out[..., lo:lo + n]
+
+
 def viterbi_path(L: torch.Tensor, log_trans: torch.Tensor) -> torch.Tensor:
     """MAP state sequence, the argmax dual of forward-backward.
 
@@ -135,10 +154,10 @@ def state_factor_update(comp: SpectralComp, P: torch.Tensor,
             (B, Q, Q), 1.0 / Q, dtype=P.dtype, device=P.device)
         log_trans = torch.log(torch.clamp(trans, min=eps))
         if comp.decode == "viterbi":
-            path = viterbi_path(L, log_trans)
+            path = _whole_sequence(viterbi_path, L, log_trans)
             gamma = torch.nn.functional.one_hot(path, Q).to(P.dtype).mT
         else:
-            gamma = _hmm_posteriors(L, log_trans)
+            gamma = _whole_sequence(_hmm_posteriors, L, log_trans)
     else:
         raise ValueError(f"not a state constraint: {comp.constraint}")
     TW = torch.clamp(gamma * g, min=eps)                      # (B, Q, N)

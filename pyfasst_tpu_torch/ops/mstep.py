@@ -202,13 +202,14 @@ def _simm_factor_updates(comp: SpectralComp, P, V, eps: float
 
     IS-NMF multiplicative updates where each chain's gradient is weighted by
     the OTHER chain's envelope (cf. Durrieu's SIMM; models/lead.py uses the
-    same rules standalone).
+    same rules standalone). Each statistic is finished over the axes it
+    contracts, as in _nmf_factor_updates.
     """
     def mul_upd(factor, num_term, den_term):
         return _mul_upd(factor, num_term, den_term, eps)
 
     vk = comp.power()
-    v_floor = 1e-12 * torch.mean(P, dim=(-2, -1), keepdim=True) + eps
+    v_floor = 1e-12 * mean_over(P, (-2, -1), "FN", keepdim=True) + eps
     # chain1 factors (standard rules on the envelope-weighted residual)
     for idx in range(4):
         if not comp.free[idx]:
@@ -221,19 +222,26 @@ def _simm_factor_updates(comp: SpectralComp, P, V, eps: float
         H = comp.time_activation()
         if idx == 0:
             rest = H if comp.FW is None else comp.FW @ H
-            comp = comp.replace(FB=mul_upd(comp.FB, num @ rest.mT,
-                                           den @ rest.mT))
+            comp = comp.replace(FB=mul_upd(
+                comp.FB, contract(num @ rest.mT, "N"),
+                contract(den @ rest.mT, "N")))
         elif idx == 1:
-            comp = comp.replace(FW=mul_upd(comp.FW, (comp.FB.mT @ num) @ H.mT,
-                                           (comp.FB.mT @ den) @ H.mT))
+            comp = comp.replace(FW=mul_upd(
+                comp.FW, contract((comp.FB.mT @ num) @ H.mT, "FN"),
+                contract((comp.FB.mT @ den) @ H.mT, "FN")))
         elif idx == 2:
             lhs_n, lhs_d = W.mT @ num, W.mT @ den
+            axes = "F"
             if comp.TB is not None:
                 lhs_n, lhs_d = lhs_n @ comp.TB.mT, lhs_d @ comp.TB.mT
-            comp = comp.replace(TW=mul_upd(comp.TW, lhs_n, lhs_d))
+                axes = "FN"
+            comp = comp.replace(TW=mul_upd(comp.TW, contract(lhs_n, axes),
+                                           contract(lhs_d, axes)))
         else:
             G = W @ comp.TW
-            comp = comp.replace(TB=mul_upd(comp.TB, G.mT @ num, G.mT @ den))
+            comp = comp.replace(TB=mul_upd(comp.TB,
+                                           contract(G.mT @ num, "F"),
+                                           contract(G.mT @ den, "F")))
         vk_new = comp.power()
         V = V - vk + vk_new
         vk = vk_new
@@ -245,12 +253,14 @@ def _simm_factor_updates(comp: SpectralComp, P, V, eps: float
         C1 = comp.freq_pattern() @ comp.time_activation()
         num = (P / (Vc * Vc)) * C1
         den = (1.0 / Vc) * C1
-        if idx2 == 0:
-            comp = comp.replace(FB2=mul_upd(comp.FB2, num @ comp.TW2.mT,
-                                            den @ comp.TW2.mT))
-        else:
-            comp = comp.replace(TW2=mul_upd(comp.TW2, comp.FB2.mT @ num,
-                                            comp.FB2.mT @ den))
+        if idx2 == 0:                    # FB2 (B, F, G)
+            comp = comp.replace(FB2=mul_upd(
+                comp.FB2, contract(num @ comp.TW2.mT, "N"),
+                contract(den @ comp.TW2.mT, "N")))
+        else:                            # TW2 (B, G, N)
+            comp = comp.replace(TW2=mul_upd(
+                comp.TW2, contract(comp.FB2.mT @ num, "F"),
+                contract(comp.FB2.mT @ den, "F")))
         vk_new = comp.power()
         V = V - vk + vk_new
         vk = vk_new

@@ -93,13 +93,55 @@ def tiny_params(prob: Dict[str, np.ndarray], device="cpu"):
     return FasstParams(spat=spat, spec=spec)
 
 
+STATE_KINDS = ("hmm", "viterbi", "gmm", "simm")
+"""The spectral models of tiny_state_params: a soft-decoded HMM, a
+Viterbi-decoded HMM, a GMM and a source-filter (FB2/TW2) component."""
+
+
+def tiny_state_params(prob: Dict[str, np.ndarray], kind: str,
+                      device="cpu"):
+    """tiny_params' model with its spectral components made `kind` (one of
+    STATE_KINDS): the K columns of FB are the states of an HMM (transition
+    0.8 to stay, the rest spread) or a GMM (prior rising with the state),
+    or the component gains a second chain FB2 @ TW2 of rank 2, both
+    factors free, drawn from default_rng(7). Returns port FasstParams."""
+    from pyfasst_tpu_torch.models.components import GMM, HMM
+    params = tiny_params(prob, device=device)
+    B, Q = params.batch, prob["FB"].shape[-1]
+    kw = dict(dtype=torch.float32, device=device)
+    if kind in ("hmm", "viterbi"):
+        trans = np.tile(np.where(np.eye(Q) > 0, 0.8, 0.2 / (Q - 1)),
+                        (B, 1, 1))
+        extra = dict(constraint=HMM, trans=torch.as_tensor(trans, **kw),
+                     decode="viterbi" if kind == "viterbi" else "soft")
+        return params.replace(spec=tuple(c.replace(**extra)
+                                         for c in params.spec))
+    if kind == "gmm":
+        prior = np.tile(np.arange(1, Q + 1) / (Q * (Q + 1) / 2), (B, 1))
+        return params.replace(spec=tuple(c.replace(
+            constraint=GMM, trans=torch.as_tensor(prior, **kw))
+            for c in params.spec))
+    if kind != "simm":
+        raise ValueError(f"kind must be one of {STATE_KINDS}, got {kind!r}")
+    r = np.random.default_rng(7)
+    F, N = prob["X"].shape[1:3]
+    return params.replace(spec=tuple(c.replace(
+        FB2=torch.as_tensor(0.5 + r.random((B, F, 2)), **kw),
+        TW2=torch.as_tensor(0.5 + r.random((B, 2, N)), **kw),
+        free2=(True, True)) for c in params.spec))
+
+
 def _host(params) -> Dict[str, np.ndarray]:
+    """Every array of the parameters on the host, keyed by name and index
+    (A0, FB0, TW0, ..., FB21 for component 1's FB2)."""
     out = {}
     for j, c in enumerate(params.spat):
         out[f"A{j}"] = c.A.detach().cpu().numpy()
     for j, c in enumerate(params.spec):
-        out[f"FB{j}"] = c.FB.detach().cpu().numpy()
-        out[f"TW{j}"] = c.TW.detach().cpu().numpy()
+        for name in ("FB", "TW", "FW", "TB", "trans", "FB2", "TW2"):
+            t = getattr(c, name)
+            if t is not None:
+                out[f"{name}{j}"] = t.detach().cpu().numpy()
     return out
 
 
@@ -280,27 +322,20 @@ def cli_case(argv: List[str]) -> Dict[str, object]:
     return {"rc": rc, "stdout": buf.getvalue(), "saves": saves}
 
 
-def refusal_case(prob: Dict[str, np.ndarray], device="cpu") -> str:
-    """batched_run_gem of a GMM/HMM spectral model on the fp mesh: the
-    NotImplementedError it must raise (its state M-step is not routed
-    through the cross-shard sums), as text."""
-    from pyfasst_tpu_torch.models.components import HMM
-    from pyfasst_tpu_torch.parallel.sharding import (
-        batched_run_gem, make_mesh,
-    )
+def state_cases(prob: Dict[str, np.ndarray], niter: int = 5,
+                device="cpu", kinds=STATE_KINDS) -> Dict[str, Dict]:
+    """Each of `kinds` (STATE_KINDS by default) on this rank's mesh with
+    every rank on the second axis (dp = 1): "fp" the frequencies sharded,
+    "sp" the frames. No separation (sharded_batch_separate is per bin and
+    model-blind)."""
     from pyfasst_tpu_torch.utils.config import GEMConfig
-
-    params = tiny_params(prob)
-    Q = params.spec[0].FB.shape[-1]
-    trans = torch.full((params.batch, Q, Q), 1.0 / Q)
-    params = params.replace(spec=tuple(
-        c.replace(constraint=HMM, trans=trans) for c in params.spec))
-    try:
-        batched_run_gem(params, torch.as_tensor(prob["X"]),
-                        GEMConfig(niter=1), make_mesh(device=device))
-    except NotImplementedError as e:
-        return str(e)
-    return ""
+    cfg = GEMConfig(niter=niter)
+    return {kind: {leg: run_sharded(tiny_state_params(prob, kind),
+                                    prob["X"], cfg, dp=1,
+                                    shard_frames=leg == "sp", device=device,
+                                    separate=None)
+                   for leg in ("fp", "sp")}
+            for kind in kinds}
 
 
 def single_case(prob: Dict[str, np.ndarray], niter: int = 5,

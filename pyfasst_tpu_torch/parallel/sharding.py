@@ -13,11 +13,15 @@ explicit all-reduces (ops/collectives.py):
     divide by fp: the last slice is shorter). The sums over F -- the
     pooled instantaneous spatial solve and its 1/sigma weights, the conv
     ridge and norm floor, the spectral updates' F-contractions (TW's
-    statistics, tw_stats on the card), the renormalization, v_floor and
-    the log-likelihood -- are all-reduced over the rank's fp group.
+    statistics, tw_stats on the card), the renormalization, v_floor, the
+    state models' gains and log-likelihoods, the source-filter chains'
+    F-contractions and the log-likelihood -- are all-reduced over the
+    rank's fp group.
   - sp: frames, through batched_run_gem(shard_frames=True): the mesh's
     second axis slices N instead, and the E-step's frame sums, the FB
-    statistics (fb_stats on the card) and v_floor are all-reduced.
+    (and FB2) statistics (fb_stats on the card) and v_floor are
+    all-reduced; the HMM recursions run on the frames gathered from every
+    rank.
   - The source axis J is not sharded, as in the JAX package.
 
 Every rank passes the full batch and gets the full result back: the
@@ -37,10 +41,11 @@ import torch.distributed as dist
 
 from pyfasst_tpu_torch.convert import _SPEC_ARRAYS
 from pyfasst_tpu_torch.models.components import (
-    CONV, NMF, FasstParams,
+    CONV, FasstParams,
 )
 # through the module, so that a wrapper of gem.run_gem sees every run
 from pyfasst_tpu_torch.ops import collectives, gem
+from pyfasst_tpu_torch.ops.collectives import all_gather, span as _span
 from pyfasst_tpu_torch.ops.wiener import separate_sources
 from pyfasst_tpu_torch.utils.config import GEMConfig
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -178,16 +183,6 @@ def batch_params(params_list: Sequence[FasstParams], device=None
 
 # -- slicing and gathering ----------------------------------------------------
 
-def _span(total: int, parts: int, index: int) -> Tuple[int, int]:
-    """[lo, hi) of slice `index` of `parts` contiguous slices of an axis:
-    equal slices of ceil(total / parts), the last one shorter."""
-    size = -(-total // parts)
-    if size * (parts - 1) >= total:
-        raise ValueError(f"an axis of {total} cannot be cut into {parts} "
-                         "non-empty contiguous slices")
-    return index * size, min(total, (index + 1) * size)
-
-
 def _map_fields(params: FasstParams, spat_fn, spec_fn) -> FasstParams:
     spat = tuple(c.replace(A=spat_fn(c, c.A)) for c in params.spat)
     spec = tuple(c.replace(**{n: spec_fn(c, n, getattr(c, n))
@@ -199,16 +194,18 @@ def _map_fields(params: FasstParams, spat_fn, spec_fn) -> FasstParams:
 
 def _sharded_dim(axis: str, comp, name: str) -> Optional[int]:
     """The dim of a parameter that a mesh axis slices: under "F" a conv
-    mixing's frequencies and FB's rows; under "N" the frames of the last
-    factor of the temporal chain (TB, else TW). None: replicated."""
+    mixing's frequencies and the rows of FB and of a source-filter
+    component's FB2; under "N" the frames of the last factor of the
+    temporal chain (TB, else TW) and of TW2. None: replicated (FW, the
+    state models' trans, an instantaneous mixing)."""
     if axis == "F":
         if name == "A":
             return 1 if comp.mix_type == CONV else None
-        return 1 if name == "FB" else None
+        return 1 if name in ("FB", "FB2") else None
     if name == "A":
         return None
     last = "TB" if comp.TB is not None else "TW"
-    return 2 if name == last else None
+    return 2 if name in (last, "TW2") else None
 
 
 def _slice_params(params: FasstParams, b: Tuple[int, int], axis: str,
@@ -222,45 +219,14 @@ def _slice_params(params: FasstParams, b: Tuple[int, int], axis: str,
     return _map_fields(params, lambda c, t: cut(c, "A", t), cut)
 
 
-def _all_gather(t: torch.Tensor, dim: int, group, size: int,
-                total: int) -> torch.Tensor:
-    """Concatenate the ranks' slices of `t` along `dim`, in rank order,
-    into the axis' `total` length (_span's slices, the last one padded for
-    the collective and cropped after)."""
-    if size == 1:
-        return t
-    if t.is_complex():
-        return torch.view_as_complex(_all_gather(
-            torch.view_as_real(t), dim, group, size, total).contiguous())
-    width = -(-total // size)
-    if t.shape[dim] < width:
-        pad = list(t.shape)
-        pad[dim] = width - t.shape[dim]
-        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim).narrow(dim, 0, total)
-
-
 def _gather_params(params: FasstParams, mesh: Mesh, axis: str, total: int,
                    B: int) -> FasstParams:
     def join(comp, name, t):
         d = _sharded_dim(axis, comp, name)
         if d is not None:
-            t = _all_gather(t, d, mesh.fp_group, mesh.fp, total)
-        return _all_gather(t, 0, mesh.dp_group, mesh.dp, B)
+            t = all_gather(t, d, mesh.fp_group, mesh.fp, total)
+        return all_gather(t, 0, mesh.dp_group, mesh.dp, B)
     return _map_fields(params, lambda c, t: join(c, "A", t), join)
-
-
-def _check_routed(params: FasstParams) -> None:
-    for c in params.spec:
-        if c.constraint != NMF or c.FB2 is not None:
-            raise NotImplementedError(
-                "frequency or frame sharding of a GMM/HMM or source-filter "
-                "spectral model: its reductions are not routed through "
-                "ops/collectives yet (ROADMAP item 15); run it with "
-                "fp = 1 (make_mesh(n, dp=n)) or on one device")
 
 
 def _local(mesh: Mesh, B: int, L: int):
@@ -293,9 +259,10 @@ def batched_run_gem(params_b: FasstParams, X_b: torch.Tensor,
 
     shard_frames=True shards the frames N over the mesh's second axis
     instead of F (the SP row: tests/test_sharding.py
-    test_frame_axis_sharding_sp). Under fp or sp > 1 only NMF spectral
-    models are routed; GMM/HMM and source-filter models raise
-    NotImplementedError.
+    test_frame_axis_sharding_sp). Every spectral model shards: NMF,
+    GMM/HMM (their state sums over F are all-reduced, and under sp each
+    rank runs the frame recursion on the gathered sequence) and
+    source-filter (FB2 sliced with F, TW2 with N).
     """
     it0, it1 = (0, cfg.niter) if bounds is None else bounds
     X_b = torch.as_tensor(X_b)
@@ -310,8 +277,6 @@ def batched_run_gem(params_b: FasstParams, X_b: torch.Tensor,
     B, F, N = X_b.shape[:3]
     L = N if shard_frames else F
     b, span = _local(mesh, B, L)
-    if mesh.fp > 1:
-        _check_routed(params_b)
     params = _slice_params(params_b, b, axis, span, mesh.device)
     X = X_b[b[0]:b[1]]
     X = (X[:, :, span[0]:span[1]] if shard_frames
@@ -328,7 +293,7 @@ def batched_run_gem(params_b: FasstParams, X_b: torch.Tensor,
         params, lls = gem.run_gem(params, X, cfg, start_iter=it0,
                                   end_iter=it1, sigma_endpoints=sig)
     return (_gather_params(params, mesh, axis, L, B),
-            _all_gather(lls, 0, mesh.dp_group, mesh.dp, B))
+            all_gather(lls, 0, mesh.dp_group, mesh.dp, B))
 
 
 def sharded_batch_separate(params_b: FasstParams, X_b: torch.Tensor,
@@ -348,5 +313,5 @@ def sharded_batch_separate(params_b: FasstParams, X_b: torch.Tensor,
     X = X_b[b[0]:b[1], span[0]:span[1]].to(mesh.device).contiguous()
     sig = sigma_b[b[0]:b[1], span[0]:span[1]].to(mesh.device).contiguous()
     Y = separate_sources(params, X, sig)
-    Y = _all_gather(Y, 2, mesh.fp_group, mesh.fp, F)
-    return _all_gather(Y, 0, mesh.dp_group, mesh.dp, B)
+    Y = all_gather(Y, 2, mesh.fp_group, mesh.fp, F)
+    return all_gather(Y, 0, mesh.dp_group, mesh.dp, B)

@@ -1,17 +1,20 @@
 """The CUDA sources of the port, compiled for the CPU and run at ragged shapes.
 
-csrc/estep.cu and csrc/spectral.cu are compiled with g++ against the
-stand-in headers of tests/cuda_shim/ (threads, barriers and shuffles on
-std::thread; one block at a time), from a scratch copy in which
+csrc/estep.cu, csrc/spectral.cu and the general E-step kernel
+(csrc/estep_general.cuh through csrc/estep_j{2..8}.cu) are compiled with
+g++ against the stand-in headers of tests/cuda_shim/ (threads, barriers
+and shuffles on std::thread; one block at a time), from a scratch copy in
+which
 
     kernel<<<grid, block, smem, stream>>>(args);   ->  shim::launch(...)
     extern __shared__ ... float name[];            ->  shim::dynamic_shared()
     recip.cuh's rcp.approx asm                     ->  1 / x
 
-and estep_r1_real, tw_stats and fb_stats are held against their plain
-PyTorch versions at shapes that cross every tile edge of the kernels (one
-frame, 31 and 33 frames, fewer rows than a batch, two rows more than a
-chunk, K below and at KMAX). Built with -ffp-contract=off, as nvcc builds
+and estep_r1_real, the general E-step (J = 2 to 8, real and complex, ranks
+1, 2 and mixed, noise injection and each flag), tw_stats and fb_stats are
+held against their plain PyTorch versions at shapes that cross every tile
+edge of the kernels (one frame, 31 and 33 frames, fewer rows than a batch,
+two rows more than a chunk, K below, at and above KMAX in chunks of 32). Built with -ffp-contract=off, as nvcc builds
 with --fmad=false. It is a check of indexing, masking, barriers and the
 order of the sums, not of the card: the kernels' agreement on the card is
 held by tests/test_torch_cuda.py and chip_smoke.py. Skips where g++ or
@@ -38,7 +41,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT.parent / "pyfasst_tpu_torch" / "csrc"
-SOURCES = ("estep.cu", "spectral.cu")
+SOURCES = ("estep.cu", "spectral.cu") + tuple(
+    f"estep_j{J}.cu" for J in cuda_estep.GENERAL_J)
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<\w+>)?)<<<(.+?)>>>\((.*?)\);", re.S)
 _DYNAMIC = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];")
 _ASM = re.compile(r'asm\("rcp\.approx\.f32[^;]*;[^;]*;')
@@ -64,13 +68,21 @@ def lib(tmp_path_factory):
     if subprocess.run([gxx, *flags, "-o", str(tmp / "probe"), str(probe)],
                       capture_output=True).returncode != 0:
         pytest.skip("needs a g++ with -std=c++20 and <barrier>")
-    for src in (*SOURCES, "recip.cuh"):
+    for src in (*SOURCES, "recip.cuh", "estep_general.cuh"):
         (tmp / src).write_text(translate((CSRC / src).read_text()))
     out = tmp / "libshim.so"
-    cmd = [gxx, *flags, "-shared", "-x", "c++", "-I", str(tmp), "-I",
-           str(ROOT / "cuda_shim"), *(str(tmp / s) for s in SOURCES), "-o",
-           str(out)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one g++ per source, all started together, then the link
+    inc = ["-I", str(tmp), "-I", str(ROOT / "cuda_shim")]
+    jobs = [subprocess.Popen([gxx, *flags, "-c", "-x", "c++", *inc,
+                              str(tmp / s), "-o", str(tmp / f"{s}.o")],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True) for s in SOURCES]
+    for job in jobs:
+        log = job.communicate()[0]
+        assert job.returncode == 0, log[-4000:]
+    proc = subprocess.run([gxx, *flags, "-shared", "-o", str(out),
+                           *(str(tmp / f"{s}.o") for s in SOURCES)],
+                          capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     so = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -78,6 +90,10 @@ def lib(tmp_path_factory):
     for name in ("pyfasst_fb_stats", "pyfasst_tw_stats"):
         getattr(so, name).argtypes = [p] * 6 + [i] * 5 + [p]
     so.pyfasst_estep_r1_real_info.argtypes = [i, p]
+    for J in cuda_estep.GENERAL_J:
+        getattr(so, f"pyfasst_estep_j{J}").argtypes = (
+            [p] * 10 + [i] * 7 + [f] + [i] * 2 + [p])
+        getattr(so, f"pyfasst_estep_j{J}_info").argtypes = [i] * 3 + [p]
     so.pyfasst_tw_stats_info.argtypes = [i, i, p]
     so.pyfasst_fb_stats_info.argtypes = [i, p]
     return so
@@ -135,6 +151,61 @@ def test_estep_r1_real_source_matches_plain_version(lib, B, J, F, N, flag):
     assert not bool((t4[..., 1:] != 0).any() or (t7[..., 1] != 0).any())
 
 
+# (J, ranks, real_cov, ns_inj, flag, B, F, N): every J the general kernel
+# is built for, real and complex, ranks 1, 2 and mixed, noise injection and
+# each flag, at frame counts that cross its 32-frame tiles (1, 31, 33, 45,
+# 70, 129); J = 5 real rank 1 is `separate --sources 5`'s E-step, J = 8
+# rank 2 the largest: 832 sums in 26 chunks of the tile, a 48 KB buffer
+GENERAL = [(2, (1, 1), False, False, "", 1, 3, 33),
+           (3, (2, 1, 2), True, True, "fast_recip", 1, 2, 45),
+           (4, (2, 2, 2, 2), False, True, "", 2, 2, 31),
+           (5, (1,) * 5, True, False, "", 1, 3, 33),
+           (5, (1, 2, 2, 1, 2), False, False, "no_ll", 1, 2, 70),
+           (5, (1,) * 5, False, True, "fast_recip", 1, 2, 1),
+           (6, (2,) * 6, True, True, "", 1, 2, 45),
+           (7, (1, 1, 2, 1, 1, 2, 1), False, False, "", 1, 2, 129),
+           (8, (1,) * 8, True, False, "", 2, 2, 33),
+           (8, (2,) * 8, False, False, "", 1, 3, 70),
+           (8, (2,) * 8, False, True, "no_ll", 1, 2, 33)]
+
+
+@pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", GENERAL)
+def test_general_estep_source_matches_plain_version(lib, J, ranks, real, ns,
+                                                    flag, B, F, N):
+    rng = np.random.default_rng(J * 1000 + F * N)
+    Rmax = max(ranks)
+    x4 = _t(rng.standard_normal((B, 4, F, N)))
+    v = _t(0.5 + 4 * rng.random((B, J, F, N)))
+    A4 = np.zeros((B, J, F, 4 * Rmax))
+    for j, R in enumerate(ranks):
+        a = 0.7 * rng.standard_normal((B, F, 4 * R))
+        if real:
+            a[..., 1::2] = 0.0
+        A4[:, j, :, :4 * R] = a
+    A4 = _t(A4)
+    sigma = _t(0.01 + 0.005 * rng.random((B, F)))
+    shapes = [(B, J, F, N), (B, J, F, 4 * Rmax),
+              (B, J, J, F, 2 * Rmax * Rmax), (B, J, F, 4),
+              (B, J, J, F, 2 * Rmax * Rmax), (B, F)]
+    got = [torch.full(s, float("nan")) for s in shapes]
+    mask = sum(1 << j for j, r in enumerate(ranks) if r == 2)
+    err = getattr(lib, f"pyfasst_estep_j{J}")(
+        *(t.data_ptr() for t in (x4, v, A4, sigma, *got)), B, F, N, mask,
+        Rmax, int(real), int(ns), ctypes.c_float(1e-30),
+        int(flag == "fast_recip"), int(flag == "no_ll"), None)
+    assert err == 0
+    want = cuda_estep.estep_ref(x4, v, A4, sigma, ranks, ns_inj=ns,
+                                real_cov=real, no_ll=flag == "no_ll")
+    for name, g, w, bar in zip(("xi", "txs", "tss", "t4", "t7"), got, want,
+                               (3e-4 if Rmax == 2 else 2e-4,) + (5e-4,) * 4):
+        assert bool(torch.isfinite(g).all()), name     # every word written
+        assert _rel(g, w) <= bar, name
+    torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
+                               atol=0)
+    for g, w in zip(got[1:5], want[1:5]):              # padding and zeros
+        assert torch.equal(g[w == 0], w[w == 0])
+
+
 # (B, J, F, N, K). N = 1, 31, 33 and 17: tw_stats' strips of 16 frames and
 # fb_stats' stages of 128, ragged; F = 3 and 13: fewer rows than tw_stats'
 # 16 half-warps, and fb_stats' 8-row tiles ragged; F = 65, 70: less than a
@@ -144,7 +215,13 @@ def test_estep_r1_real_source_matches_plain_version(lib, B, J, F, N, flag):
 # twice
 SPECTRAL = [(1, 2, 3, 1, 8), (1, 2, 13, 31, 5), (2, 1, 13, 33, 8),
             (1, 2, 70, 45, 16), (1, 1, 65, 17, 32), (1, 2, 130, 200, 8),
-            (1, 1, 64, 16, 12), (1, 1, 258, 9, 8), (1, 1, 530, 5, 32)]
+            (1, 1, 64, 16, 12), (1, 1, 258, 9, 8), (1, 1, 530, 5, 32),
+            # K past 32, the wide kernels: two chunks (33: one component in
+            # the second; 64: two whole), three ragged (100), across their
+            # 32-frame stages and strips (N = 1, 31, 33, 70) and 8-row
+            # tiles (F = 3, 13, 17)
+            (1, 2, 13, 33, 33), (2, 1, 17, 70, 64), (1, 1, 3, 1, 40),
+            (1, 2, 13, 31, 100)]
 
 
 @pytest.mark.parametrize("B,J,F,N,K", SPECTRAL)
@@ -177,5 +254,14 @@ def test_info_entry_points_answer(lib):
         assert lib.pyfasst_tw_stats_info(K, 513, out) == 0
         assert out[3] >= 513 * K * 4           # FB whole in shared memory
         assert lib.pyfasst_fb_stats_info(K, out) == 0
-    assert lib.pyfasst_tw_stats_info(33, 513, out) != 0
+    for K in (33, 64, 100):                      # the wide kernels
+        assert lib.pyfasst_tw_stats_info(K, 513, out) == 0
+        assert out[3] >= (K + 64) * 32 * 4     # the strip's TW and sums
+        assert lib.pyfasst_fb_stats_info(K, out) == 0
     assert lib.pyfasst_tw_stats_info(8, 0, out) != 0
+    assert lib.pyfasst_fb_stats_info(0, out) != 0
+    for J in cuda_estep.GENERAL_J:
+        for rmax in (1, 2):
+            fn = getattr(lib, f"pyfasst_estep_j{J}_info")
+            assert fn(rmax, 0, 1, out) == 0
+        assert fn(3, 0, 0, out) != 0

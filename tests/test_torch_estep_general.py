@@ -59,8 +59,8 @@ CASES = {
 }
 
 
-def _case_inputs(name):
-    J, ranks, mix, F, N, ns, real, _ = CASES[name]
+def _case_inputs(name, cases=CASES):
+    J, ranks, mix, F, N, ns, real, _ = cases[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     X, jparams, sigma = jax_problem(rng, F=F, N=N, J=J,
                                     mix_type="conv" if mix == "real"

@@ -37,6 +37,7 @@ RTOL = dryrun.RTOL
 NITER = 5
 PROB = dryrun.tiny_problem(B=4, F=33, N=16)
 PROB3 = dryrun.tiny_problem(B=2, F=17, N=12, I=3, J=3, seed=1)  # general-I
+PROB_S = dryrun.tiny_problem(B=2, F=33, N=16, seed=2)     # state models
 LENGTHS = (40, 44, 150)          # two buckets at granularity 64
 FS = 16000
 
@@ -76,13 +77,16 @@ def _cli_wav(path):
 def _cases(n, tmp):
     cases = [("sharding", "sharding_cases", dict(prob=PROB, niter=NITER)),
              ("padding", "batch_case",
-              dict(Xs=_clips()[:1], niter=4, granularity=128))]
+              dict(Xs=_clips()[:1], niter=4, granularity=128)),
+             ("state", "state_cases", dict(prob=PROB_S, niter=NITER))]
     if n == 2:
         X, votes = _pool_input()
         wav = _cli_wav(str(tmp / "mix.wav"))
         cases += [
             ("i3", "sharding_cases", dict(prob=PROB3, niter=NITER)),
-            ("refusal", "refusal_case", dict(prob=PROB)),
+            ("state_b1", "state_cases", dict(
+                prob={k: v[:1] for k, v in PROB_S.items()}, niter=NITER,
+                kinds=("hmm",))),
             ("batch", "batch_case",
              dict(Xs=_clips(), niter=6, granularity=64)),
             ("resume", "batch_case",
@@ -198,11 +202,144 @@ def test_general_i_engine_on_two_ranks(ranks):
                 _close(got["Y"], Y, f"I=3 {leg} images")
 
 
-def test_unrouted_models_refuse_frequency_sharding(ranks):
-    """A GMM/HMM spectral model on the fp mesh raises NotImplementedError
-    naming ROADMAP item 15 instead of running on unreduced partials."""
+@pytest.fixture(scope="module")
+def single_state():
+    """The port's single-device run_gem of each state model on PROB_S."""
+    cfg = GEMConfig(niter=NITER)
+    X = torch.as_tensor(PROB_S["X"])
+    out = {}
+    for kind in dryrun.STATE_KINDS:
+        params, ll = run_gem(dryrun.tiny_state_params(PROB_S, kind), X, cfg,
+                             sigma_endpoints=annealing_endpoints(X, cfg))
+        out[kind] = {"logliks": ll.numpy(), "params": dryrun._host(params)}
+    return out
+
+
+@pytest.mark.parametrize("n,leg", ((2, "fp"), (2, "sp"), (4, "fp"),
+                                   (4, "sp")))
+@pytest.mark.parametrize("kind", dryrun.STATE_KINDS)
+def test_state_models_match_single_device(ranks, single_state, kind, n,
+                                          leg):
+    """The HMM (soft and Viterbi), GMM and source-filter models with their
+    frequencies (fp = n) or frames (sp = n) cut over every rank: logliks
+    and every parameter (FB2 and TW2 included, trans unchanged) at rtol
+    2e-4 of the single-device run, on every rank."""
+    want = single_state[kind]
+    for r, rank in enumerate(ranks(n)):
+        got = rank["state"][kind][leg]
+        assert got["mesh"] == {"dp": 1, "fp": n}
+        assert set(got["params"]) == set(want["params"])
+        _close(got["logliks"], want["logliks"], f"rank {r} logliks")
+        for k, v in got["params"].items():
+            _close(v, want["params"][k], f"rank {r} {k}")
+        for j in range(2):
+            k = f"trans{j}"
+            if k in want["params"]:
+                np.testing.assert_array_equal(
+                    got["params"][k],
+                    dryrun._host(dryrun.tiny_state_params(PROB_S, kind))[k])
+
+
+def _jax_state_params(kind):
+    """tiny_state_params(PROB_S, kind) as the JAX package's batched
+    parameters (its own components, the same numbers)."""
+    from pyfasst_tpu.models.components import (
+        FasstParams, SpatialComp, SpectralComp, init_inst_mixing,
+    )
+    from pyfasst_tpu.parallel import batch_params
+    port = dryrun.tiny_state_params(PROB_S, kind)
+    spat = tuple(SpatialComp(A=a) for a in init_inst_mixing(None, 2, 1, 2))
+    clips = []
+    for b in range(port.batch):
+        spec = []
+        for c in port.spec:
+            arrays = {n: jnp.asarray(getattr(c, n)[b].numpy())
+                      for n in ("FB", "TW", "trans", "FB2", "TW2")
+                      if getattr(c, n) is not None}
+            spec.append(SpectralComp(spat_ind=c.spat_ind, free=c.free,
+                                     free2=c.free2, constraint=c.constraint,
+                                     decode=c.decode, **arrays))
+        clips.append(FasstParams(spat=spat, spec=tuple(spec)))
+    return batch_params(clips)
+
+
+@pytest.mark.parametrize("kind", dryrun.STATE_KINDS)
+def test_state_models_against_jax_batched_gem(ranks, kind):
+    """The same state model through the JAX package's batched_run_gem on
+    its 8-device mesh (dp 2, fp 4), against the port's fp = 2, sp = 2 and
+    fp = 4 legs at rtol 2e-4."""
+    from pyfasst_tpu.parallel import batched_run_gem, make_mesh
+    from pyfasst_tpu.utils.config import GEMConfig as JConfig
+    out, ll = batched_run_gem(_jax_state_params(kind),
+                              jnp.asarray(PROB_S["X"]), JConfig(niter=NITER),
+                              make_mesh(8))
+    ll = np.asarray(jax.block_until_ready(ll))
+    for n, leg in ((2, "fp"), (2, "sp"), (4, "fp")):
+        got = ranks(n)[0]["state"][kind][leg]
+        _close(got["logliks"], ll, f"{kind} {leg}={n} logliks")
+        for j, c in enumerate(out.spec):
+            for name in ("FB", "TW", "FB2", "TW2"):
+                if getattr(c, name) is not None:
+                    _close(got["params"][f"{name}{j}"],
+                           np.asarray(getattr(c, name)),
+                           f"{kind} {leg}={n} {name}{j}")
+
+
+def test_one_clip_on_a_mesh(ranks):
+    """A batch of one clip (an odd number of loglik words beside the
+    complex frame sums in reduce_stats' buffer) through the fp and sp legs
+    of the soft HMM against its single-device run."""
+    prob = {k: v[:1] for k, v in PROB_S.items()}
+    cfg = GEMConfig(niter=NITER)
+    X = torch.as_tensor(prob["X"])
+    params, ll = run_gem(dryrun.tiny_state_params(prob, "hmm"), X, cfg,
+                         sigma_endpoints=annealing_endpoints(X, cfg))
+    want = dryrun._host(params)
     for rank in ranks(2):
-        assert "ROADMAP item 15" in rank["refusal"]
+        for leg in ("fp", "sp"):
+            got = rank["state_b1"]["hmm"][leg]
+            _close(got["logliks"], ll.numpy(), f"{leg} logliks")
+            for k, v in got["params"].items():
+                _close(v, want[k], f"{leg} {k}")
+
+
+def test_collectives_are_plain_torch_without_a_shard():
+    """With no shard active the routed helpers are the plain calls they
+    replace, so the single-device path keeps its bits: the state gains and
+    log-likelihoods equal the unrouted formula bit for bit."""
+    from pyfasst_tpu_torch.ops import collectives as co, hmm
+    rng = np.random.default_rng(3)
+    P = torch.as_tensor(rng.random((2, 9, 7)) + 0.1, dtype=torch.float32)
+    W = torch.as_tensor(rng.random((2, 9, 3)) + 0.1, dtype=torch.float32)
+    assert co.active_axis() is None and co.axis_length("F", 9) == 9
+    t = P.sum(-1)
+    assert co.contract(t, "FN") is t
+    full, lo = co.gather_frames(P)
+    assert full is P and lo == 0
+    assert torch.equal(co.mean_over(P, (-2, -1), "FN"),
+                       torch.mean(P, dim=(-2, -1)))
+    g, L = hmm._state_gains_and_loglik(P, W, 1e-30)
+    Winv = 1.0 / torch.clamp(W, min=1e-30)
+    g0 = torch.clamp((Winv.mT @ P) / 9, min=1e-30)
+    logw = torch.sum(torch.log(torch.clamp(W, min=1e-30)), dim=-2)
+    assert torch.equal(g, g0)
+    assert torch.equal(L, -(9 * torch.log(g0) + logw[..., None] + 9))
+
+
+def test_state_models_world_size_one_bit_for_bit(single_state, tmp_path):
+    """A process group of one rank runs every state model on the
+    single-device path: the same bits as run_gem with no group."""
+    got = dryrun.spawn(dryrun.state_cases, 1, PROB_S, NITER,
+                       tmpdir=str(tmp_path))[0]
+    for kind in dryrun.STATE_KINDS:
+        for leg in ("fp", "sp"):
+            g = got[kind][leg]
+            assert g["mesh"] == {"dp": 1, "fp": 1}
+            np.testing.assert_array_equal(g["logliks"],
+                                          single_state[kind]["logliks"])
+            for k, v in g["params"].items():
+                np.testing.assert_array_equal(
+                    v, single_state[kind]["params"][k])
 
 
 @pytest.mark.parametrize("n", (2, 4))

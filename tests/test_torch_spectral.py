@@ -42,10 +42,12 @@ _j_suff_stats = jax.jit(j_suff_stats, static_argnames=("ranks",
 # multiple of the CUDA fb_stats kernel's 8-row tile and whose N is under
 # one warp's 32 frames; and the ones that cross the CUDA tw_stats kernel's
 # strips of 16 frames (N = 1, 7, 31, 33) and batches of 128 rows (F = 3
-# and 64 below one, 129 one past one), with K = 16 and 32
+# and 64 below one, 129 one past one), with K = 16 and 32; and NMF ranks
+# past 32, which the CUDA kernels take in chunks of 32 components (K = 40:
+# a ragged second chunk; 64: two whole ones)
 SHAPES = [(2, 64, 128, 5), (2, 37, 95, 5), (2, 130, 300, 5), (3, 70, 211, 4),
           (2, 13, 29, 8), (2, 3, 1, 8), (2, 13, 31, 16), (2, 129, 33, 32),
-          (2, 64, 7, 16)]
+          (2, 64, 7, 16), (2, 37, 95, 40), (2, 64, 33, 64)]
 RTOL = 2e-5
 
 

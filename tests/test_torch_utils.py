@@ -2,7 +2,7 @@
 its NumPy, so equal numbers), signal helpers on tensors (float64: rtol
 1e-12), the NumPy WAV codec (the cases of tests/test_native_wavio.py, held
 against scipy and against the native codec's documented conventions),
-logging, and the K > MAX_K guard of the fused spectral step.
+logging, and the fused spectral step's eligibility at any NMF rank.
 """
 import json
 
@@ -262,10 +262,11 @@ def test_logging_records(tmp_path):
 
 # -- fused spectral guard ------------------------------------------------------
 
-@pytest.mark.parametrize("K,eligible", [(32, True), (33, False)])
+@pytest.mark.parametrize("K,eligible", [(32, True), (33, True), (64, True)])
 def test_fused_spectral_is_eligible_up_to_max_k(K, eligible):
-    """K > MAX_K takes the plain update_spectral instead of raising in the
-    kernel wrappers."""
+    """Every NMF rank is eligible, as in the JAX package: past 32 the
+    kernels take the components in chunks of 32 (csrc/spectral.cu's wide
+    kernels), so no rank sends the fused step to the plain one."""
     rng = np.random.default_rng(6)
     tree = {"spat": [{"A": np.ones((2, 1)), "mix_type": "inst"}] * 2,
             "spec": [{"FB": rng.random((9, K)), "TW": rng.random((K, 5)),
