@@ -39,8 +39,11 @@ Phases (each prints one line with its numbers and seconds):
      (WIDE_CASES: real rank 1 and complex rank 2 at each J, mixed ranks
      and ns_inj at J = 5) at the bench shapes, two runs bit for bit,
      timed, and at a ragged one, and at phase 19's path shapes; fb_stats
-     and tw_stats at K = 40 and 64 (their wide form: chunks of 32
-     components) at the bench shapes, timed, and two ragged ones;
+     and tw_stats at K = 40 and 64 (their tiled form past 32: V once per
+     tile over all K) at the bench shapes and at the host API's B = 1
+     (a split contracted axis), timed with the floor without FMA, and at
+     ragged shapes across its blocks, tiles, register budget, chunks
+     and splits;
   3. the host API: MultiChanNMFInst_FASST on a 10 s stereo WAV, 500 GEM
      iterations, WAVs written; the kernel must carry every E-step and the
      separation must reach 60 dB SDR;
@@ -88,11 +91,12 @@ Phases (each prints one line with its numbers and seconds):
      min SDR within 1 dB of the port's CPU runs; a profiler window of the
      I3 loop;
   12. the bench pipeline (B = 8, 500 iterations) at K = 40 and 64 with
-     fuse_spectral: 500 launches each of fb_stats and tw_stats (their wide
+     fuse_spectral: 500 launches each of fb_stats and tw_stats (their tiled
      form), every clip over 60 dB, logliks within 2e-4 of the unfused run
      at the same K over the first 50 iterations and K_BIG_DRIFT_RTOL over
      the run (the unfused run in two halves printed beside, the witness of
-     float32 drift);
+     float32 drift); a profiler window of 20 iterations of the unfused and
+     the fused run at K = 64;
   13. erblet48 (bench.py:187-220's row): the bench mixture through
      MultiChanNMFInst_FASST over ERBLetTransform(fs=44100, n_bands=48),
      J = 2, K = 8, 200 iterations unfused: 200 launches of variant a at
@@ -213,9 +217,9 @@ NITER = 500
 J, K = 2, 8
 BATCH = 8
 SDR_GATE = 60.0
-# phase 12: the bench pipeline at NMF ranks past one chunk of 32
-# components (the spectral kernels' wide form, csrc/spectral.cu), with
-# fuse_spectral, against the unfused run at the same K
+# phase 12: the bench pipeline at NMF ranks past 32 (the spectral kernels'
+# tiled form, csrc/spectral.cu), with fuse_spectral, against the unfused
+# run at the same K
 K_BIG = (40, 64)
 # phase 12's bar over the whole run. Float32 EM carries the kernels'
 # order of summation through the run as it carries any other: the first
@@ -288,17 +292,23 @@ MESH_F = (257, 256)
 # cross tw_stats' strips of 16 frames (N = 1, 31, 33, 7), its batches of 128
 # rows (F = 3 and 64 below one, 129 one past one) and its chunk of FB in
 # shared memory (F = 530 at K = 32: two chunks), with K = 16 and 32; then
-# phase 12's ranks past 32 (the wide kernels: chunks of 32 components) at
-# the bench shapes, timed, and two ragged ones (F, N off their 8-row tiles
-# and 32-frame stages and strips)
-SPECTRAL_WIDE = tuple((BATCH, J, 513, 863, k) for k in K_BIG)
+# phase 12's ranks past 32 (the tiled kernel) at the bench shapes and the
+# host API's B = 1 (its contracted axis split), timed, and ragged ones:
+# F, N off its 16-row blocks and 64-position tiles, K = 48 and 56 (the
+# other register instantiations), 100 and 130 (chunks of 64 past the
+# register budget), uneven splits (1056 x 300)
+SPECTRAL_WIDE = tuple((b, J, 513, 863, k) for k in K_BIG
+                      for b in (BATCH, 1))
 SPECTRAL_SHAPES = ((BATCH, J, 513, 863, K), (2, 2, 37, 95, 5),
                    (2, 2, 130, 300, 5), (2, 3, 70, 211, 4),
                    (2, 2, 13, 31, 8), (1, 2, 513, 189, 8),
                    (1, 2, 3, 1, 8), (1, 2, 129, 33, 16), (2, 1, 64, 7, 32),
                    (1, 2, 530, 45, 32), (1, 2, 513, 863, 16)) + tuple(
                       (BATCH, J, f, 863, K) for f in MESH_F) \
-    + SPECTRAL_WIDE + ((2, 2, 37, 95, 40), (1, 3, 130, 33, 64))
+    + SPECTRAL_WIDE + ((2, 2, 37, 95, 40), (1, 3, 130, 33, 64),
+                       (1, 2, 70, 129, 48), (2, 1, 33, 200, 56),
+                       (1, 2, 100, 300, 100), (1, 1, 65, 17, 130),
+                       (1, 2, 1056, 300, 40))
 # (B, J, F, N) of estep_r1_real's checks: the bench shape, two ragged ones,
 # and the ones that cross its tiles of 32 frames (N = 1, 31, 33, and 7 below
 # one tile), at J = 2 and 3; each of the small ones also with each flag
@@ -791,7 +801,7 @@ def occupancy_report():
     """Resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
     and registers / local bytes per thread of the 56 general E-step
     instantiations (J = 2 to 8; with shared bytes, static and dynamic), the
-    three each of fb_stats and tw_stats and their wide form at K_BIG, and
+    three each of fb_stats and tw_stats and their tiled form at K_BIG, and
     the two of estep_r1_real; the ones a path takes are marked."""
     import itertools
     from pyfasst_tpu_torch.ops import _build
@@ -811,10 +821,10 @@ def occupancy_report():
     for label, kernel, cases in (
             ("fb_stats", "fb_stats",
              [(f"KMAX={k}", (k,), k == K) for k in (8, 16, 32)]
-             + [(f"wide K={k}", (k,), True) for k in K_BIG]),
+             + [(f"tiled K={k}", (k,), True) for k in K_BIG]),
             (f"tw_stats (F={F})", "tw_stats",
              [(f"KMAX={k}", (k, F), k == K) for k in (8, 16, 32)]
-             + [(f"wide K={k}", (k, F), True) for k in K_BIG]),
+             + [(f"tiled K={k}", (k, F), True) for k in K_BIG]),
             ("estep_r1_real", "estep_r1_real",
              [(f"J={j}", (j,), j == J) for j in (2, 3)])):
         cells = []
@@ -1294,10 +1304,11 @@ def phase_spectral_vs_plain(device):
     """fb_stats and tw_stats against their plain versions at
     SPECTRAL_SHAPES, relative per element (every output is positive) at
     rtol 2e-5; times the bench shapes in turns (K = 8, and K_BIG's under
-    "<name> K=<k>")."""
+    "<name> K=<k>", their B = 1 shapes under "<name> K=<k> B=1")."""
     import torch
     from pyfasst_tpu_torch.ops import cuda_spectral
     t0 = time.perf_counter()
+    card = smi()
     out = {}
     for (B, J_, F, N, K_) in SPECTRAL_SHAPES:
         inp = _spectral_inputs(B, J_, F, N, K_, seed=F * N + K_,
@@ -1324,7 +1335,8 @@ def phase_spectral_vs_plain(device):
                     plain_reps=11, plain_inner=10))
                 ops = count_ops(plain, *inp)
                 b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
-                key = name if K_ == K else f"{name} K={K_}"
+                key = (name if K_ == K else f"{name} K={K_}"
+                       + ("" if B == BATCH else f" B={B}"))
                 out[key] = {"max_abs_err": abs_err, "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": b_ms,
                             "bound_by": b_by, "shape": list(shape),
@@ -1334,7 +1346,8 @@ def phase_spectral_vs_plain(device):
                           f" medians in turns | bound {b_ms:.4f} ms by "
                           f"{b_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} "
                           f"Gop; without FMA "
-                          f"{ops / FP32_NOFMA_OPS_PER_S * 1e3:.4f} ms)")
+                          f"{ops / FP32_NOFMA_OPS_PER_S * 1e3:.4f} ms) | "
+                          f"{card}")
             log(f"phase 2 {name} B={B} J={J_} F={F} N={N} K={K_}: rel "
                 f"{err:.2e}<={SPECTRAL_RTOL:.0e} | max_abs_err "
                 f"{abs_err:.3e}{timing}")
@@ -1756,11 +1769,11 @@ def phase_ns_inj(device):
     return counts
 
 
-def conv_clip(case, seed, device):
+def conv_recipe(case, seed):
     """One clip of phase 5's ("anechoic": DEMIX init, ERB basis) or phase
     6's ("reverb": principal-direction init, rank 2) recipe with its own
-    seed: (host-API model on `device`, true images)."""
-    from pyfasst_tpu_torch import DEMIX, MultiChanNMFConv
+    seed, on the host: (mixture, true images, the model's keywords)."""
+    from pyfasst_tpu_torch import DEMIX
     if case == "anechoic":
         mix, ys_true = anechoic_mixture(seed)
         dm = DEMIX(mix, fs=FS_CONV, wlen=WLEN_CONV)
@@ -1771,10 +1784,22 @@ def conv_clip(case, seed, device):
         mix, ys_true = reverb_mixture(seed)
         kw = dict(nbComps=4, spatial_rank=2,
                   init_mixing=principal_directions(ys_true))
-    model = MultiChanNMFConv(mix, fs=FS_CONV, nbNMFComps=6, wlen=WLEN_CONV,
-                             iter_num=NITER_CONV, spatial_hold_frac=0.3,
-                             device=device, **kw)
-    return model, ys_true
+    return mix, ys_true, kw
+
+
+def conv_clips(case, seeds, device):
+    """conv_recipe's clips of `seeds` as (host-API model on `device`, true
+    images). The recipes run in one host thread each: DEMIX is NumPy, which
+    lets go of the GIL, and its ~10 s a clip is most of phase 10's
+    set-up; the models are built in turn."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pyfasst_tpu_torch import MultiChanNMFConv
+    with ThreadPoolExecutor(len(seeds)) as pool:
+        recipes = list(pool.map(lambda sd: conv_recipe(case, sd), seeds))
+    return [(MultiChanNMFConv(mix, fs=FS_CONV, nbNMFComps=6, wlen=WLEN_CONV,
+                              iter_num=NITER_CONV, spatial_hold_frac=0.3,
+                              device=device, **kw), ys_true)
+            for mix, ys_true, kw in recipes]
 
 
 def conv_init_tree(model, n_frames, seed):
@@ -1811,7 +1836,7 @@ def phase_conv_batch(device, case, card):
     seeds = CONV_BATCH_SEEDS[case]
     B = len(seeds)
     t0 = time.perf_counter()
-    clips = [conv_clip(case, sd, device) for sd in seeds]
+    clips = conv_clips(case, seeds, device)
     setup_s = time.perf_counter() - t0
     N = clips[0][0].N
     Npad = padded_frames(N)
@@ -2035,15 +2060,17 @@ def phase_general(device, card):
 
 def phase_k_big(device, card):
     """Phase 12: the bench pipeline (B = 8 clips, NITER iterations) at each
-    NMF rank of K_BIG (past one chunk of 32 components: the spectral
-    kernels' wide form) with fuse_spectral, and the same pipeline unfused:
+    NMF rank of K_BIG (past 32 components: the spectral kernels' tiled
+    form) with fuse_spectral, and the same pipeline unfused:
     NITER launches each of fb_stats and tw_stats in the fused run, none in
     the unfused one, every clip over SDR_GATE in both, and the fused
     logliks within MESH_EARLY_RTOL of the unfused run's over the first
     MESH_EARLY_ITERS iterations and K_BIG_DRIFT_RTOL over the run
     (loglik_rel; the kernels sum in another order than cuBLAS). The
     witness of float32 drift: the unfused run in two halves of four clips
-    against the whole batch. Returns the fused runs' launches by K."""
+    against the whole batch. Then a profiler window (iterations 60-80) of
+    the unfused and the fused run at the last K. Returns the fused runs'
+    launches by K."""
     import torch
     from pyfasst_tpu_torch import convert
     from pyfasst_tpu_torch.ops import cuda_spectral
@@ -2078,6 +2105,12 @@ def phase_k_big(device, card):
             sigma_endpoints=tuple(s_[lo:lo + half].contiguous()
                                   for s_ in sig))[1].cpu().numpy()
             for lo in (0, half)])
+        if K_ == K_BIG[-1]:      # where item 7's fuse_spectral choice is
+            for label, fuse in (("unfused", False), ("fused", True)):
+                prof = profile_gem(params(), X, GEMConfig(
+                    niter=NITER, fuse_spectral=fuse))
+                log(_profile_line(f"phase 12 profile K={K_} {label} "
+                                  f"B={BATCH} (of {NITER})", prof, card))
         fused, unfused = runs[True], runs[False]
         k = MESH_EARLY_ITERS
         early = loglik_rel(fused["ll"][:, :k], unfused["ll"][:, :k])
@@ -4309,20 +4342,25 @@ def main() -> int:
                   fused["fused"]["spectral"][name], spectral[name]),
             mesh_fp_fused_launches_per_rank=[
                 r[name] for r in mesh["ranks"]["fp fused"]]))
-    # the wide form (K past 32: chunks of 32 components), phase 12's path
-    # at each K of K_BIG; the first K's numbers stand for it
+    # the tiled form (K past 32: V once per tile over all K), phase 12's
+    # path at each K of K_BIG, and the host API's B = 1 shape (the split
+    # contracted axis); the first K's bench numbers stand for it
     for name in ("fb_stats", "tw_stats"):
         nums = [spectral[f"{name} K={k}"] for k in K_BIG]
+        b1 = [spectral[f"{name} K={k} B=1"] for k in K_BIG]
+        fields = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "max_abs_err", "nofma_floor_ms")
         kernels.append(dict(
-            entry(f"{name} (wide: K > 32, chunks of 32 components)",
+            entry(f"{name} (tiled: K > 32, V once per tile over all K)",
                   SPECTRAL_SOURCE, SPECTRAL_REPLACES[name],
                   sum(k_big[k][name] for k in K_BIG), nums[0]),
             shape=nums[0]["shape"],
             nofma_floor_ms=nums[0]["nofma_floor_ms"],
             launches_by_k={str(k): k_big[k][name] for k in K_BIG},
             **{f"k{k}_{f}": n[f] for k, n in zip(K_BIG, nums)
-               for f in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                         "max_abs_err")}))
+               for f in fields},
+            **{f"k{k}_b1_{f}": n[f] for k, n in zip(K_BIG, b1)
+               for f in fields}))
     # the general kernel at J = 5 to 8: phase 19's paths take the first two
     # cases; the others run in phase 2 only
     path_of = {"inst": ("a", five["inst"]["a"]),

@@ -20,7 +20,8 @@ estep_r1_real (variant a, and with fast_recip and no_ll) at B = 8,
 F = 513, N = 863, and variant a at the host API's B = 1; the general
 kernel's GENERAL_CASES at the bench shape and at the conv paths' own
 (B = 1, F = 513, N = 189); fb_stats and tw_stats at the bench shape (B = 8,
-J = 2, F = 513, N = 863, K = 8) and at B = 1. The sides run in
+J = 2, F = 513, N = 863, K = 8) and at B = 1, and the same at each K of
+chip_smoke.K_BIG (40 and 64: the tiled kernel past 32). The sides run in
 turns, forward and then backward (this, parent, parent, this), --rounds
 times; a kernel's figure is the median of its side's samples. Prints the
 card (nvidia-smi name and power limit), one line per side and run, and a
@@ -94,14 +95,17 @@ def cases(smoke, device):
                         cuda_estep.estep_general(*a, r, **k),
                         lambda a=g_inp, r=ranks, k=kw:
                         cuda_estep.estep_ref(*a, r, **k), tol))
-    for B, tag in ((smoke.BATCH, ""), (1, " 1x2x513x863")):
-        s_inp = smoke._spectral_inputs(B, smoke.J, 513, 863, smoke.K,
-                                       seed=3, device=device)
-        for name in ("fb_stats", "tw_stats"):
-            out.append((name + tag,
-                        lambda n=name, a=s_inp: getattr(cuda_spectral, n)(*a),
-                        lambda n=name, a=s_inp:
-                        getattr(cuda_spectral, f"{n}_ref")(*a), None))
+    for K_ in (smoke.K,) + smoke.K_BIG:
+        for B, tag in ((smoke.BATCH, ""), (1, " 1x2x513x863")):
+            s_inp = smoke._spectral_inputs(B, smoke.J, 513, 863, K_,
+                                           seed=3, device=device)
+            for name in ("fb_stats", "tw_stats"):
+                label = name + ("" if K_ == smoke.K else f" K={K_}") + tag
+                out.append((label,
+                            lambda n=name, a=s_inp:
+                            getattr(cuda_spectral, n)(*a),
+                            lambda n=name, a=s_inp:
+                            getattr(cuda_spectral, f"{n}_ref")(*a), None))
     return out
 
 
@@ -118,12 +122,15 @@ def run_side(name, directory, reps):
     info = _build.build()
     result = {"side": name, "dir": str(directory),
               "build_s": info["seconds"], "ms": {}, "err": {}, "info": {}}
-    for kernel, args in (("estep_r1_real", (smoke.J,)),
-                         ("tw_stats", (smoke.K, 513))):
+    for label, kernel, args in (
+            ("estep_r1_real", "estep_r1_real", (smoke.J,)),
+            ("tw_stats", "tw_stats", (smoke.K, 513))) + tuple(
+                (f"{n} K={k}", n, (k,) if n == "fb_stats" else (k, 513))
+                for k in smoke.K_BIG for n in ("fb_stats", "tw_stats")):
         try:        # a tree from before these entry points has none
-            result["info"][kernel] = _build.kernel_info(kernel, *args)
+            result["info"][label] = _build.kernel_info(kernel, *args)
         except AttributeError:
-            result["info"][kernel] = None
+            result["info"][label] = None
     for case, kernel, plain, tol in cases(smoke, device):
         err = _within(smoke, kernel(), plain(), tol)
         if not err <= 1.0:

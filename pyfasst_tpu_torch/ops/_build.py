@@ -149,9 +149,12 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     for name in ("pyfasst_fb_stats", "pyfasst_tw_stats"):
         fn = getattr(lib, name)
-        # xi FB TW vfloor, num den; B J F N K; stream
-        fn.argtypes = [p] * 6 + [i] * 5 + [p]
+        # xi FB TW vfloor, num den ws; B J F N K; stream
+        fn.argtypes = [p] * 7 + [i] * 5 + [p]
         fn.restype = i
+        fn = getattr(lib, f"{name}_workspace")
+        fn.argtypes = [i] * 5                   # B J F N K
+        fn.restype = ctypes.c_longlong
     for J in GENERAL_J:
         fn = getattr(lib, f"pyfasst_estep_j{J}_info")
         fn.argtypes = [i] * 3 + [p]             # rmax real_cov ns_inj; out

@@ -11,15 +11,23 @@ statistics without writing an (F, N) plane:
     fb_stats   (xi / Vc^2) TW^T and (1 / Vc) TW^T, (B, J, F, K)
     tw_stats   FB^T (xi / Vc^2) and FB^T (1 / Vc), (B, J, K, N)
 
-with V = FB TW rebuilt inside the kernel and Vc = max(V, vfloor). Each
+with V = FB TW formed inside the kernel and Vc = max(V, vfloor). Each
 launches its kernel on a CUDA tensor and runs its plain PyTorch version
 (``fb_stats_ref``, ``tw_stats_ref``) on a CPU tensor; there is no fallback
 on CUDA. ``LAUNCHES`` counts the kernels' launches by name. The kernels
-take any NMF rank K: up to 32 each thread keeps its K values and 2K sums in
-registers; above it the components go in chunks of 32 along a grid axis,
-V over all K rebuilt in each chunk (csrc/spectral.cu's wide kernels), one
-launch either way. ``eligible`` puts no bound on K, as the JAX package's
-does not (pallas_spectral.py:192-212).
+take any NMF rank K. Up to 32 each thread keeps its K values and 2K sums
+in registers. Above it one tiled kernel body serves both statistics, as the
+TPU kernels do (pallas_spectral.py:55-113): per tile of 16 output rows and
+64 positions of the contracted axis it forms V once over all K in register
+tiles, then q = xi / Vc^2 and d = 1 / Vc, then contracts them with the
+staged factor, again in register tiles. It is compute-bound: 6K + 5
+float32 operations per (b, j, f, n), held to the card's rate without FMA
+(--fmad=false). Past K = 64 the components go through it in chunks of 64
+within the block, V still formed once. Where a launch has too few blocks
+to fill the card (B = 1) the kernel splits the contracted axis and a second
+pass adds the segments' sums in order from a scratch buffer allocated
+here; one call either way, counted once. ``eligible`` puts no bound on K,
+as the JAX package's does not (pallas_spectral.py:192-212).
 """
 from __future__ import annotations
 
@@ -71,14 +79,21 @@ def _launch(name, xi, FB, TW, vfloor, out_shape):
     _check("vfloor", vfloor, (B, J), dev)
     from pyfasst_tpu_torch.ops import _build
 
-    fn = getattr(_build.load(), f"pyfasst_{name}")
+    lib = _build.load()
+    fn = getattr(lib, f"pyfasst_{name}")
+    # the split contracted axis' partial sums, when the launch splits it
+    # (-1: a shape the kernel refuses, as its launch then reports)
+    words = getattr(lib, f"pyfasst_{name}_workspace")(B, J, F, N, K)
     num = torch.empty(out_shape, dtype=torch.float32, device=dev)
     den = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    ws = (torch.empty(words, dtype=torch.float32, device=dev) if words > 0
+          else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(xi.data_ptr(), FB.data_ptr(), TW.data_ptr(),
                  vfloor.data_ptr(), num.data_ptr(), den.data_ptr(),
-                 B, J, F, N, K, stream)
+                 None if ws is None else ws.data_ptr(), B, J, F, N, K,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     if not torch.cuda.is_current_stream_capturing():

@@ -37,9 +37,15 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
       : x(x_), y(y_), z(z_) {}
 };
+struct alignas(8) float2 {
+  float x, y;
+};
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 
 inline thread_local uint3 threadIdx, blockIdx;
 inline thread_local dim3 blockDim, gridDim;

@@ -14,11 +14,16 @@ and estep_r1_real, the general E-step (J = 2 to 8, real and complex, ranks
 1, 2 and mixed, noise injection and each flag), tw_stats and fb_stats are
 held against their plain PyTorch versions at shapes that cross every tile
 edge of the kernels (one frame, 31 and 33 frames, fewer rows than a batch,
-two rows more than a chunk, K below, at and above KMAX in chunks of 32). Built with -ffp-contract=off, as nvcc builds
-with --fmad=false. It is a check of indexing, masking, barriers and the
-order of the sums, not of the card: the kernels' agreement on the card is
-held by tests/test_torch_cuda.py and chip_smoke.py. Skips where g++ or
--std=c++20 (std::barrier) is missing.
+two rows more than a chunk, K below, at and above KMAX; past K = 32 the
+tiled kernel's 16-row blocks, 64-position tiles, register budget of 64
+components, chunks of 64 past it and the split of the contracted axis).
+Built with -ffp-contract=off, as nvcc builds with --fmad=false. It is a
+check of indexing, masking, barriers and the order of the sums, not of
+the card: the kernels' agreement on the card is held by
+tests/test_torch_cuda.py and chip_smoke.py. The shim's cp.async copies at
+once, so a missing __pipeline_wait_prior or a barrier that does not cover
+a copy in flight shows only on the card. Skips where g++ or -std=c++20
+(std::barrier) is missing.
 
 Bars: chip_smoke.py's (xi 2e-4, frame sums 5e-4 relative with a floor of
 1e-3 of the output's largest entry, loglik 1e-4; the spectral kernels
@@ -88,7 +93,9 @@ def lib(tmp_path_factory):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.pyfasst_estep_r1_real.argtypes = [p] * 10 + [i] * 4 + [f] + [i] * 2 + [p]
     for name in ("pyfasst_fb_stats", "pyfasst_tw_stats"):
-        getattr(so, name).argtypes = [p] * 6 + [i] * 5 + [p]
+        getattr(so, name).argtypes = [p] * 7 + [i] * 5 + [p]
+        getattr(so, f"{name}_workspace").argtypes = [i] * 5
+        getattr(so, f"{name}_workspace").restype = ctypes.c_longlong
     so.pyfasst_estep_r1_real_info.argtypes = [i, p]
     for J in cuda_estep.GENERAL_J:
         getattr(so, f"pyfasst_estep_j{J}").argtypes = (
@@ -216,17 +223,23 @@ def test_general_estep_source_matches_plain_version(lib, J, ranks, real, ns,
 SPECTRAL = [(1, 2, 3, 1, 8), (1, 2, 13, 31, 5), (2, 1, 13, 33, 8),
             (1, 2, 70, 45, 16), (1, 1, 65, 17, 32), (1, 2, 130, 200, 8),
             (1, 1, 64, 16, 12), (1, 1, 258, 9, 8), (1, 1, 530, 5, 32),
-            # K past 32, the wide kernels: two chunks (33: one component in
-            # the second; 64: two whole), three ragged (100), across their
-            # 32-frame stages and strips (N = 1, 31, 33, 70) and 8-row
-            # tiles (F = 3, 13, 17)
+            # K past 32, the tiled kernel (blocks of 16 output rows: F for
+            # fb_stats, N for tw_stats; tiles of 64 positions of the other
+            # axis): K = 33, 40 (KPT 5), 48 (6), 56 (7), 63 and 64 (8) in
+            # registers; 65 and 100 two chunks of 64, 130 three (past the
+            # register budget: totals in the output); one row or one
+            # position past a block or a tile (16, 17, 64, 65, 129),
+            # N = 1, F = 3; splits of the contracted axis wherever a launch
+            # has fewer than 528 blocks: most of these, 1056 x 300 unevenly
+            # (fb_stats 3 segments of 2, 2, 1 tiles; tw_stats 9)
             (1, 2, 13, 33, 33), (2, 1, 17, 70, 64), (1, 1, 3, 1, 40),
-            (1, 2, 13, 31, 100)]
+            (1, 2, 13, 31, 100), (1, 2, 16, 64, 40), (1, 1, 17, 65, 63),
+            (2, 1, 33, 129, 64), (1, 2, 65, 17, 65), (1, 1, 15, 200, 100),
+            (1, 1, 70, 15, 130), (1, 2, 3, 1, 33), (1, 2, 1056, 300, 40),
+            (2, 1, 100, 127, 48), (1, 1, 50, 90, 56), (1, 2, 129, 1, 64)]
 
 
-@pytest.mark.parametrize("B,J,F,N,K", SPECTRAL)
-@pytest.mark.parametrize("kernel", ["fb_stats", "tw_stats"])
-def test_spectral_source_matches_plain_version(lib, kernel, B, J, F, N, K):
+def _spectral_case(B, J, F, N, K):
     rng = np.random.default_rng(F * N + K)
     FB = 0.5 + rng.random((B, J, F, K))
     TW = 0.5 + rng.random((B, J, K, N))
@@ -234,12 +247,51 @@ def test_spectral_source_matches_plain_version(lib, kernel, B, J, F, N, K):
     xi = V * (0.1 + rng.exponential(size=V.shape))
     vfloor = np.quantile(V, 0.3, axis=(2, 3))          # the clamp acts
     vfloor[0, 0] = 1e-30         # and a floor whose square underflows
-    inp = [_t(a) for a in (xi, FB, TW, vfloor)]
+    return [_t(a) for a in (xi, FB, TW, vfloor)]
+
+
+def _spectral_run(lib, kernel, inp, K):
+    """One launch through the C entry point, with the scratch it asks for;
+    (num, den), NaN wherever it wrote nothing."""
+    B, J, F, N = inp[0].shape
     shape = (B, J, F, K) if kernel == "fb_stats" else (B, J, K, N)
     got = [torch.full(shape, float("nan")) for _ in range(2)]
+    words = getattr(lib, f"pyfasst_{kernel}_workspace")(B, J, F, N, K)
+    assert words >= 0
+    ws = torch.full((words,), float("nan")) if words else None
     err = getattr(lib, f"pyfasst_{kernel}")(
-        *(t.data_ptr() for t in (*inp, *got)), B, J, F, N, K, None)
+        *(t.data_ptr() for t in (*inp, *got)),
+        None if ws is None else ws.data_ptr(), B, J, F, N, K, None)
     assert err == 0
+    return got
+
+
+@pytest.mark.parametrize("B,J,F,N,K", SPECTRAL)
+@pytest.mark.parametrize("kernel", ["fb_stats", "tw_stats"])
+def test_spectral_source_matches_plain_version(lib, kernel, B, J, F, N, K):
+    inp = _spectral_case(B, J, F, N, K)
+    got = _spectral_run(lib, kernel, inp, K)
+    want = getattr(cuda_spectral, f"{kernel}_ref")(*inp)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=0)
+    if K > 32:                   # the tiled kernel: fixed orders, no atomics
+        for g, a in zip(got, _spectral_run(lib, kernel, inp, K)):
+            assert torch.equal(g, a)
+
+
+# The split's threshold: a launch of 528 blocks (16-row blocks x B J) takes
+# the contracted axis whole; one of 526 splits it in two, its two segments'
+# sums added by the second pass from scratch. fb_stats' rows are F,
+# tw_stats' N; the other axis is 65 positions, two tiles.
+@pytest.mark.parametrize("rows,split", [(4224, 1), (4208, 2)])
+@pytest.mark.parametrize("kernel", ["fb_stats", "tw_stats"])
+def test_spectral_split_threshold_at_b1(lib, kernel, rows, split):
+    B, J, K = 1, 2, 40
+    F, N = (rows, 65) if kernel == "fb_stats" else (65, rows)
+    words = getattr(lib, f"pyfasst_{kernel}_workspace")(B, J, F, N, K)
+    assert words == (0 if split == 1 else split * 2 * B * J * rows * K)
+    inp = _spectral_case(B, J, F, N, K)
+    got = _spectral_run(lib, kernel, inp, K)
     want = getattr(cuda_spectral, f"{kernel}_ref")(*inp)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-5, atol=0)
@@ -254,10 +306,15 @@ def test_info_entry_points_answer(lib):
         assert lib.pyfasst_tw_stats_info(K, 513, out) == 0
         assert out[3] >= 513 * K * 4           # FB whole in shared memory
         assert lib.pyfasst_fb_stats_info(K, out) == 0
-    for K in (33, 64, 100):                      # the wide kernels
+    for K in (33, 40, 48, 56, 64, 65, 100, 1000):    # the tiled kernel
+        # Ct in two buffers of min(8 ceil(K / 8), 64) x 68 words, beside
+        # xi, q and d: shared memory does not grow past K = 64
+        kch = min(-(-K // 8) * 8, 64)
         assert lib.pyfasst_tw_stats_info(K, 513, out) == 0
-        assert out[3] >= (K + 64) * 32 * 4     # the strip's TW and sums
+        assert out[3] >= 2 * kch * 68 * 4 + 3 * 16 * 68 * 4
+        assert out[3] <= 56 * 1024
         assert lib.pyfasst_fb_stats_info(K, out) == 0
+    assert lib.pyfasst_fb_stats_workspace(0, 2, 9, 9, 40) == -1
     assert lib.pyfasst_tw_stats_info(8, 0, out) != 0
     assert lib.pyfasst_fb_stats_info(0, out) != 0
     for J in cuda_estep.GENERAL_J:
