@@ -19,7 +19,9 @@ _graph_ms (CUDA-graph replay: device time), the same ruler for every side:
 estep_r1_real (variant a, and with fast_recip and no_ll) at B = 8,
 F = 513, N = 863, and variant a at the host API's B = 1; the general
 kernel's GENERAL_CASES at the bench shape and at the conv paths' own
-(B = 1, F = 513, N = 189); fb_stats and tw_stats at the bench shape (B = 8,
+(B = 1, F = 513, N = 189), 1c at the configs[2] bucket and blind pool, 1c'
+at the speech pool and the music coarse stage, and its WIDE_CASES (J = 5
+to 8) at the bench shape and at phase 19's path shapes; fb_stats and tw_stats at the bench shape (B = 8,
 J = 2, F = 513, N = 863, K = 8) and at B = 1, and the same at each K of
 chip_smoke.K_BIG (40 and 64: the tiled kernel past 32). The sides run in
 turns, forward and then backward (this, parent, parent, this), --rounds
@@ -91,6 +93,40 @@ def cases(smoke, device):
                                           real, seed=2, device=device)
             kw = dict(ns_inj=ns, real_cov=real)
             out.append((f"1{key} {label} {'x'.join(map(str, shape))}",
+                        lambda a=g_inp, r=ranks, k=kw:
+                        cuda_estep.estep_general(*a, r, **k),
+                        lambda a=g_inp, r=ranks, k=kw:
+                        cuda_estep.estep_ref(*a, r, **k), tol))
+    # 1c at phase 9's bucket and phase 16's pool, and 1c' (J = 3, ranks
+    # (2, 2, 2)) at the speech preset's pool and the music preset's coarse
+    # stage and its reseeds (phase 17)
+    c_tol = dict(smoke.TOL, xi=3e-4)
+    for name, ranks, shape in (
+            ("1c complex J=4 rank 2", (2,) * 4,
+             (len(smoke.CONV_BATCH_SEEDS["reverb"]), 513,
+              smoke.padded_frames(smoke.conv_frames()))),
+            ("1c complex J=4 rank 2", (2,) * 4,
+             (smoke.POOL_CHUNK, 513, smoke.conv_frames())),
+            ("1c' complex J=3 rank 2", (2,) * 3,
+             (smoke.POOL_CHUNK, 1025, 158)),
+            ("1c' complex J=3 rank 2", (2,) * 3, (6, 4097, 66)),
+            ("1c' complex J=3 rank 2", (2,) * 3, (2, 4097, 66))):
+        g_inp = smoke._general_inputs(shape[0], len(ranks), *shape[1:],
+                                      ranks, False, seed=2, device=device)
+        out.append((f"{name} {'x'.join(map(str, shape))}",
+                    lambda a=g_inp, r=ranks: cuda_estep.estep_general(*a, r),
+                    lambda a=g_inp, r=ranks: cuda_estep.estep_ref(*a, r),
+                    c_tol))
+    # the general kernel at J = 5 to 8 (WIDE_CASES): the bench shape, and
+    # phase 19's path shape where a case has one
+    paths = smoke.wide_path_shapes()
+    for key, label, J_, ranks, real, ns, path in smoke.WIDE_CASES:
+        tol = dict(smoke.TOL, xi=3e-4 if max(ranks) == 2 else smoke.TOL["xi"])
+        for shape in (bench,) + ((paths[path],) if path else ()):
+            g_inp = smoke._general_inputs(*shape[:1], J_, *shape[1:], ranks,
+                                          real, seed=2, device=device)
+            kw = dict(ns_inj=ns, real_cov=real)
+            out.append((f"1g {label} {'x'.join(map(str, shape))}",
                         lambda a=g_inp, r=ranks, k=kw:
                         cuda_estep.estep_general(*a, r, **k),
                         lambda a=g_inp, r=ranks, k=kw:

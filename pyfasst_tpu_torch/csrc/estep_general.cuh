@@ -3,7 +3,7 @@
 // CUDA C++ for sm_90a.
 //
 // Replaces the TPU kernel pyfasst_tpu/ops/pallas_estep.py::_make_kernel
-// (launched by pallas_estep, pallas_estep.py:379) in its variants
+// (body :108, launched by pallas_estep at :449) in its variants
 //   b  real_cov=False      complex (convolutive) mixing,
 //   c  ranks (2, ...) and mixed ranks (1, 2, ...),
 //   d  ns_inj=True         (pallas_estep.py:235-237, 252-255, 313-315,
@@ -15,78 +15,90 @@
 //   f  no_ll=True          log det Sigma_x left out of the loglik (:239),
 // which are runtime flags, uniform per launch (no divergence, no more
 // instantiations). Variant a (ranks all 1, real mixing, no ns_inj) keeps
-// its own kernel, estep.cu. Per (f, n) bin it computes what
-// _make_kernel computes: the spatial invariants of the mixing columns
+// its own kernel, estep.cu, at J = 2 and 3. Per (f, n) bin it computes
+// what _make_kernel computes: the spatial invariants of the mixing columns
 // (packed R_j, tr R_j, the Lagrange cross terms X_jk); the subtract-free
-// det Sigma_x; y = Sigma_x^-1 x; w_jr = A_jr^H y and Sigma_x^-1 A_jr; the
-// leave-one-out Woodbury posterior through S_j = sigma I + sum_{k!=j} v_k
-// R_k (a scalar 1 / (1 + v M00) for rank 1, the closed-form inverse of
-// G = I + v M with dG = max(g00 g11 - |g01|^2, 1) for rank 2); xi_j; and
-// the frame-reduced Txs, Tss, T4, T7 and loglik, with the ns_inj
-// corrections sigma Sigma_x^-1 A when asked.
+// det Sigma_x; y = Sigma_x^-1 x; w_jr = A_jr^H y and z_jr = Sigma_x^-1
+// A_jr; the leave-one-out Woodbury posterior through S_j = sigma I +
+// sum_{k!=j} v_k R_k (a scalar 1 / (1 + v M00) for rank 1, the closed-form
+// inverse of G = I + v M with dG = max(g00 g11 - |g01|^2, 1) for rank 2);
+// xi_j; and the frame-reduced Txs, Tss, T4, T7 and loglik, with the ns_inj
+// corrections sigma Sigma_x^-1 A when asked. The TPU kernel forms each
+// frame sum as a frame-axis sum of its tile (rsum, pallas_estep.py:159-163,
+// :286-303, :308-359), which these kernels contract over the row's frames.
 //
-// Design. One block of four warps owns one (b, f) row of the plane; its
-// warps take the row's tiles of 32 frames in turn (warp w: tiles w, w + 4,
-// ...), lane = frame: each lane loads its frame's x4 and v (coalesced),
-// computes Sigma_x, y, w_jr, z_jr = Sigma_x^-1 A_jr, the leave-one-out
-// posterior and xi (stored), and forms its frame's terms of the row's frame
-// sums by the formulas of the Pallas kernel. Where the sums live depends on
-// how many there are (Slots::COUNT, Plan::REG):
-//   - up to kRegSums = 40 (J <= 3 at rank 1): in registers, each lane its
-//     own running sums over its frames, and the next tile's x4 and v are
-//     loaded while this one is computed. At the end of the row the lanes'
-//     sums go through the warp's tile (below) once, lanes in order.
-//   - more (J = 4 at rank 2, and every J >= 5: 224 sums at J = 4 rank 2,
-//     T4 16, Txs 32, Tss 80, T7 96; 832 at J = 8 rank 2, T4 32, Txs 64,
-//     Tss 288, T7 448): through the warp's tile in shared memory, 32 sums at
-//     a time. w_jr and z_jr go into a per-warp buffer (feature-major, lane
-//     = frame) as phase 1 forms them; then, chunk by chunk, each lane forms
-//     its frame's products for the chunk's 32 sums from the buffer and
-//     stores them in tile[sum][frame] (row stride 33 words: conflict-free
-//     both ways), and lane = sum adds its row of the tile, frames in order,
-//     to a register. The T4 terms go straight into the first chunk's rows.
-// So each frame sum lives in registers (one per lane per chunk in the
-// tiled case: 7 at J = 4 rank 2, 26 at J = 8 rank 2), and shared memory
-// sees one store and one load per product, with no read-modify-write. A
-// block holds 17 KB of tiles, static, and 3 KB of buffer per source and
-// rank, dynamic (up to 48 KB at J = 8 rank 2; the runtime is asked once
-// per instantiation for what passes its 48 KB default);
-// __launch_bounds__(128, 4) holds a thread to 128 registers, so up to four
-// blocks (16 warps) fit on an SM, with 16 B of spill at J = 4 rank 2; at
-// J >= 7 rank 2 shared memory holds an SM to three blocks, and
-// __launch_bounds__(128, 3) lets a thread have 168 registers
-// (chip_smoke.py phase 1 prints each instantiation's resident warps,
-// registers, local and shared bytes). J runs from 2 to 8: the T4 sums of
-// every source lie in the first chunk of 32 (J * 4 at rank 2). The
-// loglik's per-lane sums end in a shuffle tree. At the end of the row the
-// four warps' sums are added in warp order through shared memory: a fixed
-// order, no atomics, the same results from run to run. The row's mixing
-// columns and their invariants are computed once per block into shared
-// memory, spread over the threads (one (source, column, channel) entry per
-// thread, then one R_j or X_jk per thread). Ragged edges: a lane past N
-// loads nothing (a select gives 0) and stores no xi; its loglik term and,
-// in registers, its sums' terms are selected to 0, and a tile's sums stop
-// at its last frame. Only j <= k of Tss is summed: Tss_kj = Tss_jk^H holds
-// bit for bit, since both are formed from the same products; T7 has no
-// such exact symmetry and is summed for every j != k.
+// One block of four warps owns one (b, f) row of the plane: GPU blocks run
+// in no order, so the row's frame sums never leave the block. Two designs,
+// by how many sums a row has (Slots::COUNT):
+//
+// REG (estep_reg_kernel; up to kRegSums = 40: J <= 3 at rank 1). The warps
+// take the row's tiles of 32 frames in turn, lane = frame; each lane keeps
+// every sum of its frames in registers, and the next tile's x4 and v are
+// loaded while this one is computed. At the end of the row the lanes' sums
+// go through the warp's 32 x 33 tile once, lanes in order.
+//
+// FRAMES (estep_frames_kernel; every other instantiation: J = 2, 3 at rank
+// 2, J >= 4). The block takes the row's tiles of kFrames = 128 frames.
+//   Phase 1, thread = frame, is the Pallas arithmetic term by term
+//   (frame_terms: REG's, the leave-one-out sums per source): it writes the
+//   frame's features into the block's tile in shared memory, feature-major
+//   with frames contiguous: x (4 words), then per source j a block of v_j,
+//   w_jr (2 R words), z_jr (4 R, or 2 R with real mixing) and the T4 terms
+//   (1 or 4), padded to an odd length (Feats). A frame past N writes
+//   zeros, so it adds nothing to any sum.
+//   Phase 2: each frame sum is owned by one thread for the whole row. The
+//   sums fall into owners of three roles: Tss_jk (j <= k, all r, s: v_j,
+//   v_k, w_j, w_k), T7_jk (j != k, all r, s: v_j, v_k, z_k, and A_j in
+//   registers) and source j's Txs and T4 (v_j, x, w_j, its T4 terms). A
+//   role cuts the block into kFrames / L groups of L lanes (Split picks L
+//   per role and instantiation, below); lane u of a group owns owners u,
+//   u + L, ... (its slots) over its group's share of the tile's quads of
+//   four frames, split evenly over the groups in every tile, the last,
+//   ragged one too, so no group idles while another has a full share. Per four
+//   frames a thread loads each operand of its owner once, as a float4, and
+//   forms all of the owner's products from them, in the Pallas forms.
+//   Ownership is a function of the thread index alone, fixed for the row:
+//   slots unrolled at compile time, no runtime slot test, no array indexed
+//   at run time. The next tile's x4 and v load while T7 and the sources'
+//   sums run.
+//   Sums in two levels: an owner adds its frames in order into a tile
+//   partial, then the partial into its running total (a register). At the
+//   end of the row the groups' totals are added in group order, and the
+//   loglik (each thread over its frames, a shuffle tree, then the warps in
+//   order) as in REG: fixed orders, no atomics, the same bits from run to
+//   run.
+// Split weighs each role's idle lanes against its set-up per owner, from
+// issue slots per frame and per owner (Role), within kTotRegs running
+// totals a thread, so no J needs a limit of its own. Busy share of phase 2 (owners x quads over threads x
+// the quads of the busiest thread), by role Tss / T7 / source: J = 5 94 /
+// 83 / 62% (15, 20 and 5 lanes), J = 6 88 / 94 / 75%, J = 7 88 / 95 / 88%
+// (ranks 1 and 2 alike, one slot each); J = 8 real rank 1 and rank 2 90 /
+// 88 / 100% (two Tss slots of 18 lanes, 56, 8), complex rank 1 90 / 100 /
+// 100% (seven T7 slots of 8 lanes). Shared memory is the tile, (4 + J
+// blocks) x 132 words: at J = 8 rank 2, 140 x 528 B = 72 KB, three
+// blocks (12 warps) to an SM.
 //
 // Numerics follow the Pallas forms term by term: the subtract-free dets of
 // Sigma_x and of each S_j, the rank-2 dG clamp and coef = (g00 + g11)/dG,
 // xi / rank, exact IEEE divides and logf; built with --fmad=false (see
-// estep.cu) so that every product rounds as in the plain version. With
-// real mixing (REAL) the imaginary parts of the mixing columns and of
-// everything derived from them are zero; `if constexpr (REAL)` drops that
-// arithmetic, as the Pallas symbolic-zero algebra does.
+// estep.cu) so that every product rounds as in the plain version; xi has
+// no sum in it and keeps the plain version's bits. Each product is formed
+// as the Pallas kernel forms it (vv = v_j v_k, then vv * pr); only the
+// order of the frame sums is the kernel's own. With real mixing (REAL) the
+// imaginary parts of the mixing columns and of z are zero; `if constexpr
+// (REAL)` drops that arithmetic, as the Pallas symbolic-zero algebra does.
+// Only j <= k of Tss is summed: Tss_kj = Tss_jk^H holds bit for bit, since
+// both are written from the same sums; T7 has no such exact symmetry and
+// is summed for every j != k.
 //
 // What bounds it on an H100: per bin it reads x4 (16 B) and v (4 B per
-// source) and writes xi (4 B per source), against ~800 (J = 3, rank 1) to
-// ~4,400 (J = 4, rank 2, ns_inj) float32 operations counted in its plain
-// version, so the rank-2 cases are bound by operations, and with
-// --fmad=false each multiply and add issues on its own: half the card's
-// FMA rate is open to them. On top of those come the exact divides, logf,
-// the selects and the shared-memory traffic of the sums, so the kernel is
-// bound by instruction issue; at J = 4 rank 2 it runs at about twice the
-// time that the operations alone would take at that half rate (PERF.md).
+// source) and writes xi (4 B per source), against ~1,200 (J = 5, real rank
+// 1) to ~10,000 (J = 8, rank 2) float32 operations counted in its plain
+// version: bound by operations, and with --fmad=false each multiply and add
+// issues on its own, so the yardstick is the floor at half the card's FMA
+// rate. On top of the operations come the exact divides, logf, the loads
+// of phase 2 and its idle lanes: the kernel is bound by instruction issue
+// (kernel_sass.py); at J = 8 rank 2 it runs at ~1.4x that floor (PERF.md).
 //
 // Layouts (float32, contiguous), with the clip axis B; Rmax = max rank:
 //   x4    (B, 4, F, N)        [Re x0, Im x0, Re x1, Im x1]
@@ -110,15 +122,24 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 #include "recip.cuh"
 
 namespace pyfasst_general {
 
 constexpr int kGenWarps = 4;
 constexpr int kGenThreads = 32 * kGenWarps;
-constexpr int kRegSums = 40;      // at most this many sums: in registers
-constexpr int kTile = 32;         // frames per warp tile, sums per chunk
+constexpr int kRegSums = 40;      // at most this many sums: REG
+constexpr int kTile = 32;         // REG: frames per warp tile
 constexpr int kTileStride = kTile + 1;
+constexpr int kFrames = kGenThreads;      // FRAMES: frames per tile
+// words per feature row of the tile: 16-byte rows whose starts step by one
+// 16-byte bank group (132 / 4 = 33 is odd), so eight lanes loading a float4
+// of eight features with distinct indices mod 8 hit distinct banks
+constexpr int kFeatStride = kFrames + 4;
+constexpr int kTotRegs = 48;      // FRAMES: running totals a thread keeps
+constexpr int kSmemPerSM = 228 * 1024;    // an H100 SM's shared memory
 
 struct cf {
   float re, im;
@@ -153,7 +174,8 @@ __device__ __forceinline__ void herm_apply(float a, float d, cf b, float rinv,
   y1 = cf{rinv * (a * u1.re - cbu0.re), rinv * (a * u1.im - cbu0.im)};
 }
 
-// Frame sums of one (b, f) row (the loglik is summed apart, per lane).
+// Frame sums of one (b, f) row, in the order the outputs are read from
+// (the loglik is summed apart).
 template <int J, int R>
 struct Slots {
   static constexpr int PAIRS = J * (J + 1) / 2;   // Tss, j <= k
@@ -166,6 +188,7 @@ struct Slots {
   static constexpr int COUNT = T7 + OFFD * R * R * 2;
   static constexpr int LL = COUNT;                    // in the block's sums
   static constexpr int CHUNKS = (COUNT + kTile - 1) / kTile;
+  static constexpr bool REG = COUNT <= kRegSums;
   __device__ static constexpr int pair(int j, int k) {  // j <= k
     return j * J - j * (j - 1) / 2 + (k - j);
   }
@@ -174,9 +197,19 @@ struct Slots {
   }
 };
 
+// The sources' ranks, from the launch's rank mask (bit j: source j has
+// rank 2); computed where read, so no array of them is indexed at run time.
+template <int J, int R>
+struct Ranks {
+  int mask;
+  __device__ int operator[](int j) const {
+    return (R == 2 && ((mask >> j) & 1)) ? 2 : 1;
+  }
+};
+
 // Per-row spatial invariants, derived from the mixing columns.
 template <int J, int R>
-struct Row {
+struct __align__(16) Row {
   cf A[J][R][2];  // A_j[:, r] = (A0, A1)
   float Ra[J], Rd[J], trR[J];
   cf Rb[J];
@@ -185,14 +218,13 @@ struct Row {
 };
 
 // The row's invariants, spread over the block: one (j, r, channel) entry
-// of the mixing columns per thread, then one R_j or one X_jk per thread.
-// Ends with the block synchronised.
-template <int J, int R, bool REAL>
+// of the mixing columns per thread, then one R_j or one X_jk per thread
+// (rk[j]: source j's rank). Ends with the block synchronised.
+template <int J, int R, bool REAL, class Rk>
 __device__ __forceinline__ void row_constants(Row<J, R>& c,
                                               const float* __restrict__ A4,
-                                              size_t a_stride,
-                                              const int (&rk)[J], float sig,
-                                              int tid) {
+                                              size_t a_stride, const Rk& rk,
+                                              float sig, int tid) {
   if (tid < J * R * 2) {
     const int j = tid / (2 * R), r = (tid / 2) % R, ch = tid % 2;
     const float* a = A4 + j * a_stride + 4 * r + 2 * ch;
@@ -251,43 +283,220 @@ struct Args {
   bool fast_recip, no_ll;
 };
 
-// How a row's frame sums are kept (see the head of this file).
-template <int J, int R>
-struct Plan {
-  using S = Slots<J, R>;
-  // each lane keeps all of the row's sums for its frames in registers
-  static constexpr bool REG = S::COUNT <= kRegSums;
-  // otherwise w_jr and z_jr go through a per-warp buffer, feature-major
-  static constexpr int NF = REG ? 1 : 6 * J * R;
-  static constexpr int W = 0;          // w_jr: 2 words at 2 (j R + r)
-  static constexpr int Z = 2 * J * R;  // z_jr: 4 words at Z + 4 (j R + r)
-};
+template <int J, int R, bool REAL, bool NS>
+struct Split;  // FRAMES' choices per instantiation (below)
 
-// Resident blocks per SM asked of ptxas: four (at most 128 registers a
-// thread), or three where the block's shared memory (tiles and w/z
-// buffers, past 56 KB: J >= 7 at rank 2) already holds the SM to three,
-// which leaves a thread 168 registers instead of spilling.
-template <int J, int R>
-constexpr int kGenMinBlocks =
-    kGenWarps * (Plan<J, R>::NF * kTile + kTile * kTileStride) * 4 >
-            56 * 1024
-        ? 3
-        : 4;
+// Phase 1 for one frame (x0, x1; v): Sigma_x, its subtract-free det, y, the
+// loglik term (returned), and per source j: w_jr = A_jr^H y and z_jr =
+// Sigma_x^-1 A_jr (zero past the rank), the leave-one-out posterior, the
+// T4 terms (1 / den for rank 1, v G^-1 for rank 2) and xi, stored at
+// xi[j FN] where valid. out(j, w_j, z_j, t4_j) takes source j's features.
+template <int J, int R, bool REAL, bool NS, class Out>
+__device__ __forceinline__ float frame_terms(
+    const Row<J, R>& c, Ranks<J, R> rk, cf x0, cf x1, const float (&v)[J],
+    float sig, float eps, bool fast, bool no_ll, bool valid, float* xi,
+    size_t FN, Out&& out) {
+  constexpr int NT4 = Slots<J, R>::NT4;
+  // Sigma_x = sig I + sum_k v_k R_k and its subtract-free determinant, and
+  // for every source j the leave-one-out S_j = sig I + sum_{k != j} v_k
+  // R_k, summed per source as the Pallas kernel writes them
+  float sa = 0.f, sd = 0.f, lin = 0.f, quad = 0.f;
+  cf sb{0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    sa += v[j] * c.Ra[j];
+    sd += v[j] * c.Rd[j];
+    sb.re += v[j] * c.Rb[j].re;
+    if constexpr (!REAL) sb.im += v[j] * c.Rb[j].im;
+    lin += v[j] * c.trR[j];
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int k = 0; k < J; ++k) quad += v[j] * v[k] * c.Xc[j][k];
+  }
+  float la[J], ld[J], lbr[J], lbi[J], llin[J], lquad[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    la[j] = ld[j] = lbr[j] = lbi[j] = llin[j] = lquad[j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < J; ++k) {
+      if (k == j) continue;
+      la[j] += v[k] * c.Ra[k];
+      ld[j] += v[k] * c.Rd[k];
+      lbr[j] += v[k] * c.Rb[k].re;
+      if constexpr (!REAL) lbi[j] += v[k] * c.Rb[k].im;
+      llin[j] += v[k] * c.trR[k];
+    }
+#pragma unroll
+    for (int k = 0; k < J; ++k) {
+#pragma unroll
+      for (int l = 0; l < J; ++l) {
+        if (k == j || l == j) continue;
+        lquad[j] += v[k] * v[l] * c.Xc[k][l];
+      }
+    }
+  }
+  const float a = sig + sa;
+  const float d = sig + sd;
+  const float det = sig * sig + sig * lin + 0.5f * quad;
+  const float rinv = pyfasst::recip(det, fast);
+
+  cf y0, y1;
+  herm_apply<REAL>(a, d, sb, rinv, x0, x1, y0, y1);
+  float tr = fmaxf((x0.re * y0.re + x0.im * y0.im)
+                   + (x1.re * y1.re + x1.im * y1.im), 0.0f);
+  if constexpr (NS) tr = tr + sig * (a + d) * rinv;
+  const float llt = no_ll ? tr : logf(det) + tr;
+
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    cf wj[R], zj[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      wj[r] = cf{0.f, 0.f};
+      zj[r][0] = zj[r][1] = cf{0.f, 0.f};
+      if (r < rk[j]) {
+        const cf p = cmul_conj<REAL>(c.A[j][r][0], y0);
+        const cf q = cmul_conj<REAL>(c.A[j][r][1], y1);
+        wj[r] = cf{p.re + q.re, p.im + q.im};
+        herm_apply<REAL>(a, d, sb, rinv, c.A[j][r][0], c.A[j][r][1],
+                         zj[r][0], zj[r][1]);
+      }
+    }
+
+    float trCR = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < rk[j]) trCR += cabs2(wj[r]);
+    if constexpr (NS) {
+      float zz = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (r < rk[j]) zz += cabs2(zj[r][0]) + cabs2(zj[r][1]);
+      trCR = trCR + sig * zz;
+    }
+
+    // S_j's subtract-free det
+    const cf lb{lbr[j], REAL ? 0.f : lbi[j]};
+    const float aS = sig + la[j];
+    const float dS = sig + ld[j];
+    const float detS = sig * sig + sig * llin[j] + 0.5f * lquad[j];
+    const float rinvS = pyfasst::recip(detS, fast);
+
+    // M_rs = A_jr^H S_j^-1 A_js
+    cf sj[R][2];
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      if (s < rk[j])
+        herm_apply<REAL>(aS, dS, lb, rinvS, c.A[j][s][0], c.A[j][s][1],
+                         sj[s][0], sj[s][1]);
+    auto M = [&](int r, int s) {
+      const cf p = cmul_conj<REAL>(c.A[j][r][0], sj[s][0]);
+      const cf q = cmul_conj<REAL>(c.A[j][r][1], sj[s][1]);
+      return cf{p.re + q.re, p.im + q.im};
+    };
+
+    // the T4 terms: 1 / den for rank 1, v G^-1 for rank 2
+    const float vj = v[j];
+    float coef = 0.f;
+    float t4[NT4];
+    bool rank1 = true;
+    if constexpr (R == 2) rank1 = rk[j] == 1;
+    if (rank1) {
+      const float den = 1.0f + vj * M(0, 0).re;
+      coef = pyfasst::recip(den, fast);
+      t4[0] = vj / den;
+#pragma unroll
+      for (int q = 1; q < NT4; ++q) t4[q] = 0.f;
+    } else if constexpr (R == 2) {
+      const cf m01 = M(0, 1);
+      const float g00 = 1.0f + vj * M(0, 0).re;
+      const float g11 = 1.0f + vj * M(1, 1).re;
+      const cf g01{vj * m01.re, REAL ? 0.f : vj * m01.im};
+      float gg = g01.re * g01.re;
+      if constexpr (!REAL) gg += g01.im * g01.im;
+      const float dG = fmaxf(g00 * g11 - gg, 1.0f);
+      const float rG = pyfasst::recip(dG, fast);
+      coef = (g00 + g11) * rG;
+      t4[0] = vj * g11 * rG;
+      t4[1] = vj * g00 * rG;
+      t4[2] = -vj * g01.re * rG;
+      t4[3] = REAL ? 0.f : -vj * g01.im * rG;
+    }
+    out(j, wj, zj, t4);
+    if (valid)
+      xi[j * FN] = fmaxf((vj * vj * trCR + vj * coef) / (float)rk[j], eps);
+  }
+  return llt;
+}
+
+// The packed outputs of one row from its totals `red` (Slots order, the
+// loglik at Slots::LL), zero-padded past each source's rank (rk[j]:
+// source j's rank): thread j < J writes source j's Txs and T4, thread
+// 32 + j J + k the (j, k) blocks of Tss and T7.
+template <int J, int R, bool REAL, class Rk>
+__device__ __forceinline__ void write_outputs(const Args& g, const float* red,
+                                              const Rk& rk, int b, int f,
+                                              int row, int tid) {
+  using S = Slots<J, R>;
+  const int F = g.F;
+  if (tid == 0) g.ll[row] = red[S::LL];
+  if (tid < J) {
+    const int j = tid;
+    const size_t o = (((size_t)b * J + j) * F + f);
+    float* tx = g.txs + o * 4 * R;
+    for (int r = 0; r < R; ++r)
+      for (int q = 0; q < 4; ++q)
+        tx[4 * r + q] = (r < rk[j]) ? red[S::TXS + (j * R + r) * 4 + q] : 0.f;
+    float* t4o = g.t4 + o * 4;
+    for (int q = 0; q < 4; ++q)
+      t4o[q] = (rk[j] == 1) ? (q == 0 ? red[S::T4 + j * S::NT4] : 0.f)
+                            : red[S::T4 + j * S::NT4 + q];
+  }
+  if (tid >= 32 && tid < 32 + J * J) {
+    const int j = (tid - 32) / J, k = (tid - 32) - j * J;
+    const size_t o = ((((size_t)b * J + j) * J + k) * F + f) * 2 * R * R;
+    float* ts = g.tss + o;
+    float* t7o = g.t7 + o;
+    for (int i = 0; i < 2 * R * R; ++i) {
+      ts[i] = 0.f;
+      t7o[i] = 0.f;
+    }
+    for (int r = 0; r < rk[j]; ++r) {
+      for (int s = 0; s < rk[k]; ++s) {
+        const int i = 2 * (r * rk[k] + s);
+        if (j <= k) {
+          const int p = S::TSS + (S::pair(j, k) * R * R + r * R + s) * 2;
+          ts[i] = red[p];
+          ts[i + 1] = red[p + 1];
+        } else {  // Tss_jk = Tss_kj^H
+          const int p = S::TSS + (S::pair(k, j) * R * R + s * R + r) * 2;
+          ts[i] = red[p];
+          ts[i + 1] = -red[p + 1];
+        }
+        if (j != k) {
+          const int p = S::T7 + (S::offd(j, k) * R * R + r * R + s) * 2;
+          t7o[i] = red[p];
+          t7o[i + 1] = REAL ? 0.f : red[p + 1];
+        }
+      }
+    }
+  }
+}
+
+// -- REG -------------------------------------------------------------------
 
 template <int J, int R, bool REAL, bool NS>
-__global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
-    estep_general_kernel(Args g) {
+__global__ void __launch_bounds__(kGenThreads, 4)
+    estep_reg_kernel(Args g) {
   using S = Slots<J, R>;
-  using P = Plan<J, R>;
   __shared__ Row<J, R> c;
   // the warps' tiles; at the end of the row, the warps' sums
   __shared__ float tiles[kGenWarps][kTile * kTileStride];
-  // the warps' w/z buffers, [kGenWarps][P::NF * kTile] (dynamic: 48 KB at
-  // J = 8 rank 2, beside the tiles, past the 48 KB of static memory)
-  extern __shared__ __align__(16) float feats[];
-  static_assert(kGenWarps * (S::COUNT + 1) <= kGenWarps * kTile * kTileStride,
-                "the block's sums must fit in the tiles");
-  static_assert(J * S::NT4 <= kTile, "T4 must lie in the first chunk");
+  static_assert(S::REG && kGenWarps * (S::COUNT + 1) <=
+                              kGenWarps * kTile * kTileStride,
+                "REG: a frame's sums in registers, the block's in the tiles");
   static_assert(J * R * 2 <= kGenThreads && J + J * J <= kGenThreads &&
                     32 + J * J <= kGenThreads,
                 "one thread per mixing entry, invariant and output block");
@@ -313,15 +522,14 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
   const float* vrow = g.v + (size_t)b * J * FN + (size_t)f * N;
   float* xirow = g.xi + (size_t)b * J * FN + (size_t)f * N;
   float* tile = tiles[warp];
-  float* feat = feats + warp * P::NF * kTile;
   const float sig = c.sig;
   const float eps = g.eps;
   const bool fast = g.fast_recip;
 
-  // Moves 32 sums at a time from the lanes into registers of lane = sum:
-  // emit(in_chunk, put) puts each sum's value of this lane's frame into
-  // the tile; then each lane adds the first `count` frames of its row of
-  // the tile, in order, to acc[chunk].
+  // Moves the lanes' sums into registers of lane = sum, 32 at a time:
+  // emit(in_chunk, put) puts each of this lane's sums into the tile; then
+  // each lane adds the first `count` lanes' values of its row of the
+  // tile, in order, to acc[chunk]. At the end of the row only.
   float acc[S::CHUNKS];
 #pragma unroll
   for (int ch = 0; ch < S::CHUNKS; ++ch) acc[ch] = 0.f;
@@ -346,14 +554,14 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
     }
   };
 
-  float racc[P::REG ? S::COUNT : 1];  // REG: lane = frame, its frame sums
+  float racc[S::COUNT];  // lane = frame, its frame sums
 #pragma unroll
-  for (int s = 0; s < (P::REG ? S::COUNT : 1); ++s) racc[s] = 0.f;
-  float ll_acc = 0.f;                 // lane = frame: its loglik terms
+  for (int s = 0; s < S::COUNT; ++s) racc[s] = 0.f;
+  float ll_acc = 0.f;    // lane = frame: its loglik terms
 
-  // REG: the next tile's x4 and v are loaded while this one is computed
+  // the next tile's x4 and v are loaded while this one is computed
   float px[4], pv[J];
-  if constexpr (P::REG) {
+  {
     const int n = warp * kTile + lane;
     const bool valid = n < N;
 #pragma unroll
@@ -369,7 +577,7 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
     // -- phase 1, lane = frame ------------------------------------------------
     cf x0, x1;
     float v[J];
-    if constexpr (P::REG) {
+    {
       x0 = cf{px[0], px[1]};
       x1 = cf{px[2], px[3]};
 #pragma unroll
@@ -380,11 +588,6 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
       for (int q = 0; q < 4; ++q) px[q] = vn ? xrow[q * FN + nn] : 0.f;
 #pragma unroll
       for (int j = 0; j < J; ++j) pv[j] = vn ? vrow[j * FN + nn] : 0.f;
-    } else {
-      x0 = cf{valid ? xrow[n] : 0.f, valid ? xrow[FN + n] : 0.f};
-      x1 = cf{valid ? xrow[2 * FN + n] : 0.f, valid ? xrow[3 * FN + n] : 0.f};
-#pragma unroll
-      for (int j = 0; j < J; ++j) v[j] = valid ? vrow[j * FN + n] : 0.f;
     }
 
     // Sigma_x = sig I + sum_j v_j R_j and its subtract-free determinant
@@ -417,8 +620,8 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
     ll_acc += valid ? llt : 0.f;
 
     // per source: w_jr = A_jr^H y and z_jr = Sigma_x^-1 A_jr (zero past the
-    // rank), kept for phase 2 in registers (REG) or in the warp's buffer
-    cf w[P::REG ? J : 1][R], z[P::REG ? J : 1][R][2];
+    // rank), kept for phase 2 in registers
+    cf w[J][R], z[J][R][2];
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       cf wj[R], zj[R][2];
@@ -433,19 +636,10 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
           herm_apply<REAL>(a, d, sb, rinv, c.A[j][r][0], c.A[j][r][1],
                            zj[r][0], zj[r][1]);
         }
-        if constexpr (P::REG) {
+        {
           w[j][r] = wj[r];
           z[j][r][0] = zj[r][0];
           z[j][r][1] = zj[r][1];
-        } else {
-          float* fw = feat + (P::W + 2 * (j * R + r)) * kTile + lane;
-          fw[0] = wj[r].re;
-          fw[kTile] = wj[r].im;
-          float* fz = feat + (P::Z + 4 * (j * R + r)) * kTile + lane;
-          fz[0] = zj[r][0].re;
-          fz[kTile] = zj[r][0].im;
-          fz[2 * kTile] = zj[r][1].re;
-          fz[3 * kTile] = zj[r][1].im;
         }
       }
 
@@ -529,10 +723,7 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
 #pragma unroll
       for (int q = 0; q < S::NT4; ++q) {
         const int slot = S::T4 + j * S::NT4 + q;
-        if constexpr (P::REG)
-          racc[slot] += valid ? t4[q] : 0.f;
-        else  // the first chunk's rows of the tile
-          tile[slot * kTileStride + lane] = t4[q];
+        racc[slot] += valid ? t4[q] : 0.f;
       }
       if (valid)
         xirow[j * FN + n] =
@@ -541,16 +732,8 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
 
     // -- phase 2: the products of the frame sums ------------------------------
     // W(j, r), Z(j, r, channel): this frame's w_jr and z_jr
-    auto W = [&](int j, int r) -> cf {
-      if constexpr (P::REG) return w[j][r];
-      const float* p = feat + (P::W + 2 * (j * R + r)) * kTile + lane;
-      return cf{p[0], p[kTile]};
-    };
-    auto Z = [&](int j, int r, int ch) -> cf {
-      if constexpr (P::REG) return z[j][r][ch];
-      const float* p = feat + (P::Z + 4 * (j * R + r) + 2 * ch) * kTile + lane;
-      return cf{p[0], p[kTile]};
-    };
+    auto W = [&](int j, int r) -> cf { return w[j][r]; };
+    auto Z = [&](int j, int r, int ch) -> cf { return z[j][r][ch]; };
     auto emit = [&](auto&& in_chunk, auto&& put) {
       // Txs_j: per column r, v_j [x0 conj(w_jr), x1 conj(w_jr)]
 #pragma unroll
@@ -622,24 +805,15 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
         }
       }
     };
-    if constexpr (P::REG) {
-      emit([](int, int) { return true; },
-           [&](int slot, float val) { racc[slot] += valid ? val : 0.f; });
-    } else {
-      // Each lane reads back only its own features; the barrier keeps the
-      // compiler from carrying phase 1's registers into phase 2, which is
-      // what holds J = 4 rank 2 to 128 registers without spill.
-      __syncwarp();
-      flush(emit, min(kTile, N - n0));
-    }
+    emit([](int, int) { return true; },
+         [&](int slot, float val) { racc[slot] += valid ? val : 0.f; });
   }
 
-  if constexpr (P::REG) {  // the lanes' sums, added over the lanes in order
-    flush([&](auto&& in_chunk, auto&& put) {
+  // the lanes' sums, added over the lanes in order
+  flush([&](auto&& in_chunk, auto&& put) {
 #pragma unroll
-      for (int s = 0; s < S::COUNT; ++s) put(s, racc[s]);
-    }, kTile);
-  }
+    for (int s = 0; s < S::COUNT; ++s) put(s, racc[s]);
+  }, kTile);
 
   // The warp's loglik, a shuffle tree; then the warps' sums in warp order.
 #pragma unroll
@@ -662,58 +836,591 @@ __global__ void __launch_bounds__(kGenThreads, kGenMinBlocks<J, R>)
   }
   __syncthreads();
 
-  // Write the packed outputs, zero-padded past each source's rank.
-  if (tid == 0) g.ll[row] = red[S::LL];
-  if (tid < J) {
-    const int j = tid;
-    const size_t o = (((size_t)b * J + j) * F + f);
-    float* tx = g.txs + o * 4 * R;
-    for (int r = 0; r < R; ++r)
-      for (int q = 0; q < 4; ++q)
-        tx[4 * r + q] = (r < rk[j]) ? red[S::TXS + (j * R + r) * 4 + q] : 0.f;
-    float* t4o = g.t4 + o * 4;
-    for (int q = 0; q < 4; ++q)
-      t4o[q] = (rk[j] == 1) ? (q == 0 ? red[S::T4 + j * S::NT4] : 0.f)
-                            : red[S::T4 + j * S::NT4 + q];
+  write_outputs<J, R, REAL>(g, red, rk, b, f, row, tid);
+}
+
+// -- FRAMES ----------------------------------------------------------------
+
+// The tile's feature rows (see the head of this file).
+template <int J, int R, bool REAL>
+struct Feats {
+  static constexpr int NT4 = Slots<J, R>::NT4;
+  static constexpr int ZW = REAL ? 2 : 4;  // words of one z_jr
+  static constexpr int X = 0;              // x0.re x0.im x1.re x1.im
+  // within a source's block
+  static constexpr int V = 0;
+  static constexpr int W = 1;              // w_jr: re at W + 2 r, im + 1
+  static constexpr int Z = W + 2 * R;      // z_jr channel ch: zre, zim
+  static constexpr int T4 = Z + ZW * R;
+  static constexpr int BLK = (T4 + NT4) | 1;  // odd: see kFeatStride
+  static constexpr int COUNT = 4 + J * BLK;
+  __host__ __device__ static constexpr int blk(int j) { return 4 + j * BLK; }
+  __host__ __device__ static constexpr int zre(int r, int ch) {
+    return Z + ZW * r + (REAL ? ch : 2 * ch);
   }
-  if (tid >= 32 && tid < 32 + J * J) {
-    const int j = (tid - 32) / J, k = (tid - 32) - j * J;
-    const size_t o = ((((size_t)b * J + j) * J + k) * F + f) * 2 * R * R;
-    float* ts = g.tss + o;
-    float* t7o = g.t7 + o;
-    for (int i = 0; i < 2 * R * R; ++i) {
-      ts[i] = 0.f;
-      t7o[i] = 0.f;
-    }
-    for (int r = 0; r < rk[j]; ++r) {
-      for (int s = 0; s < rk[k]; ++s) {
-        const int i = 2 * (r * rk[k] + s);
-        if (j <= k) {
-          const int p = S::TSS + (S::pair(j, k) * R * R + r * R + s) * 2;
-          ts[i] = red[p];
-          ts[i + 1] = red[p + 1];
-        } else {  // Tss_jk = Tss_kj^H
-          const int p = S::TSS + (S::pair(k, j) * R * R + s * R + r) * 2;
-          ts[i] = red[p];
-          ts[i + 1] = -red[p + 1];
+  __host__ __device__ static constexpr int zim(int r, int ch) {
+    return Z + 4 * r + 2 * ch + 1;  // complex mixing only
+  }
+};
+
+struct Role {
+  int owners, sums, per_frame, per_item;
+};
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// Issue slots a thread spends on role r per whole tile with groups of L
+// lanes: kFrames / L groups share the tile's quads of frames.
+constexpr long role_cost(Role r, int L) {
+  const int quads = ceil_div(kFrames / 4, kFrames / L);
+  return (long)ceil_div(r.owners, L) * (4 * quads * r.per_frame + r.per_item);
+}
+
+// Lanes per group: for each count of slots a thread takes, the narrowest
+// group (most groups); at least 8 lanes where a thread takes several
+// slots, 4 where one slot holds every owner of the role (narrower groups
+// cost more in set-up and bank conflicts than their idle lanes save).
+constexpr int kMinLanes = 8, kMinLanesOneSlot = 4;
+
+constexpr int lanes_for(int owners, int slots) {
+  const int low = slots == 1 ? kMinLanesOneSlot : kMinLanes;
+  const int L = ceil_div(owners, slots);
+  return L < low ? low : L > kFrames ? kFrames : L;
+}
+
+// Lanes per group of the three roles, packed 8 bits each: the choice that
+// costs the fewest issue slots per tile within `budget` running totals a
+// thread (past it, the fewest totals).
+constexpr int choose_lanes(Role a, Role b, Role c, int budget) {
+  long best = -1;
+  int pick = 0, fewest = 1 << 30, least = 0;
+  for (int sa = 1; sa <= ceil_div(a.owners, kMinLanes); ++sa)
+    for (int sb = 1; sb <= ceil_div(b.owners, kMinLanes); ++sb)
+      for (int sc = 1; sc <= ceil_div(c.owners, kMinLanes); ++sc) {
+        const int la = lanes_for(a.owners, sa), lb = lanes_for(b.owners, sb),
+                  lc = lanes_for(c.owners, sc);
+        const int regs = ceil_div(a.owners, la) * a.sums +
+                         ceil_div(b.owners, lb) * b.sums +
+                         ceil_div(c.owners, lc) * c.sums;
+        const long cost =
+            role_cost(a, la) + role_cost(b, lb) + role_cost(c, lc);
+        const int lanes = la | lb << 8 | lc << 16;
+        if (regs <= budget && (best < 0 || cost < best)) {
+          best = cost;
+          pick = lanes;
         }
-        if (j != k) {
-          const int p = S::T7 + (S::offd(j, k) * R * R + r * R + s) * 2;
-          t7o[i] = red[p];
-          t7o[i + 1] = REAL ? 0.f : red[p + 1];
+        if (regs < fewest) {
+          fewest = regs;
+          least = lanes;
+        }
+      }
+  return best < 0 ? least : pick;
+}
+
+// Phase 2's roles: Tss (j <= k), T7 (j != k) and the sources' Txs with T4.
+// Per role: owners, sums per owner, and its issue slots per frame
+// (products, one float4 load of each operand per four frames, the loop)
+// and per owner and tile (its address, constants, partial and total).
+template <int J, int R, bool REAL, bool NS>
+struct Split {
+  using FT = Feats<J, R, REAL>;
+  static constexpr int NT4 = FT::NT4, ZW = FT::ZW;
+  static constexpr Role TSS{
+      J * (J + 1) / 2, 2 * R * R,
+      1 + R * R * (10 + (NS ? (REAL ? 5 : 18) : 0)) +
+          (2 + 4 * R + (NS ? 2 * R * ZW : 0) + 3) / 4 + 1,
+      24 + 2 * R * R};
+  static constexpr Role T7{
+      J * (J - 1), R * R * (REAL ? 1 : 2),
+      1 + R * R * (REAL ? 5 : 18) + (2 + R * ZW + 3) / 4 + 1,
+      24 + R * R * (REAL ? 1 : 2) + R};
+  static constexpr Role SRC{
+      J, 4 * R + NT4,
+      R * (20 + (NS ? (REAL ? 4 : 8) : 0)) + NT4 +
+          (5 + 2 * R + (NS ? R * ZW : 0) + NT4 + 3) / 4 + 1,
+      24 + 4 * R + NT4};
+  static constexpr int LANES = choose_lanes(TSS, T7, SRC, kTotRegs);
+  // device code reads these scalars: owners, sums per owner, lanes per
+  // group and slots (owners a thread takes) of each role
+  static constexpr int O_TSS = TSS.owners, O_T7 = T7.owners,
+                       O_SRC = SRC.owners;
+  static constexpr int U_TSS = TSS.sums, U_T7 = T7.sums, U_SRC = SRC.sums;
+  static constexpr int L_TSS = LANES & 255, L_T7 = (LANES >> 8) & 255,
+                       L_SRC = LANES >> 16;
+  static constexpr int N_TSS = ceil_div(O_TSS, L_TSS);
+  static constexpr int N_T7 = ceil_div(O_T7, L_T7);
+  static constexpr int N_SRC = ceil_div(O_SRC, L_SRC);
+  // the threads' totals at the end of the row: [total][thread]
+  static constexpr int TOT_TSS = 0;
+  static constexpr int TOT_T7 = TOT_TSS + N_TSS * U_TSS;
+  static constexpr int TOT_SRC = TOT_T7 + N_T7 * U_T7;
+  static constexpr int TOTS = TOT_SRC + N_SRC * U_SRC;
+  // the row's sums in Slots order, after them
+  static constexpr int RED = TOTS * kGenThreads;
+  static constexpr int TILE = FT::COUNT * kFeatStride;
+  static constexpr int SUMS = RED + Slots<J, R>::COUNT + 1;
+  static constexpr size_t BYTES =
+      (size_t)(TILE > SUMS ? TILE : SUMS) * sizeof(float);
+  // resident blocks per SM asked of ptxas: four (128 registers a thread:
+  // one wave of B = 1, F = 513 rows), or as many as shared memory holds
+  // (three at J >= 7 rank 2: 168 registers); two (255) for ns_inj at rank
+  // 2 past J = 4, which spills at three (ptxas; no path runs it)
+  static constexpr int BLOCKS_BY_SMEM =
+      kSmemPerSM / (int)(BYTES + sizeof(Row<J, R>) + 1024);
+  static constexpr int BLOCKS = NS && R == 2 && J > 4 ? 2 : 4;
+  static constexpr int MIN_BLOCKS =
+      BLOCKS_BY_SMEM < BLOCKS ? BLOCKS_BY_SMEM : BLOCKS;
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float at(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+// Tss_jk, every (r, s), over nq quads of frames from pa (source j's
+// block) and pb (source k's), added to tot as one tile partial. Operands
+// load per column r and s (w_ks again for each r; under ns_inj a barrier
+// between the columns keeps them from being carried: registers).
+template <int J, int R, bool REAL, bool NS>
+__device__ __forceinline__ void tss_item(const float* pa, const float* pb,
+                                         int nq, float sig,
+                                         float (&tot)[2 * R * R]) {
+  using FT = Feats<J, R, REAL>;
+  constexpr int S = kFeatStride;
+  constexpr int ZN = NS ? (REAL ? 1 : 2) : 0;  // words of a z channel
+  float tp[2 * R * R];
+#pragma unroll
+  for (int i = 0; i < 2 * R * R; ++i) tp[i] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q, pa += 4, pb += 4) {
+    const float4 vj = ld4(pa + FT::V * S), vk = ld4(pb + FT::V * S);
+    float vv[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) vv[f] = at(vj, f) * at(vk, f);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (NS && R > 1) asm volatile("" ::: "memory");
+      const float4 wj0 = ld4(pa + (FT::W + 2 * r) * S),
+                   wj1 = ld4(pa + (FT::W + 2 * r + 1) * S);
+      float4 zj[2][2];  // [ch][re, im]
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+        for (int p = 0; p < ZN; ++p)
+          zj[ch][p] = ld4(pa + (p ? FT::zim(r, ch) : FT::zre(r, ch)) * S);
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const float4 wk0 = ld4(pb + (FT::W + 2 * s) * S),
+                     wk1 = ld4(pb + (FT::W + 2 * s + 1) * S);
+        float4 zk[2][2];
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+          for (int p = 0; p < ZN; ++p)
+            zk[ch][p] = ld4(pb + (p ? FT::zim(s, ch) : FT::zre(s, ch)) * S);
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const cf a{at(wj0, f), at(wj1, f)}, b{at(wk0, f), at(wk1, f)};
+          cf pr{a.re * b.re + a.im * b.im, a.im * b.re - a.re * b.im};
+          if constexpr (NS) {
+            const float a0r = at(zj[0][0], f), b0r = at(zk[0][0], f);
+            const float a1r = at(zj[1][0], f), b1r = at(zk[1][0], f);
+            if constexpr (REAL) {
+              pr.re = pr.re + sig * (a0r * b0r + a1r * b1r);
+            } else {
+              const float a0i = at(zj[0][1], f), b0i = at(zk[0][1], f);
+              const float a1i = at(zj[1][1], f), b1i = at(zk[1][1], f);
+              const cf zc{(a0r * b0r + a0i * b0i) + (a1r * b1r + a1i * b1i),
+                          (a0r * b0i - a0i * b0r) + (a1r * b1i - a1i * b1r)};
+              pr = cf{pr.re + sig * zc.re, pr.im + sig * zc.im};
+            }
+          }
+          tp[2 * (r * R + s)] += vv[f] * pr.re;
+          tp[2 * (r * R + s) + 1] += vv[f] * pr.im;
         }
       }
     }
   }
+#pragma unroll
+  for (int i = 0; i < 2 * R * R; ++i) tot[i] += tp[i];
+}
+
+// T7_jk, every (r, s): v_j v_k A_jr^H z_ks over nq quads of frames from pa
+// (source j's block: v_j) and pb (source k's: v_k, z_k); A = &c.A[j].
+template <int J, int R, bool REAL>
+__device__ __forceinline__ void t7_item(const float* pa, const float* pb,
+                                        const cf (&A)[R][2], int nq,
+                                        float (&tot)[R * R * (REAL ? 1 : 2)]) {
+  using FT = Feats<J, R, REAL>;
+  constexpr int S = kFeatStride;
+  constexpr int W = REAL ? 1 : 2;
+  cf a[R][2];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    a[r][0] = A[r][0];
+    a[r][1] = A[r][1];
+  }
+  float tp[R * R * W];
+#pragma unroll
+  for (int i = 0; i < R * R * W; ++i) tp[i] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q, pa += 4, pb += 4) {
+    const float4 vj = ld4(pa + FT::V * S), vk = ld4(pb + FT::V * S);
+    float4 z[R][2][W];  // [s][ch][re, im]
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        z[s][ch][0] = ld4(pb + FT::zre(s, ch) * S);
+        if constexpr (!REAL) z[s][ch][W - 1] = ld4(pb + FT::zim(s, ch) * S);
+      }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float vv = at(vj, f) * at(vk, f);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          const cf z0{at(z[s][0][0], f), REAL ? 0.f : at(z[s][0][W - 1], f)};
+          const cf z1{at(z[s][1][0], f), REAL ? 0.f : at(z[s][1][W - 1], f)};
+          if constexpr (REAL) {
+            tp[r * R + s] += vv * (a[r][0].re * z0.re + a[r][1].re * z1.re);
+          } else {
+            const cf p = cmul_conj<false>(a[r][0], z0);
+            const cf u = cmul_conj<false>(a[r][1], z1);
+            tp[2 * (r * R + s)] += vv * (p.re + u.re);
+            tp[2 * (r * R + s) + 1] += vv * (p.im + u.im);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R * R * W; ++i) tot[i] += tp[i];
+}
+
+// Source j's Txs (4 words per column r) and T4 (NT4 words after them) over
+// nq quads of frames from pa (its block) and px (the frames' x). Operands
+// load per column r.
+template <int J, int R, bool REAL, bool NS>
+__device__ __forceinline__ void src_item(const float* pa, const float* px,
+                                         int nq, float sig,
+                                         float (&tot)[4 * R +
+                                                      Slots<J, R>::NT4]) {
+  using FT = Feats<J, R, REAL>;
+  constexpr int S = kFeatStride;
+  constexpr int NT4 = FT::NT4;
+  constexpr int ZN = NS ? (REAL ? 1 : 2) : 0;  // words of a z channel
+  float tp[4 * R + NT4];
+#pragma unroll
+  for (int i = 0; i < 4 * R + NT4; ++i) tp[i] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q, pa += 4, px += 4) {
+    const float4 vj = ld4(pa + FT::V * S);
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = ld4(px + (FT::X + i) * S);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (NS && R > 1) asm volatile("" ::: "memory");
+      const float4 w0 = ld4(pa + (FT::W + 2 * r) * S),
+                   w1 = ld4(pa + (FT::W + 2 * r + 1) * S);
+      float4 z[2][2];  // [ch][re, im]
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+        for (int p = 0; p < ZN; ++p)
+          z[ch][p] = ld4(pa + (p ? FT::zim(r, ch) : FT::zre(r, ch)) * S);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float v = at(vj, f);
+        const cf x0{at(x[0], f), at(x[1], f)}, x1{at(x[2], f), at(x[3], f)};
+        const cf wr{at(w0, f), at(w1, f)};
+        cf p0{x0.re * wr.re + x0.im * wr.im, x0.im * wr.re - x0.re * wr.im};
+        cf p1{x1.re * wr.re + x1.im * wr.im, x1.im * wr.re - x1.re * wr.im};
+        if constexpr (NS) {
+          p0.re = p0.re + sig * at(z[0][0], f);
+          p1.re = p1.re + sig * at(z[1][0], f);
+          if constexpr (!REAL) {
+            p0.im = p0.im + sig * at(z[0][1], f);
+            p1.im = p1.im + sig * at(z[1][1], f);
+          }
+        }
+        tp[4 * r] += v * p0.re;
+        tp[4 * r + 1] += v * p0.im;
+        tp[4 * r + 2] += v * p1.re;
+        tp[4 * r + 3] += v * p1.im;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NT4; ++i) {
+      const float4 t = ld4(pa + (FT::T4 + i) * S);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) tp[4 * R + i] += at(t, f);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * R + NT4; ++i) tot[i] += tp[i];
+}
+
+template <int J, int R, bool REAL, bool NS>
+__global__ void __launch_bounds__(kGenThreads, Split<J, R, REAL, NS>::MIN_BLOCKS)
+    estep_frames_kernel(Args g) {
+  using S = Slots<J, R>;
+  using FT = Feats<J, R, REAL>;
+  using SP = Split<J, R, REAL, NS>;
+  constexpr int ST = kFeatStride;
+  constexpr int W7 = REAL ? 1 : 2;
+  __shared__ Row<J, R> c;
+  // phase 2's owners: j | k << 8, Tss (Slots::pair order) then T7 (offd)
+  __shared__ unsigned short own[S::PAIRS + S::OFFD];
+  __shared__ float llw[kGenWarps];
+  // the tile's features [FT::COUNT][kFeatStride]; at the end of the row,
+  // the threads' totals [SP::TOTS][kGenThreads] and the row's sums
+  extern __shared__ __align__(16) float feats[];
+  static_assert(!S::REG && SP::MIN_BLOCKS >= 1 &&
+                    SP::BYTES + sizeof(Row<J, R>) <= 227 * 1024 &&
+                    J * R * 2 <= kGenThreads && 32 + J * J <= kGenThreads,
+                "FRAMES: the tile and the row's constants in one block's "
+                "shared memory; one thread per mixing entry, invariant and "
+                "output block");
+
+  const int F = g.F, N = g.N;
+  const int row = blockIdx.x;  // b * F + f
+  const int b = row / F;
+  const int f = row - b * F;
+  const size_t FN = (size_t)F * N;
+  const int tid = threadIdx.x;
+
+  const Ranks<J, R> rk{g.rank_mask};
+
+  for (int o = tid; o < S::PAIRS + S::OFFD; o += kGenThreads) {
+    int j = 0, k = 0;
+    if (o < S::PAIRS) {  // j <= k, row-major
+      int m = o;
+      while (m >= J - j) m -= J - j++;
+      k = j + m;
+    } else {
+      const int m = o - S::PAIRS;
+      j = m / (J - 1);
+      k = m % (J - 1);
+      k += k >= j;
+    }
+    own[o] = (unsigned short)(j | k << 8);
+  }
+  // the first tile's x4 and v, loaded while the row's constants are built
+  const float* xrow = g.x4 + (size_t)b * 4 * FN + (size_t)f * N;
+  const float* vrow = g.v + (size_t)b * J * FN + (size_t)f * N;
+  float px[4], pv[J];
+  {
+    const bool valid = tid < N;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) px[q] = valid ? xrow[q * FN + tid] : 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) pv[j] = valid ? vrow[j * FN + tid] : 0.f;
+  }
+  row_constants<J, R, REAL>(c, g.A4 + ((size_t)b * J * F + f) * 4 * R,
+                            (size_t)F * 4 * R, rk, g.sigma[row], tid);
+
+  float* xirow = g.xi + (size_t)b * J * FN + (size_t)f * N;
+  const float sig = c.sig;
+  const float eps = g.eps;
+  const bool fast = g.fast_recip;
+
+  float tot_tss[SP::N_TSS][2 * R * R], tot_t7[SP::N_T7][R * R * W7],
+      tot_src[SP::N_SRC][4 * R + FT::NT4];
+#pragma unroll
+  for (int i = 0; i < SP::N_TSS; ++i)
+#pragma unroll
+    for (int s = 0; s < 2 * R * R; ++s) tot_tss[i][s] = 0.f;
+#pragma unroll
+  for (int i = 0; i < SP::N_T7; ++i)
+#pragma unroll
+    for (int s = 0; s < R * R * W7; ++s) tot_t7[i][s] = 0.f;
+#pragma unroll
+  for (int i = 0; i < SP::N_SRC; ++i)
+#pragma unroll
+    for (int s = 0; s < 4 * R + FT::NT4; ++s) tot_src[i][s] = 0.f;
+  float ll_acc = 0.f;  // thread = frame: its loglik terms
+
+  // the next tile's x4 and v, loaded while this one is computed
+
+  float* col = feats + tid;  // this thread's frame of the tile
+  for (int n0 = 0; n0 < N; n0 += kFrames) {
+    const int n = n0 + tid;
+    const bool valid = n < N;
+
+    // -- phase 1, thread = frame ----------------------------------------------
+    const cf x0{px[0], px[1]}, x1{px[2], px[3]};
+    float v[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) v[j] = pv[j];
+
+    if (valid) {
+      col[(FT::X + 0) * ST] = x0.re;
+      col[(FT::X + 1) * ST] = x0.im;
+      col[(FT::X + 2) * ST] = x1.re;
+      col[(FT::X + 3) * ST] = x1.im;
+#pragma unroll
+      for (int j = 0; j < J; ++j) col[(FT::blk(j) + FT::V) * ST] = v[j];
+      ll_acc += frame_terms<J, R, REAL, NS>(
+          c, rk, x0, x1, v, sig, eps, fast, g.no_ll, true, xirow + n, FN,
+          [&](int j, const cf(&wj)[R], const cf(&zj)[R][2],
+              const float(&t4)[S::NT4]) {
+            float* p = col + FT::blk(j) * ST;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              p[(FT::W + 2 * r) * ST] = wj[r].re;
+              p[(FT::W + 2 * r + 1) * ST] = wj[r].im;
+#pragma unroll
+              for (int ch = 0; ch < 2; ++ch) {
+                p[FT::zre(r, ch) * ST] = zj[r][ch].re;
+                if constexpr (!REAL) p[FT::zim(r, ch) * ST] = zj[r][ch].im;
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < S::NT4; ++q) p[(FT::T4 + q) * ST] = t4[q];
+          });
+    } else {  // a frame past N: every feature 0, so it adds nothing
+#pragma unroll 4
+      for (int e = 0; e < FT::COUNT; ++e) col[e * ST] = 0.f;
+    }
+    __syncthreads();
+
+    // -- phase 2, each thread its owners over its group's frames --------------
+    // the tile's quads of frames, shared evenly by a role's kFrames / L
+    // groups (in the last, ragged tile too)
+    const int quads = (min(kFrames, N - n0) + 3) >> 2;
+    auto span = [&](int L, int& q0) {
+      const int per = (quads + kFrames / L - 1) / (kFrames / L);
+      q0 = tid / L * per;
+      return min(per, quads - q0);
+    };
+#pragma unroll
+    for (int i = 0; i < SP::N_TSS; ++i) {
+      constexpr int L = SP::L_TSS;
+      const int o = i * L + tid % L;
+      int q0;
+      const int nq = span(L, q0), f0 = 4 * q0;
+      if (o < SP::O_TSS && nq > 0) {
+        const int jk = own[o];
+        tss_item<J, R, REAL, NS>(feats + FT::blk(jk & 255) * ST + f0,
+                                 feats + FT::blk(jk >> 8) * ST + f0, nq, sig,
+                                 tot_tss[i]);
+      }
+    }
+    // the next tile's x4 and v load while T7 and the sources' sums run
+    {
+      const int nn = n + kFrames;
+      const bool vn = nn < N;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) px[q] = vn ? xrow[q * FN + nn] : 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) pv[j] = vn ? vrow[j * FN + nn] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < SP::N_T7; ++i) {
+      constexpr int L = SP::L_T7;
+      const int o = i * L + tid % L;
+      int q0;
+      const int nq = span(L, q0), f0 = 4 * q0;
+      if (o < SP::O_T7 && nq > 0) {
+        const int jk = own[S::PAIRS + o], j = jk & 255;
+        t7_item<J, R, REAL>(feats + FT::blk(j) * ST + f0,
+                            feats + FT::blk(jk >> 8) * ST + f0, c.A[j], nq,
+                            tot_t7[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < SP::N_SRC; ++i) {
+      constexpr int L = SP::L_SRC;
+      const int o = i * L + tid % L;
+      int q0;
+      const int nq = span(L, q0), f0 = 4 * q0;
+      if (o < SP::O_SRC && nq > 0)
+        src_item<J, R, REAL, NS>(feats + FT::blk(o) * ST + f0,
+                                 feats + FT::X * ST + f0, nq, sig,
+                                 tot_src[i]);
+    }
+    __syncthreads();  // the tile is free for the next one's features
+  }
+
+  // -- the row's sums ----------------------------------------------------------
+  // Each thread's totals, [total][thread]; the warps' loglik, a shuffle tree.
+#pragma unroll
+  for (int i = 0; i < SP::N_TSS; ++i)
+#pragma unroll
+    for (int s = 0; s < 2 * R * R; ++s)
+      feats[(SP::TOT_TSS + i * SP::U_TSS + s) * kGenThreads + tid] =
+          tot_tss[i][s];
+#pragma unroll
+  for (int i = 0; i < SP::N_T7; ++i)
+#pragma unroll
+    for (int s = 0; s < R * R * W7; ++s)
+      feats[(SP::TOT_T7 + i * SP::U_T7 + s) * kGenThreads + tid] =
+          tot_t7[i][s];
+#pragma unroll
+  for (int i = 0; i < SP::N_SRC; ++i)
+#pragma unroll
+    for (int s = 0; s < 4 * R + FT::NT4; ++s)
+      feats[(SP::TOT_SRC + i * SP::U_SRC + s) * kGenThreads + tid] =
+          tot_src[i][s];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ll_acc += __shfl_down_sync(0xffffffffu, ll_acc, off);
+  if ((tid & 31) == 0) llw[tid >> 5] = ll_acc;
+  __syncthreads();
+
+  // Sum s of owner o of a role: its groups' totals, in group order (a
+  // loop of known length, so the loads issue ahead of the adds).
+  auto total = [&](auto lanes, int base, int sums, int o, int s) {
+    constexpr int L = decltype(lanes)::value;
+    const float* p = feats + (base + (o / L) * sums + s) * kGenThreads +
+                     o % L;
+    float t = p[0];
+#pragma unroll
+    for (int g0 = L; g0 < kGenThreads / L * L; g0 += L) t += p[g0];
+    return t;
+  };
+  using LTss = std::integral_constant<int, SP::L_TSS>;
+  using LT7 = std::integral_constant<int, SP::L_T7>;
+  using LSrc = std::integral_constant<int, SP::L_SRC>;
+  float* red = feats + SP::RED;  // the row's sums, Slots order
+  for (int s = tid; s <= S::COUNT; s += kGenThreads) {
+    float t;
+    if (s == S::LL) {
+      t = llw[0];
+#pragma unroll
+      for (int w2 = 1; w2 < kGenWarps; ++w2) t += llw[w2];
+    } else if (s < S::TXS) {  // T4: after the source's Txs
+      const int j = (s - S::T4) / S::NT4;
+      t = total(LSrc(), SP::TOT_SRC, SP::U_SRC, j,
+                4 * R + (s - S::T4) % S::NT4);
+    } else if (s < S::TSS) {
+      const int j = (s - S::TXS) / (4 * R);
+      t = total(LSrc(), SP::TOT_SRC, SP::U_SRC, j, (s - S::TXS) % (4 * R));
+    } else if (s < S::T7) {
+      const int o = (s - S::TSS) / (2 * R * R);
+      t = total(LTss(), SP::TOT_TSS, SP::U_TSS, o,
+                (s - S::TSS) % (2 * R * R));
+    } else {
+      const int o = (s - S::T7) / (2 * R * R), e = (s - S::T7) % (2 * R * R);
+      t = (REAL && (e & 1)) ? 0.f
+                            : total(LT7(), SP::TOT_T7, SP::U_T7, o,
+                                    REAL ? e >> 1 : e);
+    }
+    red[s] = t;
+  }
+  __syncthreads();
+  write_outputs<J, R, REAL>(g, red, rk, b, f, row, tid);
 }
 
 using Kernel = void (*)(Args);
-
-// The dynamic shared bytes of one instantiation: the warps' w/z buffers.
-template <int J, int R>
-constexpr size_t feat_bytes() {
-  return (size_t)kGenWarps * Plan<J, R>::NF * kTile * sizeof(float);
-}
 
 // An instantiation and its launch's dynamic shared bytes.
 struct Pick {
@@ -723,7 +1430,11 @@ struct Pick {
 
 template <int J, int R, bool REAL, bool NS>
 Pick pick_one() {
-  return Pick{&estep_general_kernel<J, R, REAL, NS>, feat_bytes<J, R>()};
+  if constexpr (Slots<J, R>::REG)
+    return Pick{&estep_reg_kernel<J, R, REAL, NS>, 0};
+  else
+    return Pick{&estep_frames_kernel<J, R, REAL, NS>,
+                Split<J, R, REAL, NS>::BYTES};
 }
 
 // The instantiation that rmax, real_cov and ns_inj name, allowed its

@@ -50,8 +50,8 @@ c (a rank-2 source), d (noise injection), e (fast_recip), f (no_ll)."""
 
 GENERAL_J = (2, 3, 4, 5, 6, 7, 8)
 """Source counts the general kernel is built for (one translation unit
-each, csrc/estep_j{J}.cu). Above 8 the T4 sums of a rank-2 model no longer
-fit the kernel's first chunk of 32 (csrc/estep_general.cuh)."""
+each, csrc/estep_j{J}.cu). The kernel's design has no limit of its own on
+J (csrc/estep_general.cuh); J >= 9 has no translation unit yet."""
 
 
 def pack_x4(X: torch.Tensor) -> torch.Tensor:

@@ -160,9 +160,21 @@ def test_estep_r1_real_source_matches_plain_version(lib, B, J, F, N, flag):
 
 # (J, ranks, real_cov, ns_inj, flag, B, F, N): every J the general kernel
 # is built for, real and complex, ranks 1, 2 and mixed, noise injection and
-# each flag, at frame counts that cross its 32-frame tiles (1, 31, 33, 45,
-# 70, 129); J = 5 real rank 1 is `separate --sources 5`'s E-step, J = 8
-# rank 2 the largest: 832 sums in 26 chunks of the tile, a 48 KB buffer
+# each flag. J = 2, 3 at rank 1 take the REG kernel (lane = frame, tiles of
+# 32 frames: N = 1, 31, 33, 45); every other instantiation the FRAMES one
+# (tiles of 128 frames, each frame sum owned by one thread over its group's
+# share of the tile; groups of 4 to 56 lanes). J = 5 real rank 1 is
+# `separate --sources 5`'s E-step, J = 8 rank 2 the largest: 832 sums a
+# row, a 72 KB tile. The cases after the first eleven cross the FRAMES
+# kernel's edges: one frame; 127, 128, 129 and 257 frames (one short of a
+# tile, one tile, one and two past); 130, 136, 140, 150, 161 and 189 (a
+# last tile of 2 to 61 frames spread over every group, a partial quad of
+# four frames); owners fewer than the block's threads (every role: its
+# groups split the frames; J = 8 rank 2's 56 T7 owners in two groups of
+# 56 lanes, 16 threads idle) and more than a group's lanes (slots: its 36
+# Tss owners in two slots of 18 lanes; complex rank 1's 56 T7 owners in
+# seven slots of 8); B = 2; and J = 2, 3 and 4 at rank 2 and J = 4 at
+# rank 1 (rows 1c, 1c', 1d)
 GENERAL = [(2, (1, 1), False, False, "", 1, 3, 33),
            (3, (2, 1, 2), True, True, "fast_recip", 1, 2, 45),
            (4, (2, 2, 2, 2), False, True, "", 2, 2, 31),
@@ -173,12 +185,33 @@ GENERAL = [(2, (1, 1), False, False, "", 1, 3, 33),
            (7, (1, 1, 2, 1, 1, 2, 1), False, False, "", 1, 2, 129),
            (8, (1,) * 8, True, False, "", 2, 2, 33),
            (8, (2,) * 8, False, False, "", 1, 3, 70),
-           (8, (2,) * 8, False, True, "no_ll", 1, 2, 33)]
+           (8, (2,) * 8, False, True, "no_ll", 1, 2, 33),
+           (5, (1,) * 5, True, False, "", 1, 2, 1),
+           (5, (2,) * 5, False, False, "", 1, 2, 127),
+           (5, (1, 2, 2, 1, 2), False, False, "fast_recip", 2, 2, 128),
+           (5, (1,) * 5, False, True, "no_ll", 1, 2, 129),
+           (5, (2,) * 5, True, True, "", 1, 1, 257),
+           (6, (1,) * 6, True, False, "", 1, 2, 130),
+           (6, (2,) * 6, False, False, "no_ll", 2, 1, 161),
+           (6, (2, 1, 2, 1, 2, 1), True, False, "", 1, 2, 64),
+           (7, (2,) * 7, False, False, "", 1, 2, 189),
+           (7, (1,) * 7, True, False, "fast_recip", 1, 2, 140),
+           (7, (1,) * 7, False, True, "", 1, 2, 136),
+           (8, (2,) * 8, False, False, "", 2, 1, 129),
+           (8, (1,) * 8, False, False, "", 1, 2, 257),
+           (8, (2,) * 8, True, True, "fast_recip", 1, 1, 200),
+           (8, (1, 2, 1, 2, 1, 2, 1, 2), False, True, "", 1, 1, 150),
+           (2, (2, 2), False, False, "", 1, 2, 129),
+           (2, (2, 1), True, True, "", 1, 2, 5),
+           (3, (2, 2, 2), False, False, "", 2, 1, 257),
+           (4, (2, 2, 2, 2), False, False, "", 1, 2, 189),
+           (4, (1,) * 4, True, False, "", 1, 2, 130),
+           (4, (2, 2, 2, 2), False, True, "no_ll", 1, 1, 129)]
 
 
-@pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", GENERAL)
-def test_general_estep_source_matches_plain_version(lib, J, ranks, real, ns,
-                                                    flag, B, F, N):
+def _general_run(lib, J, ranks, real, ns, flag, B, F, N):
+    """One launch of the general kernel through its C entry point on inputs
+    drawn for the case: (inputs, outputs), NaN wherever it wrote nothing."""
     rng = np.random.default_rng(J * 1000 + F * N)
     Rmax = max(ranks)
     x4 = _t(rng.standard_normal((B, 4, F, N)))
@@ -201,16 +234,38 @@ def test_general_estep_source_matches_plain_version(lib, J, ranks, real, ns,
         Rmax, int(real), int(ns), ctypes.c_float(1e-30),
         int(flag == "fast_recip"), int(flag == "no_ll"), None)
     assert err == 0
+    return (x4, v, A4, sigma), got
+
+
+@pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", GENERAL)
+def test_general_estep_source_matches_plain_version(lib, J, ranks, real, ns,
+                                                    flag, B, F, N):
+    (x4, v, A4, sigma), got = _general_run(lib, J, ranks, real, ns, flag, B,
+                                           F, N)
     want = cuda_estep.estep_ref(x4, v, A4, sigma, ranks, ns_inj=ns,
                                 real_cov=real, no_ll=flag == "no_ll")
     for name, g, w, bar in zip(("xi", "txs", "tss", "t4", "t7"), got, want,
-                               (3e-4 if Rmax == 2 else 2e-4,) + (5e-4,) * 4):
+                               (3e-4 if max(ranks) == 2 else 2e-4,)
+                               + (5e-4,) * 4):
         assert bool(torch.isfinite(g).all()), name     # every word written
         assert _rel(g, w) <= bar, name
     torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
                                atol=0)
     for g, w in zip(got[1:5], want[1:5]):              # padding and zeros
         assert torch.equal(g[w == 0], w[w == 0])
+    if flag != "fast_recip":
+        assert torch.equal(got[0], want[0])            # xi: no sum in it
+
+
+# Fixed orders and no atomics: two launches give the same bits, in the
+# REG kernel and across the FRAMES kernel's tiles, groups and slots
+@pytest.mark.parametrize("case", [GENERAL[0], GENERAL[12], GENERAL[19],
+                                  GENERAL[22], GENERAL[24]])
+def test_general_estep_source_twice_gives_the_same_bits(lib, case):
+    _, got = _general_run(lib, *case)
+    _, again = _general_run(lib, *case)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 # (B, J, F, N, K). N = 1, 31, 33 and 17: tw_stats' strips of 16 frames and

@@ -211,10 +211,14 @@ GENERAL = {
 }
 
 
-# the last three cross the kernel's 32-frame tiles (N = 31, 33) and take
-# the conv paths' own shape (B = 1, F = 513, N = 189)
+# (1, 13, 31), (2, 13, 33) cross the REG kernel's 32-frame tiles (J = 2,
+# 3 at rank 1); (1, 513, 189) is the conv paths' own shape, whose last
+# tile of the FRAMES kernel (128 frames, every other instantiation) holds
+# 61 frames; (1, 7, 128), (2, 5, 129) and (1, 3, 257) end on, one past and
+# two tiles and one past its tile
 @pytest.mark.parametrize("B,F,N", [(2, 33, 70), (1, 9, 2500), (2, 65, 300),
-                                   (1, 13, 31), (2, 13, 33), (1, 513, 189)])
+                                   (1, 13, 31), (2, 13, 33), (1, 513, 189),
+                                   (1, 7, 128), (2, 5, 129), (1, 3, 257)])
 @pytest.mark.parametrize("name", sorted(GENERAL))
 def test_general_kernel_matches_plain_version(dev, name, B, F, N):
     J, ranks, real, ns = GENERAL[name]
@@ -446,6 +450,21 @@ def test_kernel_info_reports_the_resident_warps_aimed_at(dev, name, args,
     assert info["local_bytes"] <= 16
     if name == "tw_stats" and args[0] <= 32:   # FB whole in shared memory
         assert info["shared_bytes"] >= args[0] * args[1] * 4
+
+
+@pytest.mark.parametrize("J", [5, 6, 7, 8])
+def test_general_kernel_keeps_its_sums_in_registers(dev, J):
+    """Every instantiation of the general kernel at J = 5 to 8 runs without
+    spill (runtime local bytes 0), at 12 or more resident warps per SM (8
+    with ns_inj at rank 2, which takes 255 registers)."""
+    from pyfasst_tpu_torch.ops import _build
+    for rmax in (1, 2):
+        for real in (0, 1):
+            for ns in (0, 1):
+                info = _build.kernel_info(f"estep_j{J}", rmax, real, ns)
+                assert info["local_bytes"] == 0, (rmax, real, ns)
+                assert info["warps_per_sm"] >= (8 if ns and rmax == 2
+                                                else 12), (rmax, real, ns)
 
 
 def test_spectral_wrappers_check_their_inputs(dev):

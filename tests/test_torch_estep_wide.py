@@ -28,7 +28,8 @@ torch.set_num_threads(1)
 # tests/test_torch_estep_general.py's CASES: real rank 1 (the instantaneous
 # model of `separate --sources 5`), complex rank 2, mixed ranks and noise
 # injection at J = 5; real rank 1 and complex rank 2 at J = 8, the largest
-# J the kernel takes; N = 33 crosses the kernel's 32-frame tile
+# J the kernel takes. The CUDA kernel takes every case here in one of
+# its 128-frame tiles; tests/test_torch_csrc_shim.py crosses the tiles
 WIDE = {
     "real_r1_J5": (5, (1,) * 5, "inst", 17, 40, False, True, _BARS_R1),
     "rank2_J5": (5, (2,) * 5, "conv", 21, 50, False, False, _BARS_R2),
