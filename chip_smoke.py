@@ -6,10 +6,12 @@
 Phases (each prints one line with its numbers and seconds):
   0. the machine: nvidia-smi name and power limit, torch, CUDA and nvcc;
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
-     sm_90a), with ptxas' register and spill report, and the resident warps
-     per SM, registers and local bytes of every instantiation of the
-     general E-step kernel, of fb_stats, of tw_stats and of estep_r1_real,
-     as the runtime reports them;
+     sm_90a; the core library first, the wide one, the general E-step at
+     J = 9 to 16, beside phase 2's checks of the core kernels, until the
+     first check that needs it), with ptxas' register and spill report,
+     and the resident warps per SM, registers and local bytes of every
+     instantiation of the general E-step kernel, of fb_stats, of tw_stats
+     and of estep_r1_real, as the runtime reports them;
   2. each kernel against its plain PyTorch version on the card, with
      CUDA-event timings of kernel and plain version in turns (the kernel's
      by CUDA-graph replay: device time), each kernel's bound from its
@@ -28,17 +30,21 @@ Phases (each prints one line with its numbers and seconds):
      JAX suite's (37, 95), (130, 300) and J=3, K=4 (70, 211), and across
      their tiles, strips, batches and chunks with K=16 and 32
      (SPECTRAL_SHAPES), two runs bit for bit; variant a at
-     phase 13's shape (1, 48, 98304), timed; variant b at J=2 and
+     phase 13's shape (1, 48, 98304), where it splits each row's frames
+     into S segments (its S and grid printed), timed; variant b at J=2 and
      phase 15's block shape (1, 513, 64), two runs bit for bit, timed;
      and every shape phase 17 launches (cli_shapes: 1c at J=3, ranks
      (2, 2, 2), at the speech pool's (24, 1025, 158) and its band
      probes' (66, 32, 158), at the music ladder's fine (24 and 2, 1025,
      260) and coarse (6 and 2, 4097, 66) stages; 1a at the inst and
      batch commands' shapes; 1b at the stream block), two runs bit for
-     bit, timed with the bound; the general kernel at J = 5 to 8
-     (WIDE_CASES: real rank 1 and complex rank 2 at each J, mixed ranks
-     and ns_inj at J = 5) at the bench shapes, two runs bit for bit,
-     timed, and at a ragged one, and at phase 19's path shapes; fb_stats
+     bit, timed with the bound; the general kernel at J = 5 to 16
+     (WIDE_CASES: real rank 1 and complex rank 2 at J = 5-10, 12 and 16,
+     mixed ranks and ns_inj at J = 5) at the bench shapes, two runs bit
+     for bit, timed with registers and spill, and at a ragged one, and at
+     phase 19's path shapes; every variant at each J of 9 to 16 at a
+     ragged shape (many_variants), two runs bit for bit, and J = 17
+     raising; fb_stats
      and tw_stats at K = 40 and 64 (their tiled form past 32: V once per
      tile over all K) at the bench shapes and at the host API's B = 1
      (a split contracted axis), timed with the floor without FMA, and at
@@ -190,8 +196,13 @@ Phases (each prints one line with its numbers and seconds):
      the general kernel at J = 5 (real rank 1), WAVs written and scored;
      (b) configs[2]'s recipe with a fifth source (16 kHz, 6 s, wlen 1024:
      F = 513, N = 189; rank 2, principal-direction init, 400 iterations):
-     400 launches of variant c at J = 5; each min SDR within 1 dB of the
-     port's CPU run (CPU_SDR_FIVE, cpu_reference_five()).
+     400 launches of variant c at J = 5; (c) ten sources: a 10 s,
+     44.1 kHz mix of (a)'s kinds and five band noises at ten angles
+     through `separate --sources 10 --iters 500`: 500 launches of the
+     general kernel at J = 10 (real rank 1), finite images and logliks;
+     (a)'s and (b)'s min SDR, and the SDR of each of (c)'s sources,
+     within 1 dB of the port's CPU run (CPU_SDR_FIVE,
+     cpu_reference_five(); CPU_SDR_TEN, cpu_reference_ten()).
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -392,8 +403,35 @@ WIDE_CASES = (
     ("c", "complex J=7 rank 2", 7, (2,) * 7, False, False, None),
     ("a", "real J=8 rank 1", 8, (1,) * 8, True, False, None),
     ("c", "complex J=8 rank 2", 8, (2,) * 8, False, False, None),
-)
+) + tuple(
+    # past eight sources (csrc/estep_j9.cu .. estep_j16.cu): J = 9, 10, 12
+    # and 16 timed; "ten": phase 19 (c), `separate --sources 10`
+    case for J_ in (9, 10, 12, 16) for case in (
+        ("a", f"real J={J_} rank 1", J_, (1,) * J_, True, False,
+         "ten" if J_ == 10 else None),
+        ("c", f"complex J={J_} rank 2", J_, (2,) * J_, False, False, None)))
 WIDE_RAGGED = (1, 33, 70)
+# phase 2's checks of every variant at each J of 9 to 16 (MANY_J), at
+# WIDE_RAGGED, two runs bit for bit: complex rank 1 with fast_recip (b, e),
+# mixed ranks with no_ll (c, f), ns_inj at ranks 1 and 2 (d); at the J
+# that no case of WIDE_CASES times (11, 13, 14, 15) also real rank 1 (a)
+# and complex rank 2 (c). J = 17 must raise, naming its ROADMAP item
+MANY_J = tuple(range(9, 17))
+
+
+def many_variants(J_):
+    """(key, label, ranks, real_cov, ns_inj, flag) of phase 2's checks of
+    the general kernel at J_ sources (MANY_J)."""
+    mixed = (1, 2) * (J_ // 2) + (1,) * (J_ % 2)
+    cases = [("b", "complex rank 1 fast_recip", (1,) * J_, False, False,
+              "fast_recip"),
+             ("c", "mixed ranks no_ll", mixed, False, False, "no_ll"),
+             ("d", "ns_inj complex rank 1", (1,) * J_, False, True, ""),
+             ("d", "ns_inj complex rank 2", (2,) * J_, False, True, "")]
+    if not any(case[2] == J_ for case in WIDE_CASES):
+        cases = [("a", "real rank 1", (1,) * J_, True, False, ""),
+                 ("c", "complex rank 2", (2,) * J_, False, False, "")] + cases
+    return [(k, f"J={J_} {label}", *rest) for k, label, *rest in cases]
 # phase 19: five sources at full width. (a) a 10 s, 44.1 kHz stereo mix of
 # five of band_sources' kinds panned apart at FIVE_PANS degrees
 # (instantaneous, rank 1; five_mixture, seed SEED_FIVE) through the CLI,
@@ -411,6 +449,24 @@ SEED_FIVE = 130
 # H100 machine: 14.2555 and 11.8711 dB, 191 s and 76 s); the card's runs
 # must lie within SDR_SLACK of them
 CPU_SDR_FIVE = {"inst": 14.26, "reverb5": 11.87}
+# (c) ten sources: FIVE_KINDS and five band-limited noises in disjoint
+# bands (TEN_BANDS, as fractions of Nyquist), panned at TEN_PANS degrees
+# (real rank-1 gains, ten distinct angles), seed SEED_TEN, built as (a)'s
+# mix, through `separate --sources 10 --iters 500` (F = 513, N = 863):
+# 500 launches of the general kernel at J = 10 (real rank 1). Not cut. Ten
+# sources in two channels are not expected to separate well: no floor in
+# dB, the min SDR held within SDR_SLACK of the port's CPU run
+TEN_BANDS = ((0.10, 0.14), (0.18, 0.22), (0.26, 0.31), (0.36, 0.42),
+             (0.50, 0.60))
+TEN_KINDS = FIVE_KINDS + tuple(f"band:{lo}-{hi}" for lo, hi in TEN_BANDS)
+TEN_PANS = tuple(float(a) for a in np.linspace(5.0, 85.0, 10))
+SEED_TEN = 131
+# SDR (dB) of each source of the port's CPU run of (c) (python3 -c
+# "import chip_smoke; chip_smoke.cpu_reference_ten()" with 8 CPU threads
+# and no card, 307 s), in TEN_KINDS order; each source of the card's run
+# must lie within SDR_SLACK of its own
+CPU_SDR_TEN = (11.90, 9.09, 5.00, 1.80, 1.06, 4.57, 15.55, 12.61, 10.61,
+               12.42)
 # phase 15: the long-form rows of tools/validate_hw.py at 16 kHz, wlen 1024:
 # scenario_streaming (:677-806, seed 112: 120 s of two panned dense-band
 # noises; 64 frames per block, J = 2, K = 8, forgetting 0.95, 6 inner
@@ -472,7 +528,7 @@ STREAM_SHAPE = (1, 2, WLEN_CONV // 2 + 1, NB_STREAM)
 GENERAL_PATH_INSTANCES = {"b": (3, 1, 0, 0), "c": (4, 2, 0, 0),
                           "d": (3, 1, 0, 1), "b stream": (2, 1, 0, 0),
                           "c cli": (3, 2, 0, 0), "a five": (5, 1, 1, 0),
-                          "c five": (5, 2, 0, 0)}
+                          "c five": (5, 2, 0, 0), "a ten": (10, 1, 1, 0)}
 # phase 17: the CLI, in this process through pyfasst_tpu_torch.__main__.main.
 # (a) `separate --preset speech --sources 3` at full width and depth on the
 # SiSEC-regime speech fixture, tools/speech_lab.py::_fixture(3, 0.25, 120)
@@ -697,17 +753,20 @@ def principal_directions(ys_true, wlen=WLEN_CONV):
 
 def best_perm(ys, ys_true):
     """(permutation, image SDR of each source) at the permutation with the
-    best total SDR: ys[perm[j]] is source j's estimate."""
-    import itertools
+    best total SDR: ys[perm[j]] is source j's estimate (the assignment
+    that maximises the sum over (estimate, source) pairs)."""
+    from scipy.optimize import linear_sum_assignment
 
     def sdr(a, b):
         return 10 * np.log10(np.sum(b ** 2)
                              / max(np.sum((a - b) ** 2), 1e-12))
 
     J = len(ys_true)
-    return max(((p, tuple(sdr(ys[p[j]], ys_true[j]) for j in range(J)))
-                for p in itertools.permutations(range(J))),
-               key=lambda c: sum(c[1]))
+    M = np.array([[sdr(ys[i], ys_true[j]) for j in range(J)]
+                  for i in range(J)])                  # [estimate, source]
+    est, src = linear_sum_assignment(M, maximize=True)
+    p = tuple(int(i) for i in est[np.argsort(src)])
+    return p, tuple(float(M[p[j], j]) for j in range(J))
 
 
 def best_perm_sdr(ys, ys_true):
@@ -783,30 +842,70 @@ def phase_machine(device):
 
 
 def phase_build():
+    """Phase 1: builds the core library (every kernel but the general
+    E-step past J = 8) and, in a thread started first, the wide one
+    (J = 9 to 16, the longest units), so that phase 2's checks of the core
+    kernels run while the wide units compile; prints ptxas' report and
+    the core kernels' occupancy. Returns the join: it waits for the wide
+    library (raising its build's error), loads it and prints its report
+    and occupancy."""
+    import threading
     from pyfasst_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    info = _build.build(verbose=True)
-    _build.load()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln
-             or "Compiling entry" in ln]
-    log(f"phase 1 build: built={info['built']} nvcc {info['seconds']:.2f}s "
-        f"| {time.perf_counter() - t0:.2f}s")
-    for ln in ptxas:
-        log(f"  ptxas: {ln}")
-    occupancy_report()
+    wide = {}
+
+    def build_wide():
+        try:
+            wide["info"] = _build.build(verbose=True, names=("wide",))
+        except BaseException as e:        # raised again at the join
+            wide["error"] = e
+
+    thread = threading.Thread(target=build_wide, daemon=True)
+    thread.start()
+    info = _build.build(verbose=True, names=("core",))
+    _build.load("core")
+    log(f"phase 1 build: core library built={info['built']} nvcc "
+        f"{info['seconds']:.2f}s, the wide library building beside phase "
+        f"2's core checks | {time.perf_counter() - t0:.2f}s")
+    _log_ptxas(info)
+    occupancy_report(wide=False)
+
+    def join():
+        t1 = time.perf_counter()
+        thread.join()
+        if "error" in wide:
+            raise wide["error"]
+        _build.load("wide")
+        log(f"phase 1 build: wide library built={wide['info']['built']} "
+            f"nvcc {wide['info']['seconds']:.2f}s, waited "
+            f"{time.perf_counter() - t1:.2f}s for it after phase 2's core "
+            f"checks")
+        _log_ptxas(wide["info"])
+        occupancy_report(wide=True)
+    return join
 
 
-def occupancy_report():
+def _log_ptxas(info):
+    for ln in info["log"].splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            log(f"  ptxas: {ln.strip()}")
+
+
+def occupancy_report(wide):
     """Resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    and registers / local bytes per thread of the 56 general E-step
-    instantiations (J = 2 to 8; with shared bytes, static and dynamic), the
-    three each of fb_stats and tw_stats and their tiled form at K_BIG, and
-    the two of estep_r1_real; the ones a path takes are marked."""
+    and registers / local bytes per thread of the general E-step
+    instantiations (with shared bytes, static and dynamic), eight at each J:
+    of the wide library (J = 9 to 16) when `wide`, else of the core one
+    (J = 2 to 8), with the three each of fb_stats and tw_stats and their
+    tiled form at K_BIG, and the two of estep_r1_real; the ones a path
+    takes are marked."""
     import itertools
     from pyfasst_tpu_torch.ops import _build
+    from pyfasst_tpu_torch.ops.cuda_estep import GENERAL_J
     path = {v: k for k, v in GENERAL_PATH_INSTANCES.items()}
-    for J_ in range(2, 9):
+    for J_ in GENERAL_J:
+        if (_build.library_of(J_) == "wide") != wide:
+            continue
         cells = []
         for rmax, real, ns in itertools.product((1, 2), (0, 1), (0, 1)):
             i = _build.kernel_info(f"estep_j{J_}", rmax, real, ns)
@@ -817,6 +916,8 @@ def occupancy_report():
                          f"{i['local_bytes']}B/{i['shared_bytes']}B")
         log(f"  occupancy estep_general J={J_} (warps per SM / registers / "
             f"local bytes / shared bytes): " + ", ".join(cells))
+    if wide:
+        return
     F = WLEN // 2 + 1
     for label, kernel, cases in (
             ("fb_stats", "fb_stats",
@@ -1028,9 +1129,12 @@ def phase_kernel_vs_plain(device):
 
 def erblet_kernel_timing(inp, got, abs_err):
     """estep_r1_real at ERB_SHAPE: kernel and plain in turns, the bound
-    and the float32 floor without FMA."""
+    and the float32 floor without FMA, the segments S of the kernel's
+    frame split and its grid (the kernel's time is both passes')."""
     import torch
-    from pyfasst_tpu_torch.ops import cuda_estep
+    from pyfasst_tpu_torch.ops import _build, cuda_estep
+    B_, J_, F_, N_ = ERB_SHAPE
+    S = _build.load().pyfasst_estep_r1_real_segments(B_, J_, F_, N_)
     kern, plain = _turns(lambda: cuda_estep.estep_r1_real(**inp),
                          lambda: cuda_estep.estep_r1_real_ref(**inp))
     ops = count_ops(cuda_estep.estep_r1_real_ref, **inp)
@@ -1038,14 +1142,17 @@ def erblet_kernel_timing(inp, got, abs_err):
     nums = {"shape": list(ERB_SHAPE), "max_abs_err": abs_err,
             "ms": statistics.median(kern), "plain_ms": statistics.median(plain),
             "bound_ms": b_ms, "bound_by": b_by,
-            "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3}
+            "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3,
+            "segments": S, "grid": [B_ * F_, S]}
     log(f"phase 2 kernel at the erblet48 shape B,J,F,N={ERB_SHAPE}: kernel "
         f"{nums['ms']:.4f} ms (min {min(kern):.4f} max {max(kern):.4f}), "
         f"plain {nums['plain_ms']:.3f} ms (min {min(plain):.3f}), medians "
         f"in turns | bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
         f"{ops / 1e9:.3f} Gop; without FMA {nums['nofma_floor_ms']:.4f} ms)"
-        f" | {ERB_SHAPE[0] * ERB_SHAPE[2]} blocks, one per frequency row, on "
-        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+        f" | frame split S={S}: grid {B_ * F_} x {S} = {B_ * F_ * S} blocks "
+        f"of 128 threads, then {B_ * F_} blocks of 64 summing the segments, "
+        f"on {torch.cuda.get_device_properties(0).multi_processor_count} "
+        f"SMs")
     return nums
 
 
@@ -1147,16 +1254,17 @@ def phase_general_vs_plain(device):
 
 
 def wide_path_shapes():
-    """(B, F, N) of phase 19's E-steps by run: `separate --sources 5` on the
-    10 s, 44.1 kHz mix (wlen 1024) and the five-source configs[2] model."""
+    """(B, F, N) of phase 19's E-steps by run: `separate --sources 5` and
+    `--sources 10` on their 10 s, 44.1 kHz mixes (wlen 1024) and the
+    five-source configs[2] model."""
     from pyfasst_tpu_torch.tf.stft import _frame_geometry
-    return {"inst": (1, WLEN // 2 + 1,
-                     _frame_geometry(int(FS * DUR), WLEN, HOP)[2]),
+    inst = (1, WLEN // 2 + 1, _frame_geometry(int(FS * DUR), WLEN, HOP)[2])
+    return {"inst": inst, "ten": inst,
             "reverb5": (1, WLEN_CONV // 2 + 1, conv_frames())}
 
 
 def phase_wide_vs_plain(device):
-    """The general kernel at J = 5 to 8 (WIDE_CASES) against its plain
+    """The general kernel at J = 5 to 16 (WIDE_CASES) against its plain
     version at the bench shapes (timed in turns, with its bound and
     float32 floor without FMA, two runs bit for bit), at phase 19's path
     shape where it has one (timed too) and at WIDE_RAGGED. Returns the
@@ -1164,7 +1272,7 @@ def phase_wide_vs_plain(device):
     launches of each case in this phase ("phase2_launches": checks,
     warm-ups and the timing's eager calls; replays do not count)."""
     import torch
-    from pyfasst_tpu_torch.ops import cuda_estep
+    from pyfasst_tpu_torch.ops import _build, cuda_estep
     t0 = time.perf_counter()
     paths = wide_path_shapes()
     out = {}
@@ -1198,8 +1306,12 @@ def phase_wide_vs_plain(device):
                         "plain_ms": statistics.median(plain),
                         "bound_ms": b_ms, "bound_by": b_by,
                         "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3}
+                res = _build.kernel_info(f"estep_j{J_}", max(ranks),
+                                         int(real), int(ns))
                 if (B, F, N) == timed[0]:
-                    out[label] = dict(nums, key=key, J=J_, ranks=list(ranks))
+                    out[label] = dict(nums, key=key, J=J_, ranks=list(ranks),
+                                      registers=res["registers"],
+                                      local_bytes=res["local_bytes"])
                 else:
                     out[label]["path"] = nums
                 timing = (f" | kernel {nums['ms']:.4f} ms (min "
@@ -1207,7 +1319,9 @@ def phase_wide_vs_plain(device):
                           f"ms, medians in turns | bound {b_ms:.4f} ms by "
                           f"{b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
                           f"Gop; without FMA {nums['nofma_floor_ms']:.4f} "
-                          "ms) | two runs bit for bit")
+                          f"ms) | two runs bit for bit | {res['registers']} "
+                          f"registers, {res['local_bytes']} B local, "
+                          f"{res['warps_per_sm']} warps an SM")
             log(f"phase 2 {key} {label} B={B} F={F} N={N}: "
                 + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}"
                            for n, e in errs.items())
@@ -1217,8 +1331,59 @@ def phase_wide_vs_plain(device):
                                    f"with its plain version at B={B} F={F} "
                                    f"N={N}: {bad}")
         out[label]["phase2_launches"] = cuda_estep.LAUNCHES - before
-    log(f"phase 2 J = 5..8 done | {time.perf_counter() - t0:.2f}s")
+    log(f"phase 2 J = 5..16 done | {time.perf_counter() - t0:.2f}s")
     return out
+
+
+def phase_many_vs_plain(device):
+    """The general kernel at every J of MANY_J against its plain version,
+    each variant of many_variants(J) at WIDE_RAGGED, two runs bit for bit;
+    and J = 17, which no kernel takes, raising NotImplementedError that
+    names its ROADMAP item."""
+    import torch
+    from pyfasst_tpu_torch.ops import cuda_estep
+    t0 = time.perf_counter()
+    B, F, N = WIDE_RAGGED
+    for J_ in MANY_J:
+        for key, label, ranks, real, ns, flag in many_variants(J_):
+            tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
+            kw = dict(ns_inj=ns, real_cov=real)
+            inp = _general_inputs(B, J_, F, N, ranks, real,
+                                  seed=F * N + 10 * J_ + max(ranks),
+                                  device=device)
+            fl = {flag: True} if flag else {}
+            got = cuda_estep.estep_general(*inp, ranks, **kw, **fl)
+            again = cuda_estep.estep_general(*inp, ranks, **kw, **fl)
+            want = cuda_estep.estep_ref(*inp, ranks, **kw,
+                                        no_ll=flag == "no_ll")
+            torch.cuda.synchronize()
+            errs, abs_err = _estep_errors(got, want)
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            log(f"phase 2 {key} {label} B={B} F={F} N={N}: "
+                + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}"
+                           for n, e in errs.items())
+                + f" | max_abs_err {abs_err:.3e} | two runs bit for bit "
+                f"{same}")
+            bad = [n for n, e in errs.items() if not e <= tol[n]]
+            if not same:
+                bad.append("two runs differ")
+            if bad:
+                raise RuntimeError(f"the general kernel ({label}) disagrees "
+                                   f"with its plain version at B={B} F={F} "
+                                   f"N={N}: {bad}")
+    ranks = (1,) * 17
+    inp = _general_inputs(B, 17, F, N, ranks, True, seed=17, device=device)
+    try:
+        cuda_estep.estep_general(*inp, ranks, real_cov=True)
+    except NotImplementedError as e:
+        if "ROADMAP" not in str(e):
+            raise RuntimeError(f"J = 17 raised without its ROADMAP item: "
+                               f"{e}") from e
+        log(f"phase 2 J=17 raises: {e}")
+    else:
+        raise RuntimeError("the general kernel took J = 17 sources")
+    log(f"phase 2 J = 9..16, every variant, done | "
+        f"{time.perf_counter() - t0:.2f}s")
 
 
 def phase_variants_ef(device):
@@ -3730,34 +3895,30 @@ def phase_cli(card, shape_nums):
 
 # -- phase 19: five sources at full width ---------------------------------
 
-def five_mixture(seed=SEED_FIVE):
-    """Phase 19 (a)'s mix: FIVE_KINDS' sources (band_sources at 44.1 kHz,
-    DUR seconds) panned apart at FIVE_PANS degrees, (cos, sin) gains
-    (instantaneous, rank 1), the mix scaled to peak 1, as make_mixture.
-    Returns (mix (T, 2) float32, true images (5, T, 2))."""
+def five_mixture(seed=SEED_FIVE, kinds=FIVE_KINDS, pans=FIVE_PANS):
+    """Phase 19 (a)'s mix: the sources `kinds` (band_sources at 44.1 kHz,
+    DUR seconds) panned apart at `pans` degrees, (cos, sin) gains
+    (instantaneous, rank 1), the mix scaled to peak 1, as make_mixture;
+    (c)'s with TEN_KINDS, TEN_PANS and SEED_TEN. Returns (mix (T, 2)
+    float32, true images (J, T, 2))."""
     rng = np.random.default_rng(seed)
-    srcs = band_sources(rng, int(FS * DUR), FIVE_KINDS, fs=FS)
+    srcs = band_sources(rng, int(FS * DUR), kinds, fs=FS)
     ys = np.stack([np.outer(s, (np.cos(np.deg2rad(a)), np.sin(np.deg2rad(a))))
-                   for s, a in zip(srcs, FIVE_PANS)])
+                   for s, a in zip(srcs, pans)])
     scale = np.max(np.abs(ys.sum(0)))
     return (ys.sum(0) / scale).astype(np.float32), ys / scale
 
 
-def five_runs(device, tmp):
-    """Phase 19's runs on `device` ("cuda" or "cpu"): (a) `separate
-    --sources 5 --iters NITER` through the CLI on five_mixture's WAV, the
-    WAVs it writes scored against the true images; (b) the five-source
-    configs[2] model through the host API. Each with its min SDR, E-step
-    launches by variant, the E-step shapes it called and its seconds."""
+def separate_cli_run(name, mix, ys_true, tmp, dev):
+    """`separate <name>.wav --sources J --iters NITER` through the CLI on
+    `dev`, the WAVs it writes scored against the true images: min SDR,
+    E-step launches by variant, the E-step shapes it called, seconds."""
     import torch
     from pyfasst_tpu_torch.audio import wavread
-    dev = "cuda" if str(device).startswith("cuda") else "cpu"
-    out = {}
-    mix, ys_true = five_mixture()
-    wav = os.path.join(tmp, "five.wav")
+    wav = os.path.join(tmp, f"{name}.wav")
     ys_true = write_mixture(wav, mix, FS, ys_true)
-    argv = ["separate", wav, "--sources", str(len(FIVE_KINDS)), "--iters",
-            str(NITER), "-o", os.path.join(tmp, "five"), "-q", "--device",
+    argv = ["separate", wav, "--sources", str(len(ys_true)), "--iters",
+            str(NITER), "-o", os.path.join(tmp, name), "-q", "--device",
             dev]
     _reset_counts()
     with spy_kernels() as shapes:
@@ -3768,10 +3929,28 @@ def five_runs(device, tmp):
         seconds = time.perf_counter() - t0
     ys = np.stack([wavread(p)[0] for p in rep["files"]])
     sdrs = best_perm(ys, ys_true)[1]
-    out["inst"] = {"min_sdr": float(min(sdrs)), "sdrs": sdrs,
-                   "counts": _counts(), "shapes": set(shapes),
-                   "seconds": seconds, "report": rep,
-                   "finite": bool(np.all(np.isfinite(ys)))}
+    return {"min_sdr": float(min(sdrs)), "sdrs": sdrs, "counts": _counts(),
+            "shapes": set(shapes), "seconds": seconds, "report": rep,
+            "finite": bool(np.all(np.isfinite(ys))
+                           and np.isfinite(rep["final_loglik"]))}
+
+
+def five_runs(device, tmp, which=("inst", "reverb5", "ten")):
+    """Phase 19's runs on `device` ("cuda" or "cpu"), those named in
+    `which`: (a) "inst", `separate --sources 5 --iters NITER` through the
+    CLI on five_mixture's WAV; (b) "reverb5", the five-source configs[2]
+    model through the host API; (c) "ten", `separate --sources 10` on the
+    ten-source mix. Each with its min SDR, E-step launches by variant,
+    the E-step shapes it called and its seconds."""
+    dev = "cuda" if str(device).startswith("cuda") else "cpu"
+    out = {}
+    if "inst" in which:
+        out["inst"] = separate_cli_run("five", *five_mixture(), tmp, dev)
+    if "ten" in which:
+        out["ten"] = separate_cli_run(
+            "ten", *five_mixture(SEED_TEN, TEN_KINDS, TEN_PANS), tmp, dev)
+    if "reverb5" not in which:
+        return out
     model, truth = conv_model("reverb5", device)
     _reset_counts()
     with spy_kernels() as shapes:
@@ -3783,23 +3962,33 @@ def five_runs(device, tmp):
     return out
 
 
-def cpu_reference_five():
-    """Phase 19's two runs on the CPU: the figures CPU_SDR_FIVE holds."""
+def cpu_reference_five(which=("inst", "reverb5")):
+    """Phase 19's runs (a) and (b) on the CPU: the figures CPU_SDR_FIVE
+    holds."""
     import torch
     print(f"threads {torch.get_num_threads()}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        out = five_runs("cpu", tmp)
-    print(json.dumps({k: {"min_sdr": v["min_sdr"], "seconds": v["seconds"]}
+        out = five_runs("cpu", tmp, which)
+    print(json.dumps({k: {"min_sdr": v["min_sdr"], "sdrs": v.get("sdrs"),
+                          "seconds": v["seconds"]}
                       for k, v in out.items()}), flush=True)
 
 
+def cpu_reference_ten():
+    """Phase 19 (c) on the CPU: the figures CPU_SDR_TEN holds."""
+    cpu_reference_five(("ten",))
+
+
 def phase_five(device, card):
-    """Phase 19: five sources at full width on the card (five_runs): (a)
-    `separate --sources 5` makes NITER launches of the general kernel at
-    J = 5 (real rank 1: variant a's model) at phase 2's path shape and no
-    other; (b) the five-source configs[2] model makes NITER_CONV launches
-    of variant c at J = 5, rank 2, at its path shape; each min SDR within
-    SDR_SLACK of CPU_SDR_FIVE, the port's CPU run of the same recipe.
+    """Phase 19: five and ten sources at full width on the card
+    (five_runs): (a) `separate --sources 5` makes NITER launches of the
+    general kernel at J = 5 (real rank 1: variant a's model) at phase 2's
+    path shape and no other; (b) the five-source configs[2] model makes
+    NITER_CONV launches of variant c at J = 5, rank 2, at its path shape;
+    (c) `separate --sources 10` makes NITER launches of variant a's model
+    at J = 10 at its path shape; (a)'s and (b)'s min SDR, and the SDR of
+    each of (c)'s sources, within SDR_SLACK of the port's CPU run of the
+    same recipe (CPU_SDR_FIVE, CPU_SDR_TEN), finite images and logliks.
     Returns the launches of each run."""
     t0 = time.perf_counter()
     paths = wide_path_shapes()
@@ -3808,28 +3997,37 @@ def phase_five(device, card):
     want = {"inst": (NITER, "a", ("general",) + (1, 5) + paths["inst"][1:]
                      + ((1,) * 5, True, False)),
             "reverb5": (NITER_CONV, "c", ("general",) + (1, 5)
-                        + paths["reverb5"][1:] + ((2,) * 5, False, False))}
+                        + paths["reverb5"][1:] + ((2,) * 5, False, False)),
+            "ten": (NITER, "a", ("general",) + (1, 10) + paths["ten"][1:]
+                    + ((1,) * 10, True, False))}
+    cpu_sdr = dict(CPU_SDR_FIVE, ten=CPU_SDR_TEN)
     bad = []
     for name, r in out.items():
         total, counts = r["counts"]
         n, key, shape = want[name]
-        cpu = CPU_SDR_FIVE[name]
+        cpu = cpu_sdr[name]
         per = (" per source " + " ".join(f"{x:.2f}" for x in r["sdrs"])
                if "sdrs" in r else f" mean {r['mean_sdr']:.2f}")
-        log(f"phase 19 {name}: J=5, {n} iters, min SDR {r['min_sdr']:.2f} "
-            f"dB (CPU run {cpu} dB;{per} dB), launches {total} {counts}, "
-            f"shapes {sorted(r['shapes'])}, "
+        log(f"phase 19 {name}: J={shape[2]}, {n} iters, min SDR "
+            f"{r['min_sdr']:.2f} dB (CPU run {cpu} dB;{per} dB), launches "
+            f"{total} {counts}, shapes {sorted(r['shapes'])}, "
             f"{r['seconds']:.2f}s -> xRT "
-            f"{(DUR if name == 'inst' else DUR_CONV) / r['seconds']:.2f} | "
-            f"{card}")
+            f"{(DUR_CONV if name == 'reverb5' else DUR) / r['seconds']:.2f}"
+            f" | {card}")
         if total != n or counts[key] != n or r["shapes"] != {shape}:
             bad.append(f"{name}: launches {total} {counts} at shapes "
                        f"{r['shapes']} (expected {n} of variant {key} at "
                        f"{shape})")
-        if cpu is None or abs(r["min_sdr"] - cpu) > SDR_SLACK:
+        if isinstance(cpu, tuple):      # (c): each source against its own
+            off = [j for j, (a, b) in enumerate(zip(r["sdrs"], cpu))
+                   if abs(a - b) > SDR_SLACK]
+            if len(r["sdrs"]) != len(cpu) or off:
+                bad.append(f"{name}: SDR of sources {off} not within "
+                           f"{SDR_SLACK} dB of the CPU run's ({cpu})")
+        elif cpu is None or abs(r["min_sdr"] - cpu) > SDR_SLACK:
             bad.append(f"{name}: min SDR {r['min_sdr']:.2f} dB not within "
                        f"{SDR_SLACK} dB of the CPU run ({cpu})")
-    if not (out["inst"]["finite"]
+    if not (out["inst"]["finite"] and out["ten"]["finite"]
             and np.all(np.isfinite(out["reverb5"]["loglik"]))):
         bad.append("non-finite images or loglik")
     log(f"phase 19 done | {time.perf_counter() - t0:.2f}s")
@@ -4221,14 +4419,16 @@ def main() -> int:
     torch.cuda.set_device(device)
     t0 = time.perf_counter()
     card = phase_machine(device)
-    phase_build()
+    join_wide = phase_build()
     main_abs, erb_kernel = phase_kernel_vs_plain(device)
     general = phase_general_vs_plain(device)
-    wide = phase_wide_vs_plain(device)
     ef, f_launches = phase_variants_ef(device)
     spectral = phase_spectral_vs_plain(device)
     stream_kernel = stream_kernel_check(device)
     cli_nums = phase_cli_shapes(device)
+    join_wide()
+    wide = phase_wide_vs_plain(device)
+    phase_many_vs_plain(device)
     _reset_counts()
     launches = phase_host_api(device, DUR, NITER)
     timing = phase_batch(device, DUR, NITER, BATCH, card)
@@ -4280,6 +4480,8 @@ def main() -> int:
         erblet48_bound_by=erb_kernel["bound_by"],
         erblet48_nofma_floor_ms=erb_kernel["nofma_floor_ms"],
         erblet48_max_abs_err=erb_kernel["max_abs_err"],
+        erblet48_segments=erb_kernel["segments"],
+        erblet48_grid=erb_kernel["grid"],
         erblet48_launches=erb_launches, configs3_launches=hmm_launches,
         mesh_fp_launches_per_rank=[r["estep"] for r in mesh["ranks"]["fp"]],
         mesh_fp_fused_launches_per_rank=[
@@ -4361,14 +4563,17 @@ def main() -> int:
                for f in fields},
             **{f"k{k}_b1_{f}": n[f] for k, n in zip(K_BIG, b1)
                for f in fields}))
-    # the general kernel at J = 5 to 8: phase 19's paths take the first two
-    # cases; the others run in phase 2 only
+    # the general kernel at J = 5 to 16: phase 19's paths take three cases
+    # (J = 5 real and rank 2, J = 10 real); the others run in phase 2 only
     path_of = {"inst": ("a", five["inst"]["a"]),
-               "reverb5": ("c", five["reverb5"]["c"])}
+               "reverb5": ("c", five["reverb5"]["c"]),
+               "ten": ("a", five["ten"]["a"])}
     for key, label, J_, ranks, real, ns, path in WIDE_CASES:
         nums = wide[label]
         extra = {"shape": [BATCH, J_, 513, 863], "ranks": list(ranks),
-                 "nofma_floor_ms": nums["nofma_floor_ms"]}
+                 "nofma_floor_ms": nums["nofma_floor_ms"],
+                 "registers": nums["registers"],
+                 "local_bytes": nums["local_bytes"]}
         if path:
             launches = path_of[path][1]
             pn = nums["path"]

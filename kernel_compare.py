@@ -17,17 +17,23 @@ Each side runs in a process of its own, which builds its package's kernels
 plain version at chip_smoke.py's bars and times it with chip_smoke.py's
 _graph_ms (CUDA-graph replay: device time), the same ruler for every side:
 estep_r1_real (variant a, and with fast_recip and no_ll) at B = 8,
-F = 513, N = 863, and variant a at the host API's B = 1; the general
+F = 513, N = 863, and variant a at the host API's B = 1, at the erblet48
+plane (1, 2, 48, 98304; it splits its frames) and at configs[3]'s Viterbi
+row (1, 2, 257, 376; too few frames a row to split); the general
 kernel's GENERAL_CASES at the bench shape and at the conv paths' own
 (B = 1, F = 513, N = 189), 1c at the configs[2] bucket and blind pool, 1c'
 at the speech pool and the music coarse stage, and its WIDE_CASES (J = 5
-to 8) at the bench shape and at phase 19's path shapes; fb_stats and tw_stats at the bench shape (B = 8,
+to 16; a side whose wrapper refuses a J skips it) at the bench shape and
+at phase 19's path shapes; fb_stats and tw_stats at the bench shape (B = 8,
 J = 2, F = 513, N = 863, K = 8) and at B = 1, and the same at each K of
 chip_smoke.K_BIG (40 and 64: the tiled kernel past 32). The sides run in
 turns, forward and then backward (this, parent, parent, this), --rounds
-times; a kernel's figure is the median of its side's samples. Prints the
-card (nvidia-smi name and power limit), one line per side and run, and a
-table of medians; writes every sample to chiprun_out/kernel_compare.json.
+times; a kernel's figure is the median of its side's samples. Each side
+also hashes the bits of each kernel's outputs on its (seeded) inputs, and
+the table says whether every other side's bits equal this checkout's.
+Prints the card (nvidia-smi name and power limit), one line per side and
+run, and a table of medians; writes every sample to
+chiprun_out/kernel_compare.json.
 Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -77,9 +83,14 @@ def cases(smoke, device):
     bench = (smoke.BATCH, 513, 863)
     inp = smoke._estep_inputs(*bench, seed=1, device=device)
     one = smoke._estep_inputs(1, 513, 863, seed=1, device=device)
+    erb = smoke._estep_inputs(1, smoke.ERB_SHAPE[2], smoke.ERB_SHAPE[3],
+                              seed=1, device=device)
+    vit = smoke._estep_inputs(1, 257, 376, seed=1, device=device)
     for name, flags, i in (("1a", {}, inp), ("1e", {"fast_recip": True}, inp),
                            ("1f", {"no_ll": True}, inp),
-                           ("1a 1x513x863", {}, one)):
+                           ("1a 1x513x863", {}, one),
+                           ("1a' erblet48 1x48x98304", {}, erb),
+                           ("1a 1x257x376", {}, vit)):
         no_ll = {"no_ll": True} if "no_ll" in flags else {}
         out.append((name,
                     lambda f=flags, i=i: cuda_estep.estep_r1_real(**i, **f),
@@ -145,10 +156,21 @@ def cases(smoke, device):
     return out
 
 
+def _bits(outputs):
+    """A hash of the bits of a kernel's outputs."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def run_side(name, directory, reps):
     """One side, in this process: build, check, time; prints one JSON
     line of {"side", "build_s", "ms": {case: samples}, "err": {case:
-    error over bar}, "info": {kernel: _build.kernel_info or None}}."""
+    error over bar}, "bits": {case: hash of the outputs}, "info": {kernel:
+    _build.kernel_info or None}}. A case the side's wrapper refuses
+    (NotImplementedError: a J it has no kernel for) is left out."""
     sys.path.insert(0, str(Path(directory).resolve()))
     import torch
     from pyfasst_tpu_torch.ops import _build
@@ -157,7 +179,8 @@ def run_side(name, directory, reps):
     torch.cuda.set_device(device)
     info = _build.build()
     result = {"side": name, "dir": str(directory),
-              "build_s": info["seconds"], "ms": {}, "err": {}, "info": {}}
+              "build_s": info["seconds"], "ms": {}, "err": {}, "bits": {},
+              "info": {}}
     for label, kernel, args in (
             ("estep_r1_real", "estep_r1_real", (smoke.J,)),
             ("tw_stats", "tw_stats", (smoke.K, 513))) + tuple(
@@ -168,7 +191,12 @@ def run_side(name, directory, reps):
         except AttributeError:
             result["info"][label] = None
     for case, kernel, plain, tol in cases(smoke, device):
-        err = _within(smoke, kernel(), plain(), tol)
+        try:
+            got = kernel()
+        except NotImplementedError:
+            continue
+        err = _within(smoke, got, plain(), tol)
+        result["bits"][case] = _bits(got)
         if not err <= 1.0:
             raise RuntimeError(f"{name}: {case} disagrees with its plain "
                                f"version ({err:.2f} of its bar)")
@@ -240,14 +268,20 @@ def main() -> int:
                           for c, m in res["ms"].items()), flush=True)
     names = [n for n, _ in sides]
     table = {n: {} for n in names}
+    bits = {n: {} for n in names}
     for res in runs:
         for c, m in res["ms"].items():
             table[res["side"]].setdefault(c, []).extend(m)
-    print("median ms by CUDA-graph replay | " + " | ".join(names))
+            bits[res["side"]].setdefault(c, set()).add(res["bits"][c])
+    print("median ms by CUDA-graph replay | " + " | ".join(names)
+          + " | bits equal this side's (" + ", ".join(names[1:]) + ")")
     for c in table["this"]:
+        same = ["-" if c not in bits[n] else
+                str(bits[n][c] == bits["this"][c] and len(bits[n][c]) == 1)
+                for n in names[1:]]
         print(f"{c} | " + " | ".join(
             f"{statistics.median(table[n][c]):.4f}" if c in table[n]
-            else "-" for n in names))
+            else "-" for n in names) + " | " + ", ".join(same))
     out = ROOT / "chiprun_out" / "kernel_compare.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps({"card": smoke.smi(), "order": [

@@ -3,7 +3,7 @@
 
     python3 kernel_sass.py tw_stats_kernel estep_r1_real_kernel
 
-Builds the kernels (ops/_build.py), disassembles the library with the CUDA
+Builds the kernels (ops/_build.py), disassembles its libraries with the CUDA
 toolkit's `cuobjdump -sass`, and for every kernel whose name contains one of
 the given words prints its instruction count, its opcode histogram, and for
 each backward branch (a loop) the instructions between the branch's target
@@ -67,9 +67,10 @@ def main(words) -> int:
     from pyfasst_tpu_torch.ops import _build
     info = _build.build()
     dump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    listing = subprocess.run([str(dump), "-sass", info["path"]],
-                             capture_output=True, text=True,
-                             check=True).stdout
+    listing = "".join(
+        subprocess.run([str(dump), "-sass", path], capture_output=True,
+                       text=True, check=True).stdout
+        for path in info["paths"].values())
     out_dir = ROOT / "chiprun_out" / "sass"
     out_dir.mkdir(parents=True, exist_ok=True)
     for name, insns in kernels(listing).items():

@@ -66,6 +66,22 @@
 //     barrier; then thread t forms output word t of the row (the warps
 //     added in warp order) and writes it: 33 words at J = 2, 61 at J = 3,
 //     one thread each, the zeros of the packed layout included.
+//   - Few rows (the ERBlet plane: B F = 48 rows of N = 98304 frames): a
+//     launch of one block per row would leave most of the card's warp
+//     schedulers without a warp, each warp walking hundreds of tiles in
+//     series. Below kSplitBlocks<J> / 2 rows, each row's frames are cut
+//     into S = kSplitBlocks<J> / (B F) segments of whole 128-frame groups,
+//     at least kSegGroups groups each (plan_segments; only the last
+//     segment is ragged), one block each (grid.y), so the launch still
+//     fits one wave of resident blocks. A segment's block runs the loop,
+//     butterfly and warp sums above over its frames and writes its totals
+//     to a scratch buffer the wrapper allocates; a second kernel
+//     (sum_segments_kernel) adds the segments in index order and writes
+//     the row's words as above. The plan is a function of (B F, N, J)
+//     only, never of the card, so the order of every sum and the bits are
+//     the same on any card; at S = 1 the one-pass kernel runs, and its
+//     sums keep their order. At erblet48 (S = 19: 912 blocks) the split
+//     takes the kernel from 0.476 to 0.080 ms on an H100 (PERF.md).
 //   - The sums of Sigma_x and of each S_j start from their first term, and
 //     X_jj, exactly 0 at rank 1, is left out of the quadratic terms (at
 //     J = 2 the leave-one-out det has none): the values of sums that start
@@ -115,6 +131,16 @@ constexpr int kDepth = 1;  // tiles a lane has asked for ahead of its own
 // Resident blocks per SM asked of ptxas: 7 (at most 72 registers) at J = 2.
 template <int J>
 constexpr int kMinBlocks = J == 2 ? 7 : 4;
+
+// Blocks of one wave on an H100 (132 SMs, kMinBlocks<J> resident on
+// each): a launch of fewer rows than half this splits its rows' frames,
+// into segments of at least kSegGroups groups of kThreads frames (a split
+// of short rows costs more in its second pass than it saves: 0.0055 ->
+// 0.0072 ms on an H100 at 257 rows of 3 groups, kernel_compare.py).
+template <int J>
+constexpr int kSplitBlocks = kMinBlocks<J> * 132;
+constexpr int kSegGroups = 8;
+constexpr int kSumThreads = 64;  // the second pass: one block a row
 
 constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
 constexpr int log2_of(int p) { return p <= 1 ? 0 : 1 + log2_of(p / 2); }
@@ -336,15 +362,64 @@ __device__ __forceinline__ void fold(float (&a)[P], int lane) {
   }
 }
 
-template <int J>
+// Output word t of row `row` = b F + f from the row's totals total(s)
+// (Slots order, the loglik at Slots::LL): ll, then txs, t4, tss and t7 in
+// their packed layouts.
+template <int J, class Total>
+__device__ __forceinline__ void write_word(int t, const Total& total, int b,
+                                           int f, int row, int F,
+                                           float* __restrict__ txs,
+                                           float* __restrict__ tss,
+                                           float* __restrict__ t4,
+                                           float* __restrict__ t7,
+                                           float* __restrict__ ll) {
+  using S = Slots<J>;
+  int i = t - 1;
+  if (t == 0) {
+    ll[row] = total(S::LL);
+  } else if (i < 8 * J) {  // txs, then t4: 4 words per source
+    const bool is_t4 = i >= 4 * J;
+    if (is_t4) i -= 4 * J;
+    const int j = i >> 2, q = i & 3;
+    const size_t o = (((size_t)b * J + j) * F + f) * 4 + q;
+    if (is_t4)
+      t4[o] = q == 0 ? total(S::T4 + j) : 0.f;
+    else
+      txs[o] = total(S::TXS + i);
+  } else {                 // tss, then t7: (re, im) per (j, k)
+    i -= 8 * J;
+    const bool is_t7 = i >= 2 * J * J;
+    if (is_t7) i -= 2 * J * J;
+    const int jk = i >> 1, im = i & 1;
+    const int j = jk / J, k = jk - j * J;
+    const size_t o = ((((size_t)b * J + j) * J + k) * F + f) * 2 + im;
+    if (is_t7) {
+      t7[o] = (im == 0 && j != k) ? total(S::T7 + S::offd(j, k)) : 0.f;
+    } else if (im == 0) {
+      tss[o] = total(S::TSR + (j <= k ? S::pair(j, k) : S::pair(k, j)));
+    } else if (j == k) {
+      tss[o] = 0.f;
+    } else if (j < k) {
+      tss[o] = total(S::TSI + S::upper(j, k));
+    } else {               // Tss_jk = conj(Tss_kj)
+      tss[o] = 0.f - total(S::TSI + S::upper(k, j));
+    }
+  }
+}
+
+// One block per (row, segment): SPLIT = false takes the whole row (grid.x
+// = B F) and writes its words; SPLIT = true the frames [y seg, (y + 1) seg)
+// of its row (grid (B F, S)), and writes the segment's totals, Slots order
+// with the loglik last, to ws[(row S + y) (COUNT + 1) + s].
+template <int J, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<J>)
 estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
                      const float* __restrict__ A,
                      const float* __restrict__ sigma, float* __restrict__ xi,
                      float* __restrict__ txs, float* __restrict__ tss,
                      float* __restrict__ t4, float* __restrict__ t7,
-                     float* __restrict__ ll, int F, int N, float eps,
-                     bool fast, bool no_ll) {
+                     float* __restrict__ ll, float* __restrict__ ws, int F,
+                     int N, int seg, float eps, bool fast, bool no_ll) {
   using S = Slots<J>;
   __shared__ float red[kWarps][S::COUNT + 1];  // the warps' sums, ll last
 
@@ -354,6 +429,9 @@ estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
   const size_t FN = (size_t)F * N;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // this block's frames [lo, hi): the row, or one segment of it
+  const int lo = SPLIT ? (int)blockIdx.y * seg : 0;
+  const int hi = SPLIT ? min(N, lo + seg) : N;
 
   const float* xrow = x4 + (size_t)b * 4 * FN + (size_t)f * N;
   const float* vrow = v + (size_t)b * J * FN + (size_t)f * N;
@@ -362,7 +440,7 @@ estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
   // The lane's next kDepth frames, asked for ahead of their turn.
   float px[kDepth][4], pv[kDepth][J];
   auto ask = [&](int d, int n) {
-    const bool in = n < N;
+    const bool in = n < hi;
 #pragma unroll
     for (int q = 0; q < 4; ++q) px[d][q] = in ? xrow[q * FN + n] : 0.f;
 #pragma unroll
@@ -370,7 +448,7 @@ estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
   };
 #pragma unroll
   for (int d = 0; d < kDepth; ++d)
-    ask(d, warp * kTile + d * kThreads + lane);
+    ask(d, lo + warp * kTile + d * kThreads + lane);
 
   RowConst<J> c;
   row_constants<J>(c, A + ((size_t)b * J * F + f) * 2, (size_t)F * 2,
@@ -381,7 +459,7 @@ estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
   for (int i = 0; i < S::P; ++i) acc[i] = 0.f;
   float ll_sum = 0.f;
 
-  for (int n0 = warp * kTile; n0 < N; n0 += kDepth * kThreads) {
+  for (int n0 = lo + warp * kTile; n0 < hi; n0 += kDepth * kThreads) {
 #pragma unroll
     for (int d = 0; d < kDepth; ++d) {
       const int n = n0 + d * kThreads + lane;
@@ -391,7 +469,7 @@ estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
 #pragma unroll
       for (int j = 0; j < J; ++j) vn[j] = pv[d][j];
       ask(d, n + kDepth * kThreads);
-      if (n < N) {
+      if (n < hi) {
         bin_update<J>(c, x[0], x[1], x[2], x[3], vn, eps, fast, no_ll, xin,
                       acc, ll_sum);
 #pragma unroll
@@ -415,56 +493,86 @@ estep_r1_real_kernel(const float* __restrict__ x4, const float* __restrict__ v,
   }
   __syncthreads();
 
-  // Output word t of the row, the warps added in warp order: ll, then txs,
-  // t4, tss and t7 in their packed layouts.
+  // Sum s of the block: the warps added in warp order.
   auto total = [&](int s) {
     float t = red[0][s];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) t += red[w][s];
     return t;
   };
-  for (int t = threadIdx.x; t < S::NOUT; t += kThreads) {
-    int i = t - 1;
-    if (t == 0) {
-      ll[row] = total(S::LL);
-    } else if (i < 8 * J) {  // txs, then t4: 4 words per source
-      const bool is_t4 = i >= 4 * J;
-      if (is_t4) i -= 4 * J;
-      const int j = i >> 2, q = i & 3;
-      const size_t o = (((size_t)b * J + j) * F + f) * 4 + q;
-      if (is_t4)
-        t4[o] = q == 0 ? total(S::T4 + j) : 0.f;
-      else
-        txs[o] = total(S::TXS + i);
-    } else {                 // tss, then t7: (re, im) per (j, k)
-      i -= 8 * J;
-      const bool is_t7 = i >= 2 * J * J;
-      if (is_t7) i -= 2 * J * J;
-      const int jk = i >> 1, im = i & 1;
-      const int j = jk / J, k = jk - j * J;
-      const size_t o = ((((size_t)b * J + j) * J + k) * F + f) * 2 + im;
-      if (is_t7) {
-        t7[o] = (im == 0 && j != k) ? total(S::T7 + S::offd(j, k)) : 0.f;
-      } else if (im == 0) {
-        tss[o] = total(S::TSR + (j <= k ? S::pair(j, k) : S::pair(k, j)));
-      } else if (j == k) {
-        tss[o] = 0.f;
-      } else if (j < k) {
-        tss[o] = total(S::TSI + S::upper(j, k));
-      } else {               // Tss_jk = conj(Tss_kj)
-        tss[o] = 0.f - total(S::TSI + S::upper(k, j));
-      }
-    }
+  if constexpr (SPLIT) {
+    float* out = ws + ((size_t)row * gridDim.y + blockIdx.y) * (S::COUNT + 1);
+    for (int s = threadIdx.x; s <= S::COUNT; s += kThreads) out[s] = total(s);
+  } else {
+    for (int t = threadIdx.x; t < S::NOUT; t += kThreads)
+      write_word<J>(t, total, b, f, row, F, txs, tss, t4, t7, ll);
   }
+}
+
+// The second pass of a split launch: row blockIdx.x's sums, its S
+// segments' totals added in segment order, then its words as the one-pass
+// kernel writes them.
+template <int J>
+__global__ void __launch_bounds__(kSumThreads)
+sum_segments_kernel(const float* __restrict__ ws, float* __restrict__ txs,
+                    float* __restrict__ tss, float* __restrict__ t4,
+                    float* __restrict__ t7, float* __restrict__ ll, int F,
+                    int S) {
+  constexpr int C = Slots<J>::COUNT + 1;
+  __shared__ float sums[C];
+  const int row = blockIdx.x;
+  const int b = row / F;
+  const int f = row - b * F;
+  const float* in = ws + (size_t)row * S * C;
+  for (int s = threadIdx.x; s < C; s += kSumThreads) {
+    float t = in[s];
+    for (int g = 1; g < S; ++g) t += in[g * C + s];
+    sums[s] = t;
+  }
+  __syncthreads();
+  auto total = [&](int s) { return sums[s]; };
+  for (int t = threadIdx.x; t < Slots<J>::NOUT; t += kSumThreads)
+    write_word<J>(t, total, b, f, row, F, txs, tss, t4, t7, ll);
+}
+
+// Segments of each row's N frames for a launch of `rows` = B F rows at J
+// sources: S = kSplitBlocks<J> / rows, at most one per kSegGroups groups
+// of kThreads frames and at least 1, each of *seg frames (whole groups;
+// the last ragged). A function of (rows, N, J) alone.
+template <int J>
+int plan_segments(long long rows, int N, int* seg) {
+  const int groups = (N + kThreads - 1) / kThreads;
+  long long S = kSplitBlocks<J> / rows;
+  if (S > groups / kSegGroups) S = groups / kSegGroups;
+  if (S < 1) S = 1;
+  const int per = (int)((groups + S - 1) / S);
+  *seg = per * kThreads;
+  return (groups + per - 1) / per;
 }
 
 template <int J>
 cudaError_t launch(const float* x4, const float* v, const float* A,
                    const float* sigma, float* xi, float* txs, float* tss,
-                   float* t4, float* t7, float* ll, int B, int F, int N,
-                   float eps, bool fast, bool no_ll, cudaStream_t stream) {
-  estep_r1_real_kernel<J><<<B * F, kThreads, 0, stream>>>(
-      x4, v, A, sigma, xi, txs, tss, t4, t7, ll, F, N, eps, fast, no_ll);
+                   float* t4, float* t7, float* ll, float* ws, int B, int F,
+                   int N, float eps, bool fast, bool no_ll,
+                   cudaStream_t stream) {
+  const int rows = B * F;
+  int seg;
+  const int S = plan_segments<J>(rows, N, &seg);
+  if (S == 1) {
+    estep_r1_real_kernel<J, false><<<rows, kThreads, 0, stream>>>(
+        x4, v, A, sigma, xi, txs, tss, t4, t7, ll, ws, F, N, N, eps, fast,
+        no_ll);
+    return cudaGetLastError();
+  }
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  estep_r1_real_kernel<J, true><<<dim3(rows, S), kThreads, 0, stream>>>(
+      x4, v, A, sigma, xi, txs, tss, t4, t7, ll, ws, F, N, seg, eps, fast,
+      no_ll);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  sum_segments_kernel<J><<<rows, kSumThreads, 0, stream>>>(ws, txs, tss, t4,
+                                                           t7, ll, F, S);
   return cudaGetLastError();
 }
 
@@ -472,7 +580,7 @@ cudaError_t launch(const float* x4, const float* v, const float* A,
 // static shared bytes per block] of estep_r1_real_kernel<J>.
 template <int J>
 cudaError_t info(int* out) {
-  auto kernel = estep_r1_real_kernel<J>;
+  auto kernel = estep_r1_real_kernel<J, false>;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return e;
@@ -490,15 +598,18 @@ cudaError_t info(int* out) {
 }  // namespace
 
 // C entry points, bound with ctypes (ops/cuda_estep.py, ops/_build.py). The
-// E-step launches on `stream`, does not synchronise, allocates nothing; the
-// info call writes the kernel's occupancy and resources for J sources. Each
-// returns a cudaError_t: 0 on success.
+// E-step launches on `stream`, does not synchronise, allocates nothing: a
+// launch that splits its rows' frames needs `ws`, the number of floats
+// pyfasst_estep_r1_real_workspace gives (null where that is 0), and
+// pyfasst_estep_r1_real_segments gives its S. The info call writes the
+// one-pass kernel's occupancy and resources for J sources. The launch and
+// the info call return a cudaError_t: 0 on success.
 extern "C" int pyfasst_estep_r1_real(const float* x4, const float* v,
                                      const float* A, const float* sigma,
                                      float* xi, float* txs, float* tss,
-                                     float* t4, float* t7, float* ll, int B,
-                                     int J, int F, int N, float eps,
-                                     int fast_recip, int no_ll,
+                                     float* t4, float* t7, float* ll,
+                                     float* ws, int B, int J, int F, int N,
+                                     float eps, int fast_recip, int no_ll,
                                      void* stream) {
   if (B <= 0 || F <= 0 || N <= 0 || (long long)B * F > 2147483647LL)
     return (int)cudaErrorInvalidValue;
@@ -506,14 +617,40 @@ extern "C" int pyfasst_estep_r1_real(const float* x4, const float* v,
   const bool fast = fast_recip != 0, nl = no_ll != 0;
   switch (J) {
     case 2:
-      return (int)launch<2>(x4, v, A, sigma, xi, txs, tss, t4, t7, ll, B, F,
-                            N, eps, fast, nl, s);
+      return (int)launch<2>(x4, v, A, sigma, xi, txs, tss, t4, t7, ll, ws, B,
+                            F, N, eps, fast, nl, s);
     case 3:
-      return (int)launch<3>(x4, v, A, sigma, xi, txs, tss, t4, t7, ll, B, F,
-                            N, eps, fast, nl, s);
+      return (int)launch<3>(x4, v, A, sigma, xi, txs, tss, t4, t7, ll, ws, B,
+                            F, N, eps, fast, nl, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Segments S of each row at this shape (1: no split); -1 for a shape the
+// kernel refuses.
+extern "C" int pyfasst_estep_r1_real_segments(int B, int J, int F, int N) {
+  if (B <= 0 || F <= 0 || N <= 0 || (long long)B * F > 2147483647LL)
+    return -1;
+  int seg;
+  switch (J) {
+    case 2:
+      return plan_segments<2>((long long)B * F, N, &seg);
+    case 3:
+      return plan_segments<3>((long long)B * F, N, &seg);
+    default:
+      return -1;
+  }
+}
+
+// Floats of scratch the launch at this shape needs: B F x S x (its sums
+// and the loglik), 0 unsplit; -1 for a shape the kernel refuses.
+extern "C" long long pyfasst_estep_r1_real_workspace(int B, int J, int F,
+                                                     int N) {
+  const int S = pyfasst_estep_r1_real_segments(B, J, F, N);
+  if (S < 0) return -1;
+  const int sums = J == 2 ? Slots<2>::COUNT + 1 : Slots<3>::COUNT + 1;
+  return S == 1 ? 0 : (long long)B * F * S * sums;
 }
 
 extern "C" int pyfasst_estep_r1_real_info(int J, int* out) {

@@ -76,7 +76,8 @@
 // 88 / 100% (two Tss slots of 18 lanes, 56, 8), complex rank 1 90 / 100 /
 // 100% (seven T7 slots of 8 lanes). Shared memory is the tile, (4 + J
 // blocks) x 132 words: at J = 8 rank 2, 140 x 528 B = 72 KB, three
-// blocks (12 warps) to an SM.
+// blocks (12 warps) to an SM; at J = 16 (the most the package builds,
+// csrc/estep_j16.cu) 276 x 528 B = 146 KB, one block.
 //
 // Numerics follow the Pallas forms term by term: the subtract-free dets of
 // Sigma_x and of each S_j, the rank-2 dG clamp and coef = (g00 + g11)/dG,
@@ -98,7 +99,8 @@
 // issues on its own, so the yardstick is the floor at half the card's FMA
 // rate. On top of the operations come the exact divides, logf, the loads
 // of phase 2 and its idle lanes: the kernel is bound by instruction issue
-// (kernel_sass.py); at J = 8 rank 2 it runs at ~1.4x that floor (PERF.md).
+// (kernel_sass.py); at J = 8 rank 2 it runs at ~1.4x that floor, at J = 16
+// rank 2 (255 registers, one block an SM) ~2.8x (PERF.md).
 //
 // Layouts (float32, contiguous), with the clip axis B; Rmax = max rank:
 //   x4    (B, 4, F, N)        [Re x0, Im x0, Re x1, Im x1]
@@ -218,8 +220,9 @@ struct __align__(16) Row {
 };
 
 // The row's invariants, spread over the block: one (j, r, channel) entry
-// of the mixing columns per thread, then one R_j or one X_jk per thread
-// (rk[j]: source j's rank). Ends with the block synchronised.
+// of the mixing columns per thread, then the J R_j and J^2 X_jk, item t
+// to thread t (past J = 10, t mod kGenThreads, in turns; rk[j]: source
+// j's rank). Ends with the block synchronised.
 template <int J, int R, bool REAL, class Rk>
 __device__ __forceinline__ void row_constants(Row<J, R>& c,
                                               const float* __restrict__ A4,
@@ -232,8 +235,7 @@ __device__ __forceinline__ void row_constants(Row<J, R>& c,
   }
   if (tid == 0) c.sig = sig;
   __syncthreads();
-  if (tid < J) {
-    const int j = tid;
+  auto source = [&](int j) {  // R_j, tr R_j
     float ra = 0.f, rd = 0.f;
     cf rb{0.f, 0.f};
     for (int r = 0; r < rk[j]; ++r) {
@@ -248,8 +250,9 @@ __device__ __forceinline__ void row_constants(Row<J, R>& c,
     c.Rd[j] = rd;
     c.Rb[j] = rb;
     c.trR[j] = ra + rd;
-  } else if (tid < J + J * J) {
-    const int j = (tid - J) / J, k = (tid - J) % J;
+  };
+  auto cross = [&](int jk) {  // X_jk
+    const int j = jk / J, k = jk % J;
     float x = 0.f;
     for (int r = 0; r < rk[j]; ++r) {
       for (int s = 0; s < rk[k]; ++s) {
@@ -263,6 +266,19 @@ __device__ __forceinline__ void row_constants(Row<J, R>& c,
       }
     }
     c.Xc[j][k] = x;
+  };
+  if constexpr (J + J * J <= kGenThreads) {
+    if (tid < J)
+      source(tid);
+    else if (tid < J + J * J)
+      cross(tid - J);
+  } else {
+    for (int t = tid; t < J + J * J; t += kGenThreads) {
+      if (t < J)
+        source(t);
+      else
+        cross(t - J);
+    }
   }
   __syncthreads();
 }
@@ -433,8 +449,10 @@ __device__ __forceinline__ float frame_terms(
 
 // The packed outputs of one row from its totals `red` (Slots order, the
 // loglik at Slots::LL), zero-padded past each source's rank (rk[j]:
-// source j's rank): thread j < J writes source j's Txs and T4, thread
-// 32 + j J + k the (j, k) blocks of Tss and T7.
+// source j's rank): thread j < J writes source j's Txs and T4, and the
+// (j, k) blocks of Tss and T7, jk = j J + k, go to thread 32 + jk (past
+// J = 9, 32 + jk mod kGenThreads, in turns: the first warp's other work
+// is the Txs).
 template <int J, int R, bool REAL, class Rk>
 __device__ __forceinline__ void write_outputs(const Args& g, const float* red,
                                               const Rk& rk, int b, int f,
@@ -454,8 +472,8 @@ __device__ __forceinline__ void write_outputs(const Args& g, const float* red,
       t4o[q] = (rk[j] == 1) ? (q == 0 ? red[S::T4 + j * S::NT4] : 0.f)
                             : red[S::T4 + j * S::NT4 + q];
   }
-  if (tid >= 32 && tid < 32 + J * J) {
-    const int j = (tid - 32) / J, k = (tid - 32) - j * J;
+  auto block = [&](int jk) {
+    const int j = jk / J, k = jk - j * J;
     const size_t o = ((((size_t)b * J + j) * J + k) * F + f) * 2 * R * R;
     float* ts = g.tss + o;
     float* t7o = g.t7 + o;
@@ -482,6 +500,13 @@ __device__ __forceinline__ void write_outputs(const Args& g, const float* red,
         }
       }
     }
+  };
+  if constexpr (32 + J * J <= kGenThreads) {
+    if (tid >= 32 && tid < 32 + J * J) block(tid - 32);
+  } else {
+    for (int jk = (tid + kGenThreads - 32) % kGenThreads; jk < J * J;
+         jk += kGenThreads)
+      block(jk);
   }
 }
 
@@ -497,9 +522,8 @@ __global__ void __launch_bounds__(kGenThreads, 4)
   static_assert(S::REG && kGenWarps * (S::COUNT + 1) <=
                               kGenWarps * kTile * kTileStride,
                 "REG: a frame's sums in registers, the block's in the tiles");
-  static_assert(J * R * 2 <= kGenThreads && J + J * J <= kGenThreads &&
-                    32 + J * J <= kGenThreads,
-                "one thread per mixing entry, invariant and output block");
+  static_assert(J * R * 2 <= kGenThreads && J <= 32,
+                "one thread per mixing entry and per source's Txs");
 
   const int F = g.F, N = g.N;
   const int row = blockIdx.x;  // b * F + f
@@ -966,10 +990,11 @@ struct Split {
   // resident blocks per SM asked of ptxas: four (128 registers a thread:
   // one wave of B = 1, F = 513 rows), or as many as shared memory holds
   // (three at J >= 7 rank 2: 168 registers); two (255) for ns_inj at rank
-  // 2 past J = 4, which spills at three (ptxas; no path runs it)
+  // 2 past J = 4, which spills at three (ptxas; no path runs it); three
+  // past J = 9 (rank 1 spills 16-512 B at four from J = 10 on)
   static constexpr int BLOCKS_BY_SMEM =
       kSmemPerSM / (int)(BYTES + sizeof(Row<J, R>) + 1024);
-  static constexpr int BLOCKS = NS && R == 2 && J > 4 ? 2 : 4;
+  static constexpr int BLOCKS = NS && R == 2 && J > 4 ? 2 : J > 9 ? 3 : 4;
   static constexpr int MIN_BLOCKS =
       BLOCKS_BY_SMEM < BLOCKS ? BLOCKS_BY_SMEM : BLOCKS;
 };
@@ -1185,10 +1210,10 @@ __global__ void __launch_bounds__(kGenThreads, Split<J, R, REAL, NS>::MIN_BLOCKS
   extern __shared__ __align__(16) float feats[];
   static_assert(!S::REG && SP::MIN_BLOCKS >= 1 &&
                     SP::BYTES + sizeof(Row<J, R>) <= 227 * 1024 &&
-                    J * R * 2 <= kGenThreads && 32 + J * J <= kGenThreads,
+                    J * R * 2 <= kGenThreads && J <= 32,
                 "FRAMES: the tile and the row's constants in one block's "
-                "shared memory; one thread per mixing entry, invariant and "
-                "output block");
+                "shared memory; one thread per mixing entry and per "
+                "source's Txs");
 
   const int F = g.F, N = g.N;
   const int row = blockIdx.x;  // b * F + f

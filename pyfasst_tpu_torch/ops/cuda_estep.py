@@ -8,10 +8,10 @@ ops/_build.py:
                                            mixing, no noise injection;
                                            J = 2, 3 (the main path)
     estep_general   csrc/estep_general.cuh variants b, c, d and their
-                    (estep_j{2..8}.cu)     combinations: complex mixing,
+                    (estep_j{2..16}.cu)    combinations: complex mixing,
                                            ranks in {1, 2} per source,
-                                           'ann_ns_inj'; J = 2 to 8 (and
-                                           variant a's model at J = 4-8)
+                                           'ann_ns_inj'; J = 2 to 16 (and
+                                           variant a's model at J = 4-16)
 
 Both take the flags fast_recip (variant e: approximate reciprocals with a
 Newton step, csrc/recip.cuh) and no_ll (variant f: the loglik without
@@ -25,7 +25,7 @@ launch of a complex rank-2 E-step with fast_recip counts for b, c and e).
 ``suff_stats_cuda`` returns an estep.SuffStats laid out as
 pallas_suff_stats lays it out.
 
-Still to port: float64, I != 2 and J outside 2-8: kernel_eligible names
+Still to port: float64, I != 2 and J outside 2-16: kernel_eligible names
 them and suff_stats_cuda raises.
 """
 from __future__ import annotations
@@ -48,10 +48,11 @@ VARIANT_LAUNCHES = {"a": 0, "b": 0, "c": 0, "d": 0, "e": 0, "f": 0}
 on real rank-1 mixing without noise injection), b (complex mixing),
 c (a rank-2 source), d (noise injection), e (fast_recip), f (no_ll)."""
 
-GENERAL_J = (2, 3, 4, 5, 6, 7, 8)
+GENERAL_J = tuple(range(2, 17))
 """Source counts the general kernel is built for (one translation unit
 each, csrc/estep_j{J}.cu). The kernel's design has no limit of its own on
-J (csrc/estep_general.cuh); J >= 9 has no translation unit yet."""
+J (csrc/estep_general.cuh); J >= 17 has no translation unit (its tile
+would still fit one block's shared memory up to J = 24 at rank 2)."""
 
 
 def pack_x4(X: torch.Tensor) -> torch.Tensor:
@@ -172,7 +173,8 @@ def estep_r1_real(x4, v, A, sigma, eps: float = 1e-30,
     """The E-step kernel on a CUDA tensor, its plain version on a CPU one.
 
     Shapes and outputs as estep_r1_real_ref. On CUDA every input must be
-    float32, contiguous and on one device; the outputs are allocated here
+    float32, contiguous and on one device; the outputs, and the scratch of
+    a launch that splits few rows' frames (segments), are allocated here
     and the kernel runs on the current stream. fast_recip (variant e) takes
     the kernel's approximate reciprocals; no_ll (variant f) as in
     estep_r1_real_ref.
@@ -200,13 +202,17 @@ def estep_r1_real(x4, v, A, sigma, eps: float = 1e-30,
     t4 = torch.empty((B, J, F, 4), **f32)
     t7 = torch.empty((B, J, J, F, 2), **f32)
     ll = torch.empty((B, F), **f32)
+    # few rows: the kernel splits their frames, its segments' sums in here
+    words = lib.pyfasst_estep_r1_real_workspace(B, J, F, N)
+    ws = torch.empty((words,), **f32) if words > 0 else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.pyfasst_estep_r1_real(
             x4.data_ptr(), v.data_ptr(), A.data_ptr(), sigma.data_ptr(),
             xi.data_ptr(), txs.data_ptr(), tss.data_ptr(), t4.data_ptr(),
-            t7.data_ptr(), ll.data_ptr(), B, J, F, N, ctypes.c_float(eps),
-            int(fast_recip), int(no_ll), stream)
+            t7.data_ptr(), ll.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, J, F, N,
+            ctypes.c_float(eps), int(fast_recip), int(no_ll), stream)
     if err != 0:
         raise RuntimeError(f"E-step kernel launch failed: cudaError_t {err}")
     _count(["a"], fast_recip, no_ll)
@@ -483,14 +489,14 @@ def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
     _check("sigma", sigma, (B, F), dev)
     if J not in GENERAL_J:
         raise NotImplementedError(
-            f"the E-step kernel is built for J = 2 to 8 sources, got {J} "
+            f"the E-step kernel is built for J = 2 to 16 sources, got {J} "
             "(ROADMAP kernel queue 2)")
     if any(r not in (1, 2) for r in ranks):
         raise NotImplementedError(f"the E-step kernel takes ranks 1 and 2, "
                                   f"got {ranks}")
     from pyfasst_tpu_torch.ops import _build
 
-    fn = getattr(_build.load(), f"pyfasst_estep_j{J}")
+    fn = getattr(_build.load(_build.library_of(J)), f"pyfasst_estep_j{J}")
     f32 = dict(dtype=torch.float32, device=dev)
     xi = torch.empty((B, J, F, N), **f32)
     txs = torch.empty((B, J, F, 4 * Rmax), **f32)
@@ -529,7 +535,7 @@ def kernel_eligible(ranks: Tuple[int, ...], real_cov: bool,
                 "the CPU, ROADMAP kernel queue 1)")
     if len(ranks) not in GENERAL_J:
         return (f"J = {len(ranks)} sources (the kernels are built for "
-                "J = 2 to 8; ROADMAP kernel queue 2)")
+                "J = 2 to 16; ROADMAP kernel queue 2)")
     if any(r not in (1, 2) for r in ranks):
         return (f"ranks {tuple(ranks)} (the kernels take ranks 1 and 2; "
                 "ROADMAP kernel queue 1)")

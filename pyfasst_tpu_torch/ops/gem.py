@@ -24,7 +24,7 @@ E-step dispatch (gem_step), as the JAX gem_step takes it:
                                     ranks, 'ann_ns_inj'); fast_recip in
                                     either (variant e)
     I = 2, CUDA, anything else      NotImplementedError naming the
-                                    ROADMAP entry (float64, J outside 2-8)
+                                    ROADMAP entry (float64, J outside 2-16)
 
 Spectral M-step dispatch (gem_step), as the JAX gem_step takes it:
     I = 2, CUDA tensor,             cuda_spectral.fused_spectral_update:

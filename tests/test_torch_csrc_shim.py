@@ -1,17 +1,18 @@
 """The CUDA sources of the port, compiled for the CPU and run at ragged shapes.
 
 csrc/estep.cu, csrc/spectral.cu and the general E-step kernel
-(csrc/estep_general.cuh through csrc/estep_j{2..8}.cu) are compiled with
-g++ against the stand-in headers of tests/cuda_shim/ (threads, barriers
-and shuffles on std::thread; one block at a time), from a scratch copy in
-which
+(csrc/estep_general.cuh through csrc/estep_j{J}.cu for J in SHIM_J: 2 to
+10, 12 and 16) are compiled with g++ against the stand-in headers of
+tests/cuda_shim/ (threads, barriers and shuffles on std::thread; one
+block at a time), from a scratch copy in which
 
     kernel<<<grid, block, smem, stream>>>(args);   ->  shim::launch(...)
     extern __shared__ ... float name[];            ->  shim::dynamic_shared()
     recip.cuh's rcp.approx asm                     ->  1 / x
 
-and estep_r1_real, the general E-step (J = 2 to 8, real and complex, ranks
-1, 2 and mixed, noise injection and each flag), tw_stats and fb_stats are
+and estep_r1_real (with the frame split of few rows and its threshold),
+the general E-step (J = 2 to 10, 12 and 16, real and complex, ranks 1, 2
+and mixed, noise injection and each flag), tw_stats and fb_stats are
 held against their plain PyTorch versions at shapes that cross every tile
 edge of the kernels (one frame, 31 and 33 frames, fewer rows than a batch,
 two rows more than a chunk, K below, at and above KMAX; past K = 32 the
@@ -46,9 +47,17 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT.parent / "pyfasst_tpu_torch" / "csrc"
+# the general kernel's translation units compiled here: every J up to 10,
+# then 12 and 16 (the same header; J = 10 is the first whose J^2 output
+# blocks loop over the block's threads while its J + J^2 row constants do
+# not, J = 11 the first where both loop; 11 and 13-15 cost ~5 s of g++
+# each and cross no edge that 12 and 16 do not; the card's tests run
+# every J)
+SHIM_J = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 16)
 SOURCES = ("estep.cu", "spectral.cu") + tuple(
-    f"estep_j{J}.cu" for J in cuda_estep.GENERAL_J)
-_LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<\w+>)?)<<<(.+?)>>>\((.*?)\);", re.S)
+    f"estep_j{J}.cu" for J in SHIM_J)
+_LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[\w, ]+>)?)<<<(.+?)>>>\((.*?)\);",
+                     re.S)
 _DYNAMIC = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];")
 _ASM = re.compile(r'asm\("rcp\.approx\.f32[^;]*;[^;]*;')
 
@@ -91,13 +100,16 @@ def lib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr[-4000:]
     so = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    so.pyfasst_estep_r1_real.argtypes = [p] * 10 + [i] * 4 + [f] + [i] * 2 + [p]
+    so.pyfasst_estep_r1_real.argtypes = [p] * 11 + [i] * 4 + [f] + [i] * 2 + [p]
+    so.pyfasst_estep_r1_real_workspace.argtypes = [i] * 4
+    so.pyfasst_estep_r1_real_workspace.restype = ctypes.c_longlong
+    so.pyfasst_estep_r1_real_segments.argtypes = [i] * 4
     for name in ("pyfasst_fb_stats", "pyfasst_tw_stats"):
         getattr(so, name).argtypes = [p] * 7 + [i] * 5 + [p]
         getattr(so, f"{name}_workspace").argtypes = [i] * 5
         getattr(so, f"{name}_workspace").restype = ctypes.c_longlong
     so.pyfasst_estep_r1_real_info.argtypes = [i, p]
-    for J in cuda_estep.GENERAL_J:
+    for J in SHIM_J:
         getattr(so, f"pyfasst_estep_j{J}").argtypes = (
             [p] * 10 + [i] * 7 + [f] + [i] * 2 + [p])
         getattr(so, f"pyfasst_estep_j{J}_info").argtypes = [i] * 3 + [p]
@@ -115,30 +127,48 @@ def _rel(got, want):
     return float(((got - want).abs() / (want.abs() + floor)).max())
 
 
+def _r1_inputs(B, J, F, N):
+    rng = np.random.default_rng(B * F * N + J)
+    x4 = _t(rng.standard_normal((B, 4, F, N)))
+    v = _t(0.5 + 4 * rng.random((B, J, F, N)))
+    A = _t(0.3 + rng.random((B, J, F, 2)))
+    sigma = _t(0.01 + 0.005 * rng.random((B, F)))
+    return x4, v, A, sigma
+
+
+def _r1_run(lib, x4, v, A, sigma, flag=""):
+    """One launch of estep_r1_real through its C entry point, with the
+    scratch it asks for: its outputs, NaN wherever it wrote nothing."""
+    B, J, F, N = v.shape
+    shapes = [(B, J, F, N), (B, J, F, 4), (B, J, J, F, 2), (B, J, F, 4),
+              (B, J, J, F, 2), (B, F)]
+    got = [torch.full(s, float("nan")) for s in shapes]
+    words = lib.pyfasst_estep_r1_real_workspace(B, J, F, N)
+    assert words >= 0
+    ws = torch.full((words,), float("nan")) if words else None
+    err = lib.pyfasst_estep_r1_real(
+        *(t.data_ptr() for t in (x4, v, A, sigma, *got)),
+        None if ws is None else ws.data_ptr(), B, J, F, N,
+        ctypes.c_float(1e-30), int(flag == "fast_recip"),
+        int(flag == "no_ll"), None)
+    assert err == 0
+    return got
+
+
 # N = 1, 31, 33: one frame, one short of and one past a warp's tile of 32;
 # 45 and 129: a second tile and a fifth (a second turn of warp 0), ragged;
 # 200: every warp twice, the last tile ragged; 20011: a long ragged row,
-# as the ERBlet plane's (F = 48, N = 98304) gives each lane hundreds of
-# frames to sum before the butterfly
+# which, as few rows of 16 groups of 128 frames or more do, the kernel
+# splits (the split's tests below): 18 segments of 9 groups, the last of
+# 427 frames
 @pytest.mark.parametrize("B,J,F,N,flag", [
     (1, 2, 3, 1, ""), (1, 2, 2, 31, "fast_recip"), (2, 2, 2, 33, "no_ll"),
     (1, 2, 3, 45, ""), (1, 2, 2, 200, ""), (1, 2, 1, 129, "fast_recip"),
     (1, 3, 2, 7, ""), (1, 3, 2, 33, "fast_recip"), (1, 3, 2, 70, "no_ll"),
     (2, 3, 1, 129, ""), (1, 2, 3, 20011, "")])
 def test_estep_r1_real_source_matches_plain_version(lib, B, J, F, N, flag):
-    rng = np.random.default_rng(B * F * N + J)
-    x4 = _t(rng.standard_normal((B, 4, F, N)))
-    v = _t(0.5 + 4 * rng.random((B, J, F, N)))
-    A = _t(0.3 + rng.random((B, J, F, 2)))
-    sigma = _t(0.01 + 0.005 * rng.random((B, F)))
-    shapes = [(B, J, F, N), (B, J, F, 4), (B, J, J, F, 2), (B, J, F, 4),
-              (B, J, J, F, 2), (B, F)]
-    got = [torch.full(s, float("nan")) for s in shapes]
-    err = lib.pyfasst_estep_r1_real(
-        *(t.data_ptr() for t in (x4, v, A, sigma, *got)), B, J, F, N,
-        ctypes.c_float(1e-30), int(flag == "fast_recip"),
-        int(flag == "no_ll"), None)
-    assert err == 0
+    x4, v, A, sigma = _r1_inputs(B, J, F, N)
+    got = _r1_run(lib, x4, v, A, sigma, flag)
     want = cuda_estep.estep_r1_real_ref(x4, v, A, sigma,
                                         no_ll=flag == "no_ll")
     for name, g, w, bar in zip(("xi", "txs", "tss", "t4", "t7"), got, want,
@@ -156,6 +186,69 @@ def test_estep_r1_real_source_matches_plain_version(lib, B, J, F, N, flag):
     for g, w in ((tss, want[2]), (t4, want[3]), (t7, want[4])):
         assert torch.equal(g[w == 0], w[w == 0])
     assert not bool((t4[..., 1:] != 0).any() or (t7[..., 1] != 0).any())
+
+
+# The frame split of few rows (csrc/estep.cu, plan_segments): a launch of
+# fewer than kSplitBlocks<J> / 2 rows (924 / 2 at J = 2, 528 / 2 at J = 3)
+# cuts each row's frames into S segments of whole 128-frame groups, at
+# least 8 a segment, one block each, and a second pass adds their sums in
+# segment order from scratch the caller allocates. Rows at and one past
+# the threshold, at 2048 frames (16 groups): at J = 3 264 rows split in
+# two, 265 (B = 5) take their rows whole (J = 2's 462 and 463 rows: the
+# plan's test); 48 rows of 16 groups split in two, of 15 do not. Then a
+# last segment of 6 groups, the
+# last of 4 frames (4100 frames: 4 segments of 9 groups), and of 952
+# frames (3000: 3 segments of 8 groups). xi equals the plain version's
+# bits, and two launches give the same bits.
+_SUMS = {2: 17, 3: 31}          # Slots<J>::COUNT + 1: a segment's totals
+
+
+@pytest.mark.parametrize("B,J,F,N,split", [
+    (1, 3, 264, 2048, 2), (5, 3, 53, 2048, 1), (1, 2, 48, 2048, 2),
+    (1, 2, 48, 1920, 1),
+    (1, 2, 3, 4100, 4), (1, 3, 2, 4100, 4), (1, 2, 40, 3000, 3),
+    (1, 3, 30, 3000, 3)])
+def test_estep_r1_real_split_matches_plain_version(lib, B, J, F, N, split):
+    assert lib.pyfasst_estep_r1_real_segments(B, J, F, N) == split
+    assert lib.pyfasst_estep_r1_real_workspace(B, J, F, N) == (
+        0 if split == 1 else B * F * split * _SUMS[J])
+    x4, v, A, sigma = _r1_inputs(B, J, F, N)
+    got = _r1_run(lib, x4, v, A, sigma)
+    want = cuda_estep.estep_r1_real_ref(x4, v, A, sigma)
+    for name, g, w, bar in zip(("xi", "txs", "tss", "t4", "t7"), got, want,
+                               (2e-4,) + (5e-4,) * 4):
+        assert bool(torch.isfinite(g).all()), name     # every word written
+        assert _rel(g, w) <= bar, name
+    torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
+                               atol=0)
+    assert torch.equal(got[0], want[0])                # xi: no sum in it
+    tss = got[2]
+    assert torch.equal(tss[..., 0], tss[..., 0].transpose(1, 2))
+    assert torch.equal(tss[..., 1], -tss[..., 1].transpose(1, 2))
+    for g, w in zip(got[2:5], want[2:5]):
+        assert torch.equal(g[w == 0], w[w == 0])
+    for g, a in zip(got, _r1_run(lib, x4, v, A, sigma)):
+        assert torch.equal(g, a)
+
+
+def test_estep_r1_real_split_plan(lib):
+    """The erblet48 plane splits 19 ways at J = 2 (11 at J = 3); the bench
+    plane, the host API's B = 1 plane, configs[3]'s Viterbi row (257 rows
+    of 3 groups) and rows of one group do not; bad shapes are refused."""
+    assert lib.pyfasst_estep_r1_real_segments(1, 2, 48, 98304) == 19
+    assert lib.pyfasst_estep_r1_real_segments(1, 3, 48, 98304) == 11
+    assert lib.pyfasst_estep_r1_real_segments(8, 2, 513, 863) == 1
+    assert lib.pyfasst_estep_r1_real_segments(1, 2, 513, 863) == 1
+    assert lib.pyfasst_estep_r1_real_segments(1, 2, 257, 376) == 1
+    assert lib.pyfasst_estep_r1_real_segments(1, 2, 48, 100) == 1
+    assert lib.pyfasst_estep_r1_real_segments(2, 2, 231, 2048) == 2
+    assert lib.pyfasst_estep_r1_real_segments(1, 2, 463, 2048) == 1
+    assert lib.pyfasst_estep_r1_real_workspace(2, 2, 231, 2048) == (
+        462 * 2 * _SUMS[2])
+    assert lib.pyfasst_estep_r1_real_workspace(1, 2, 463, 2048) == 0
+    for bad in ((0, 2, 4, 9), (1, 4, 4, 9), (1, 2, 4, 0)):
+        assert lib.pyfasst_estep_r1_real_segments(*bad) == -1
+        assert lib.pyfasst_estep_r1_real_workspace(*bad) == -1
 
 
 # (J, ranks, real_cov, ns_inj, flag, B, F, N): every J the general kernel
@@ -206,7 +299,31 @@ GENERAL = [(2, (1, 1), False, False, "", 1, 3, 33),
            (3, (2, 2, 2), False, False, "", 2, 1, 257),
            (4, (2, 2, 2, 2), False, False, "", 1, 2, 189),
            (4, (1,) * 4, True, False, "", 1, 2, 130),
-           (4, (2, 2, 2, 2), False, True, "no_ll", 1, 1, 129)]
+           (4, (2, 2, 2, 2), False, True, "no_ll", 1, 1, 129),
+           # past eight sources (J = 9, 10, 12, 16): real rank 1, complex
+           # rank 2, mixed ranks and ns_inj at each, at 1, 31, 33 and 70
+           # frames; at J = 16 rank 2 (a 146 KB tile, one block an SM) also
+           # two tiles and ns_inj's; the J^2 output blocks loop over the
+           # block's threads from J = 10 on (32 + J^2 > 128), the row
+           # constants' J + J^2 items from J = 11 on
+           (9, (1,) * 9, True, False, "", 1, 2, 33),
+           (9, (2,) * 9, False, False, "", 1, 2, 31),
+           (9, (1, 2, 2, 1, 2, 1, 1, 2, 1), False, False, "fast_recip", 1,
+            1, 70),
+           (9, (1,) * 9, False, True, "", 2, 1, 1),
+           (10, (1,) * 10, True, False, "", 1, 2, 70),
+           (10, (2,) * 10, False, False, "", 1, 1, 33),
+           (10, (1, 2) * 5, False, False, "no_ll", 1, 2, 31),
+           (10, (1,) * 10, False, True, "", 2, 1, 1),
+           (12, (1,) * 12, True, False, "no_ll", 2, 1, 70),
+           (12, (2,) * 12, False, False, "", 1, 1, 33),
+           (12, (2, 1) * 6, True, False, "", 1, 2, 31),
+           (12, (2,) * 12, False, True, "", 1, 1, 1),
+           (16, (1,) * 16, True, False, "", 1, 2, 31),
+           (16, (2,) * 16, False, False, "", 1, 1, 70),
+           (16, (1, 2) * 8, False, False, "", 1, 1, 33),
+           (16, (1,) * 16, False, True, "fast_recip", 1, 1, 33),
+           (16, (2,) * 16, False, True, "", 1, 1, 129)]
 
 
 def _general_run(lib, J, ranks, real, ns, flag, B, F, N):
@@ -260,7 +377,8 @@ def test_general_estep_source_matches_plain_version(lib, J, ranks, real, ns,
 # Fixed orders and no atomics: two launches give the same bits, in the
 # REG kernel and across the FRAMES kernel's tiles, groups and slots
 @pytest.mark.parametrize("case", [GENERAL[0], GENERAL[12], GENERAL[19],
-                                  GENERAL[22], GENERAL[24]])
+                                  GENERAL[22], GENERAL[24], GENERAL[37],
+                                  GENERAL[45], GENERAL[48]])
 def test_general_estep_source_twice_gives_the_same_bits(lib, case):
     _, got = _general_run(lib, *case)
     _, again = _general_run(lib, *case)
@@ -372,7 +490,7 @@ def test_info_entry_points_answer(lib):
     assert lib.pyfasst_fb_stats_workspace(0, 2, 9, 9, 40) == -1
     assert lib.pyfasst_tw_stats_info(8, 0, out) != 0
     assert lib.pyfasst_fb_stats_info(0, out) != 0
-    for J in cuda_estep.GENERAL_J:
+    for J in SHIM_J:
         for rmax in (1, 2):
             fn = getattr(lib, f"pyfasst_estep_j{J}_info")
             assert fn(rmax, 0, 1, out) == 0

@@ -137,18 +137,20 @@ def test_gem_step_on_cuda_goes_through_the_kernel(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["conv", "float64", "ann_ns_inj",
-                                  "fast_recip", "fuse_spectral", "J5"])
+                                  "fast_recip", "fuse_spectral", "J5",
+                                  "J17"])
 def test_variants_without_a_kernel_raise_on_cuda(dev, case):
     """Conv mixing, ann_ns_inj and J = 5 sources run through the general
     kernel, fast_recip through variant e and fuse_spectral through the
-    spectral kernels; float64, which no kernel computes, raises, naming
-    its ROADMAP entry."""
+    spectral kernels; float64 and J = 17 sources, which no kernel
+    computes, raise, naming their ROADMAP entry."""
     rng = np.random.default_rng(2)
     dtype = torch.float64 if case == "float64" else torch.float32
     tree = _tree(rng, 9, 20, mix="conv" if case == "conv" else "inst")
-    if case == "J5":
-        tree["spat"] = (tree["spat"] * 3)[:5]
-        tree["spec"] = [dict(tree["spec"][0], spat_ind=j) for j in range(5)]
+    if case in ("J5", "J17"):
+        J = int(case[1:])
+        tree["spat"] = (tree["spat"] * 9)[:J]
+        tree["spec"] = [dict(tree["spec"][0], spat_ind=j) for j in range(J)]
     params = convert.params_from_numpy(tree, device=dev, dtype=dtype)
     X = _X(rng, 9, 20, dev)
     if case == "float64":
@@ -208,6 +210,12 @@ GENERAL = {
     "b_complex_r1_J7": (7, (1,) * 7, False, False),
     "c_rank2_J8": (8, (2,) * 8, False, False),
     "d_ns_inj_r2_J8": (8, (2,) * 8, False, True),
+    # nine to sixteen sources (csrc/estep_j{9..16}.cu)
+    "d_ns_inj_r1_J9": (9, (1,) * 9, False, True),
+    "real_r1_J10": (10, (1,) * 10, True, False),
+    "c_rank2_J12": (12, (2,) * 12, False, False),
+    "b_complex_r1_J16": (16, (1,) * 16, False, False),
+    "c_rank2_J16": (16, (2,) * 16, False, False),
 }
 
 

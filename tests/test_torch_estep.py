@@ -204,11 +204,11 @@ def test_kernel_wrapper_uses_plain_version_on_cpu():
     assert [tuple(g.shape) for g in got] == shapes
 
 
-# Variants b (complex mixing), c (rank 2) and d (ann_ns_inj) and J = 4 to 8
-# run in the general kernel, e (fast_recip) in either kernel; the rest
-# (float64, J = 9) have no kernel.
+# Variants b (complex mixing), c (rank 2) and d (ann_ns_inj) and J = 4 to
+# 16 run in the general kernel, e (fast_recip) in either kernel; the rest
+# (float64, J = 17) have no kernel.
 _PORTED = ("rank 2", "complex mixing", "ann_ns_inj", "fast_recip", "J = 4",
-           "J = 5", "J = 8")
+           "J = 5", "J = 8", "J = 9")
 
 
 @pytest.mark.parametrize("why,kw", [
@@ -221,6 +221,7 @@ _PORTED = ("rank 2", "complex mixing", "ann_ns_inj", "fast_recip", "J = 4",
     ("J = 5", dict(ranks=(1, 2, 1, 1, 1))),
     ("J = 8", dict(ranks=(2,) * 8)),
     ("J = 9", dict(ranks=(1,) * 9)),
+    ("J = 17", dict(ranks=(1,) * 17)),
 ])
 def test_kernel_eligibility_names_the_variant(why, kw):
     args = dict(ranks=(1, 1), real_cov=True, noise_inject=False,
@@ -256,10 +257,10 @@ def test_suff_stats_cuda_raises_for_variants_not_ported():
     with pytest.raises(NotImplementedError, match="float64"):
         cuda_estep.suff_stats_cuda(tin[0], tin[1].double(), None, tin[3],
                                    ranks, tin[4])
-    nine = (tin[4] * 5)[:9]
-    with pytest.raises(NotImplementedError, match="J = 9"):
-        cuda_estep.suff_stats_cuda(tin[0], tin[1][:, [0, 1] * 4 + [0]], None,
-                                   tin[3], (1,) * 9, nine)
+    many = (tin[4] * 9)[:17]
+    with pytest.raises(NotImplementedError, match="J = 17"):
+        cuda_estep.suff_stats_cuda(tin[0], tin[1][:, [0, 1] * 8 + [0]], None,
+                                   tin[3], (1,) * 17, many)
 
 
 # -- the symmetries the rank-1 real CUDA kernel relies on ----------------------

@@ -1,7 +1,8 @@
 """The general E-step kernel's plain version at five to eight sources.
 
 csrc/estep_j{5,6,7,8}.cu instantiate the general kernel for J = 5 to 8
-(the 2-8 sources of FASST's own range). Their contract is the plain version
+(the 2-8 sources of FASST's own range; J = 9 to 16:
+tests/test_torch_estep_many.py and test_torch_estep_sixteen.py). Their contract is the plain version
 cuda_estep.estep_ref, reached here through suff_stats_cuda on CPU tensors,
 held against the JAX package at tests/test_pallas_estep.py's bars: against
 the JAX XLA E-step (compute_suff_stats) in every case, and against the
@@ -59,14 +60,15 @@ def test_wide_plain_version_matches_pallas(name):
     _compare_stats(got, want, len(ranks), WIDE[name][-1])
 
 
-@pytest.mark.parametrize("J", (5, 6, 7, 8))
-def test_kernel_takes_five_to_eight_sources(J):
-    """kernel_eligible passes J = 5..8 at every rank mix and flag; the
+@pytest.mark.parametrize("J", tuple(range(5, 17)))
+def test_kernel_takes_five_to_sixteen_sources(J):
+    """kernel_eligible passes J = 5..16 at every rank mix and flag; the
     wrapper's shape checks pass them (its plain version runs on the CPU,
-    with no launch)."""
+    with no launch); J = 17 is refused, naming its ROADMAP item."""
     for ranks in ((1,) * J, (2,) * J, (1, 2) * (J // 2) + (1,) * (J % 2)):
         for real, ns, fast in ((True, False, False), (False, True, True)):
             assert cuda_estep.kernel_eligible(
                 ranks, real, ns, torch.float32, fast, 2) == ""
-    assert "J = 9" in cuda_estep.kernel_eligible(
-        (1,) * 9, True, False, torch.float32, False, 2)
+    why = cuda_estep.kernel_eligible((1,) * 17, True, False, torch.float32,
+                                     False, 2)
+    assert "J = 17" in why and "ROADMAP kernel queue 2" in why
