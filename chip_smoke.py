@@ -7,11 +7,13 @@ Phases (each prints one line with its numbers and seconds):
   0. the machine: nvidia-smi name and power limit, torch, CUDA and nvcc;
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel,
      sm_90a; the core library first, the wide one, the general E-step at
-     J = 9 to 16, beside phase 2's checks of the core kernels, until the
-     first check that needs it), with ptxas' register and spill report,
-     and the resident warps per SM, registers and local bytes of every
-     instantiation of the general E-step kernel, of fb_stats, of tw_stats
-     and of estep_r1_real, as the runtime reports them;
+     J = 9 to 16, and the many one, csrc/estep_many.cu (J at run time),
+     beside phase 2's checks of the core kernels, until the first check
+     that needs them), with ptxas' register and spill report, and the
+     resident warps per SM, registers and local bytes of every
+     instantiation of the general E-step kernel, of estep_many's frames
+     and sums kernels, of fb_stats, of tw_stats and of estep_r1_real, as
+     the runtime reports them;
   2. each kernel against its plain PyTorch version on the card, with
      CUDA-event timings of kernel and plain version in turns (the kernel's
      by CUDA-graph replay: device time), each kernel's bound from its
@@ -43,8 +45,10 @@ Phases (each prints one line with its numbers and seconds):
      mixed ranks and ns_inj at J = 5) at the bench shapes, two runs bit
      for bit, timed with registers and spill, and at a ragged one, and at
      phase 19's path shapes; every variant at each J of 9 to 16 at a
-     ragged shape (many_variants), two runs bit for bit, and J = 17
-     raising; fb_stats
+     ragged shape (many_variants), two runs bit for bit; the same for
+     csrc/estep_many.cu at J = 1, 17, 24, 32 and 48 (MANY_KERNEL_J), xi
+     bit for bit, and at phase 19 (d)'s path shape (1, 20, 513, 863),
+     timed with its bound, floor, registers and spill; fb_stats
      and tw_stats at K = 40 and 64 (their tiled form past 32: V once per
      tile over all K) at the bench shapes and at the host API's B = 1
      (a split contracted axis), timed with the floor without FMA, and at
@@ -185,7 +189,7 @@ Phases (each prints one line with its numbers and seconds):
      launches counted and printed (phase 2 checks variant a and the
      spectral kernels at the 257- and 256-row slices and variant c at the
      half bucket); (c) the same two ranks on phase 14's recipes at reduced
-     depth (50 iterations): configs[3]'s 6-state HMM, its Viterbi row and
+     depth (25 iterations): configs[3]'s 6-state HMM, its Viterbi row and
      the source-filter model, each at fp = 2 and sp = 2, logliks within
      rtol 2e-4 of the unsharded run on the card (the unsharded run of the
      clip twice, B = 2, printed beside as the witness of float32 drift),
@@ -200,9 +204,13 @@ Phases (each prints one line with its numbers and seconds):
      44.1 kHz mix of (a)'s kinds and five band noises at ten angles
      through `separate --sources 10 --iters 500`: 500 launches of the
      general kernel at J = 10 (real rank 1), finite images and logliks;
-     (a)'s and (b)'s min SDR, and the SDR of each of (c)'s sources,
-     within 1 dB of the port's CPU run (CPU_SDR_FIVE,
-     cpu_reference_five(); CPU_SDR_TEN, cpu_reference_ten()).
+     (d) twenty sources: (c)'s kinds and ten more band noises at twenty
+     angles through `separate --sources 20 --iters 500`: 500 launches of
+     csrc/estep_many.cu at J = 20 (real rank 1), finite images and
+     logliks; (a)'s and (b)'s min SDR, and the SDR of each of (c)'s and
+     (d)'s sources, within 1 dB of the port's CPU run (CPU_SDR_FIVE,
+     cpu_reference_five(); CPU_SDR_TEN, cpu_reference_ten();
+     CPU_SDR_TWENTY, cpu_reference_twenty()).
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
@@ -415,16 +423,30 @@ WIDE_RAGGED = (1, 33, 70)
 # WIDE_RAGGED, two runs bit for bit: complex rank 1 with fast_recip (b, e),
 # mixed ranks with no_ll (c, f), ns_inj at ranks 1 and 2 (d); at the J
 # that no case of WIDE_CASES times (11, 13, 14, 15) also real rank 1 (a)
-# and complex rank 2 (c). J = 17 must raise, naming its ROADMAP item
+# and complex rank 2 (c). The same at each J of MANY_KERNEL_J, which
+# csrc/estep_many.cu takes (J at run time), and xi bit for bit there
 MANY_J = tuple(range(9, 17))
+MANY_KERNEL_J = (1, 17, 24, 32, 48)
+# csrc/estep_many.cu at phase 19 (d)'s path, `separate --sources 20`:
+# (B, J, F, N), real rank 1; checked and timed in phase 2. many_table()
+# times it at the bench shape (BATCH, J, 513, 863) for each J of
+# MANY_TABLE_J, real rank 1 and complex rank 2 (PERF.md row 1g''')
+MANY_PATH = (1, 20, 513, 863)
+MANY_TABLE_J = (17, 20, 24, 32)
 
 
 def many_variants(J_):
     """(key, label, ranks, real_cov, ns_inj, flag) of phase 2's checks of
     the general kernel at J_ sources (MANY_J)."""
     mixed = (1, 2) * (J_ // 2) + (1,) * (J_ % 2)
-    cases = [("b", "complex rank 1 fast_recip", (1,) * J_, False, False,
-              "fast_recip"),
+    # one source: Sigma_x = sig I + v_1 R_1 is so ill-conditioned that one
+    # ulp more in each reciprocal of the plain version moves xi past its
+    # bar (tests/test_torch_estep.py::
+    # test_one_source_amplifies_a_reciprocal_ulp), so fast_recip cannot be
+    # held to it: variant b divides exactly there
+    fast = "fast_recip" if J_ > 1 else ""
+    cases = [("b", f"complex rank 1 {fast}".strip(), (1,) * J_, False,
+              False, fast),
              ("c", "mixed ranks no_ll", mixed, False, False, "no_ll"),
              ("d", "ns_inj complex rank 1", (1,) * J_, False, True, ""),
              ("d", "ns_inj complex rank 2", (2,) * J_, False, True, "")]
@@ -467,6 +489,26 @@ SEED_TEN = 131
 # must lie within SDR_SLACK of its own
 CPU_SDR_TEN = (11.90, 9.09, 5.00, 1.80, 1.06, 4.57, 15.55, 12.61, 10.61,
                12.42)
+# (d) twenty sources: TEN_KINDS and ten more band-limited noises in bands
+# disjoint from each other and from TEN_BANDS (TWENTY_BANDS), panned at
+# TWENTY_PANS degrees (real rank-1 gains, twenty distinct angles), seed
+# SEED_TWENTY, built as (a)'s mix, through `separate --sources 20 --iters
+# 500` (F = 513, N = 863): 500 launches of the many-source kernel
+# (csrc/estep_many.cu) at J = 20, real rank 1. Not cut; no floor in dB,
+# each source held within SDR_SLACK of the port's CPU run
+TWENTY_BANDS = ((0.145, 0.17), (0.225, 0.25), (0.32, 0.35), (0.44, 0.48),
+                (0.62, 0.66), (0.68, 0.72), (0.74, 0.78), (0.80, 0.84),
+                (0.86, 0.90), (0.92, 0.96))
+TWENTY_KINDS = TEN_KINDS + tuple(f"band:{lo}-{hi}" for lo, hi in TWENTY_BANDS)
+TWENTY_PANS = tuple(float(a) for a in np.linspace(2.0, 88.0, 20))
+SEED_TWENTY = 132
+# SDR (dB) of each source of the port's CPU run of (d) (python3 -c "import
+# chip_smoke; chip_smoke.cpu_reference_twenty()" with 8 CPU threads and no
+# card, 3736 s on a host shared with other work), in TWENTY_KINDS order;
+# each source of the card's run must lie within SDR_SLACK of its own
+CPU_SDR_TWENTY = (-0.65, -1.21, -0.27, -0.75, 0.79, 3.80, 9.13, 5.03, 7.48,
+                  6.88, 8.39, 3.25, -0.13, 1.99, 6.78, 4.03, 9.46, 4.11,
+                  -1.11, 4.86)
 # phase 15: the long-form rows of tools/validate_hw.py at 16 kHz, wlen 1024:
 # scenario_streaming (:677-806, seed 112: 120 s of two panned dense-band
 # noises; 64 frames per block, J = 2, K = 8, forgetting 0.95, 6 inner
@@ -844,11 +886,12 @@ def phase_machine(device):
 def phase_build():
     """Phase 1: builds the core library (every kernel but the general
     E-step past J = 8) and, in a thread started first, the wide one
-    (J = 9 to 16, the longest units), so that phase 2's checks of the core
-    kernels run while the wide units compile; prints ptxas' report and
-    the core kernels' occupancy. Returns the join: it waits for the wide
-    library (raising its build's error), loads it and prints its report
-    and occupancy."""
+    (J = 9 to 16, the longest units) and the many one (csrc/estep_many.cu,
+    J = 1 and J >= 17 at run time), so that phase 2's checks of the core
+    kernels run while those compile; prints ptxas' report and the core
+    kernels' occupancy. Returns the join: it waits for the wide and many
+    libraries (raising their build's error), loads them and prints their
+    report and occupancy."""
     import threading
     from pyfasst_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -856,7 +899,8 @@ def phase_build():
 
     def build_wide():
         try:
-            wide["info"] = _build.build(verbose=True, names=("wide",))
+            wide["info"] = _build.build(verbose=True,
+                                        names=("wide", "many"))
         except BaseException as e:        # raised again at the join
             wide["error"] = e
 
@@ -865,10 +909,10 @@ def phase_build():
     info = _build.build(verbose=True, names=("core",))
     _build.load("core")
     log(f"phase 1 build: core library built={info['built']} nvcc "
-        f"{info['seconds']:.2f}s, the wide library building beside phase "
-        f"2's core checks | {time.perf_counter() - t0:.2f}s")
+        f"{info['seconds']:.2f}s, the wide and many libraries building "
+        f"beside phase 2's core checks | {time.perf_counter() - t0:.2f}s")
     _log_ptxas(info)
-    occupancy_report(wide=False)
+    occupancy_report("core")
 
     def join():
         t1 = time.perf_counter()
@@ -876,12 +920,14 @@ def phase_build():
         if "error" in wide:
             raise wide["error"]
         _build.load("wide")
-        log(f"phase 1 build: wide library built={wide['info']['built']} "
-            f"nvcc {wide['info']['seconds']:.2f}s, waited "
-            f"{time.perf_counter() - t1:.2f}s for it after phase 2's core "
-            f"checks")
+        _build.load("many")
+        log(f"phase 1 build: wide and many libraries built="
+            f"{wide['info']['built']} nvcc {wide['info']['seconds']:.2f}s, "
+            f"waited {time.perf_counter() - t1:.2f}s for them after phase "
+            f"2's core checks")
         _log_ptxas(wide["info"])
-        occupancy_report(wide=True)
+        occupancy_report("wide")
+        occupancy_report("many")
     return join
 
 
@@ -891,20 +937,34 @@ def _log_ptxas(info):
             log(f"  ptxas: {ln.strip()}")
 
 
-def occupancy_report(wide):
+def occupancy_report(lib):
     """Resident warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
     and registers / local bytes per thread of the general E-step
-    instantiations (with shared bytes, static and dynamic), eight at each J:
-    of the wide library (J = 9 to 16) when `wide`, else of the core one
-    (J = 2 to 8), with the three each of fb_stats and tw_stats and their
-    tiled form at K_BIG, and the two of estep_r1_real; the ones a path
-    takes are marked."""
+    instantiations (with shared bytes, static and dynamic), eight at each J
+    of library `lib` ("core": J = 2 to 8, with the three each of fb_stats
+    and tw_stats and their tiled form at K_BIG, and the two of
+    estep_r1_real; "wide": J = 9 to 16); "many": the eight of each of
+    csrc/estep_many.cu's frames and sums kernels. The ones a path takes
+    are marked."""
     import itertools
     from pyfasst_tpu_torch.ops import _build
     from pyfasst_tpu_torch.ops.cuda_estep import GENERAL_J
     path = {v: k for k, v in GENERAL_PATH_INSTANCES.items()}
+    if lib == "many":
+        for which, name in enumerate(("frames", "sums")):
+            cells = []
+            for rmax, real, ns in itertools.product((1, 2), (0, 1), (0, 1)):
+                i = _build.kernel_info("estep_many", which, rmax, real, ns)
+                tag = "[twenty]" if (rmax, real, ns) == (1, 1, 0) else ""
+                cells.append(f"R{rmax}{'real' if real else 'cplx'}"
+                             f"{'+ns' if ns else ''}{tag} "
+                             f"{i['warps_per_sm']}w/{i['registers']}r/"
+                             f"{i['local_bytes']}B/{i['shared_bytes']}B")
+            log(f"  occupancy estep_many {name} (warps per SM / registers / "
+                f"local bytes / shared bytes): " + ", ".join(cells))
+        return
     for J_ in GENERAL_J:
-        if (_build.library_of(J_) == "wide") != wide:
+        if _build.library_of(J_) != lib:
             continue
         cells = []
         for rmax, real, ns in itertools.product((1, 2), (0, 1), (0, 1)):
@@ -916,7 +976,7 @@ def occupancy_report(wide):
                          f"{i['local_bytes']}B/{i['shared_bytes']}B")
         log(f"  occupancy estep_general J={J_} (warps per SM / registers / "
             f"local bytes / shared bytes): " + ", ".join(cells))
-    if wide:
+    if lib == "wide":
         return
     F = WLEN // 2 + 1
     for label, kernel, cases in (
@@ -1336,15 +1396,16 @@ def phase_wide_vs_plain(device):
 
 
 def phase_many_vs_plain(device):
-    """The general kernel at every J of MANY_J against its plain version,
-    each variant of many_variants(J) at WIDE_RAGGED, two runs bit for bit;
-    and J = 17, which no kernel takes, raising NotImplementedError that
-    names its ROADMAP item."""
+    """The general kernel at every J of MANY_J, and csrc/estep_many.cu at
+    every J of MANY_KERNEL_J (xi bit for bit there too), against its plain
+    version, each variant of many_variants(J) at WIDE_RAGGED, two runs bit
+    for bit; then estep_many at phase 19 (d)'s path shape, MANY_PATH
+    (general_numbers). Returns those numbers."""
     import torch
     from pyfasst_tpu_torch.ops import cuda_estep
     t0 = time.perf_counter()
     B, F, N = WIDE_RAGGED
-    for J_ in MANY_J:
+    for J_ in MANY_J + MANY_KERNEL_J:
         for key, label, ranks, real, ns, flag in many_variants(J_):
             tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
             kw = dict(ns_inj=ns, real_cov=real)
@@ -1367,23 +1428,108 @@ def phase_many_vs_plain(device):
             bad = [n for n, e in errs.items() if not e <= tol[n]]
             if not same:
                 bad.append("two runs differ")
+            if J_ in MANY_KERNEL_J and flag != "fast_recip" \
+                    and not torch.equal(got[0], want[0]):
+                bad.append("xi not bit for bit")
             if bad:
                 raise RuntimeError(f"the general kernel ({label}) disagrees "
                                    f"with its plain version at B={B} F={F} "
                                    f"N={N}: {bad}")
-    ranks = (1,) * 17
-    inp = _general_inputs(B, 17, F, N, ranks, True, seed=17, device=device)
-    try:
-        cuda_estep.estep_general(*inp, ranks, real_cov=True)
-    except NotImplementedError as e:
-        if "ROADMAP" not in str(e):
-            raise RuntimeError(f"J = 17 raised without its ROADMAP item: "
-                               f"{e}") from e
-        log(f"phase 2 J=17 raises: {e}")
-    else:
-        raise RuntimeError("the general kernel took J = 17 sources")
-    log(f"phase 2 J = 9..16, every variant, done | "
-        f"{time.perf_counter() - t0:.2f}s")
+    B, J_, F, N = MANY_PATH
+    path = general_numbers(device, B, J_, F, N, (1,) * J_, True, False)
+    log(f"phase 2 J = 9..16 and {MANY_KERNEL_J}, every variant, and the "
+        f"J = {J_} path, done | {time.perf_counter() - t0:.2f}s")
+    return path
+
+
+def general_numbers(device, B, J_, F, N, ranks, real, ns, seed=None):
+    """csrc/estep_many.cu (through estep_general, J_ past 16) at (B, J_, F,
+    N) against its plain version at phase 2's bars, two runs bit for bit
+    (xi too), timed in turns (_turns: the kernel by CUDA-graph replay),
+    with its bound, float32 floor without FMA, its frames per chunk, and
+    registers, spill and warps per SM of its frames and sums kernels; logs
+    one line. Returns the numbers."""
+    import torch
+    from pyfasst_tpu_torch.ops import _build, cuda_estep
+    tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
+    kw = dict(ns_inj=ns, real_cov=real)
+    inp = _general_inputs(B, J_, F, N, ranks, real,
+                          seed=F * N + 10 * J_ + max(ranks)
+                          if seed is None else seed, device=device)
+    got = cuda_estep.estep_general(*inp, ranks, **kw)
+    again = cuda_estep.estep_general(*inp, ranks, **kw)
+    want = cuda_estep.estep_ref(*inp, ranks, **kw)
+    torch.cuda.synchronize()
+    errs, abs_err = _estep_errors(got, want)
+    bad = [n for n, e in errs.items() if not e <= tol[n]]
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        bad.append("two runs differ")
+    if not torch.equal(got[0], want[0]):
+        bad.append("xi not bit for bit")
+    kern, plain = _turns(lambda: cuda_estep.estep_general(*inp, ranks, **kw),
+                         lambda: cuda_estep.estep_ref(*inp, ranks, **kw),
+                         plain_reps=2, plain_inner=1)
+    ops = general_ops(inp, ranks, **kw)
+    b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
+    args = (max(ranks), int(real), int(ns))
+    res = [_build.kernel_info("estep_many", w, *args) for w in (0, 1)]
+    nums = {"max_abs_err": abs_err, "shape": [B, J_, F, N],
+            "ranks": list(ranks), "real_cov": real, "ns_inj": ns,
+            "ms": statistics.median(kern), "ms_min": min(kern),
+            "plain_ms": statistics.median(plain), "bound_ms": b_ms,
+            "bound_by": b_by, "mbytes": nbytes / 1e6, "gops": ops / 1e9,
+            "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3,
+            "registers": [r["registers"] for r in res],
+            "local_bytes": [r["local_bytes"] for r in res],
+            "warps_per_sm": [r["warps_per_sm"] for r in res], "errs": errs,
+            "chunk": _build.load("many").pyfasst_estep_many_chunk(
+                J_, F, N, max(ranks), int(real))}
+    log(f"phase 2 estep J={J_} ranks {sorted(set(ranks))} real_cov={real} "
+        f"ns_inj={ns} B={B} F={F} N={N}: "
+        + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}" for n, e in errs.items())
+        + f" | max_abs_err {abs_err:.3e} | kernel {nums['ms']:.4f} ms (min "
+        f"{min(kern):.4f}), plain {nums['plain_ms']:.3f} ms, medians in "
+        f"turns | bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} Gop; without FMA {nums['nofma_floor_ms']:.4f} ms) "
+        f"| two runs bit for bit, xi bit for bit | registers "
+        f"{nums['registers']}, local bytes {nums['local_bytes']}, warps an "
+        f"SM {nums['warps_per_sm']} | {nums['chunk']} frames a chunk")
+    if bad:
+        raise RuntimeError(f"the E-step kernel at J = {J_} disagrees with "
+                           f"its plain version at B={B} F={F} N={N}: {bad}")
+    return nums
+
+
+def many_table():
+    """PERF.md row 1g''': csrc/estep_many.cu at the bench shape (BATCH, J,
+    513, 863) for each J of MANY_TABLE_J, real rank 1 and complex rank 2,
+    and at MANY_PATH, through general_numbers; the card's name and power
+    limit first. Writes chiprun_out/many_table.json. One card; run alone:
+
+        python3 -c "import chip_smoke; chip_smoke.many_table()"
+    """
+    import torch
+    from pyfasst_tpu_torch.ops import _build
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    card = smi()
+    log(card)
+    info = _build.build(verbose=True, names=("many",))
+    _log_ptxas(info)
+    occupancy_report("many")
+    rows = []
+    for J_ in MANY_TABLE_J:
+        for ranks, real in (((1,) * J_, True), ((2,) * J_, False)):
+            rows.append(general_numbers(device, BATCH, J_, 513, 863, ranks,
+                                        real, False))
+    B, J_, F, N = MANY_PATH
+    rows.append(general_numbers(device, B, J_, F, N, (1,) * J_, True, False))
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out", "many_table.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as fh:
+        json.dump({"card": card, "rows": rows}, fh, indent=1)
+    log(card)
 
 
 def phase_variants_ef(device):
@@ -3935,12 +4081,13 @@ def separate_cli_run(name, mix, ys_true, tmp, dev):
                            and np.isfinite(rep["final_loglik"]))}
 
 
-def five_runs(device, tmp, which=("inst", "reverb5", "ten")):
+def five_runs(device, tmp, which=("inst", "reverb5", "ten", "twenty")):
     """Phase 19's runs on `device` ("cuda" or "cpu"), those named in
     `which`: (a) "inst", `separate --sources 5 --iters NITER` through the
     CLI on five_mixture's WAV; (b) "reverb5", the five-source configs[2]
     model through the host API; (c) "ten", `separate --sources 10` on the
-    ten-source mix. Each with its min SDR, E-step launches by variant,
+    ten-source mix; (d) "twenty", `separate --sources 20` on the
+    twenty-source mix. Each with its min SDR, E-step launches by variant,
     the E-step shapes it called and its seconds."""
     dev = "cuda" if str(device).startswith("cuda") else "cpu"
     out = {}
@@ -3949,6 +4096,10 @@ def five_runs(device, tmp, which=("inst", "reverb5", "ten")):
     if "ten" in which:
         out["ten"] = separate_cli_run(
             "ten", *five_mixture(SEED_TEN, TEN_KINDS, TEN_PANS), tmp, dev)
+    if "twenty" in which:
+        out["twenty"] = separate_cli_run(
+            "twenty", *five_mixture(SEED_TWENTY, TWENTY_KINDS, TWENTY_PANS),
+            tmp, dev)
     if "reverb5" not in which:
         return out
     model, truth = conv_model("reverb5", device)
@@ -3979,17 +4130,24 @@ def cpu_reference_ten():
     cpu_reference_five(("ten",))
 
 
+def cpu_reference_twenty():
+    """Phase 19 (d) on the CPU: the figures CPU_SDR_TWENTY holds."""
+    cpu_reference_five(("twenty",))
+
+
 def phase_five(device, card):
-    """Phase 19: five and ten sources at full width on the card
+    """Phase 19: five, ten and twenty sources at full width on the card
     (five_runs): (a) `separate --sources 5` makes NITER launches of the
     general kernel at J = 5 (real rank 1: variant a's model) at phase 2's
     path shape and no other; (b) the five-source configs[2] model makes
     NITER_CONV launches of variant c at J = 5, rank 2, at its path shape;
     (c) `separate --sources 10` makes NITER launches of variant a's model
-    at J = 10 at its path shape; (a)'s and (b)'s min SDR, and the SDR of
-    each of (c)'s sources, within SDR_SLACK of the port's CPU run of the
-    same recipe (CPU_SDR_FIVE, CPU_SDR_TEN), finite images and logliks.
-    Returns the launches of each run."""
+    at J = 10 at its path shape; (d) `separate --sources 20` makes NITER
+    launches of csrc/estep_many.cu at J = 20, real rank 1, at MANY_PATH
+    and no other; (a)'s and (b)'s min SDR, and the SDR of each of (c)'s
+    and (d)'s sources, within SDR_SLACK of the port's CPU run of the same
+    recipe (CPU_SDR_FIVE, CPU_SDR_TEN, CPU_SDR_TWENTY), finite images and
+    logliks. Returns the launches of each run."""
     t0 = time.perf_counter()
     paths = wide_path_shapes()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3999,8 +4157,10 @@ def phase_five(device, card):
             "reverb5": (NITER_CONV, "c", ("general",) + (1, 5)
                         + paths["reverb5"][1:] + ((2,) * 5, False, False)),
             "ten": (NITER, "a", ("general",) + (1, 10) + paths["ten"][1:]
-                    + ((1,) * 10, True, False))}
-    cpu_sdr = dict(CPU_SDR_FIVE, ten=CPU_SDR_TEN)
+                    + ((1,) * 10, True, False)),
+            "twenty": (NITER, "a", ("general",) + MANY_PATH
+                       + ((1,) * MANY_PATH[1], True, False))}
+    cpu_sdr = dict(CPU_SDR_FIVE, ten=CPU_SDR_TEN, twenty=CPU_SDR_TWENTY)
     bad = []
     for name, r in out.items():
         total, counts = r["counts"]
@@ -4018,7 +4178,7 @@ def phase_five(device, card):
             bad.append(f"{name}: launches {total} {counts} at shapes "
                        f"{r['shapes']} (expected {n} of variant {key} at "
                        f"{shape})")
-        if isinstance(cpu, tuple):      # (c): each source against its own
+        if isinstance(cpu, tuple):  # (c), (d): each source against its own
             off = [j for j, (a, b) in enumerate(zip(r["sdrs"], cpu))
                    if abs(a - b) > SDR_SLACK]
             if len(r["sdrs"]) != len(cpu) or off:
@@ -4028,6 +4188,7 @@ def phase_five(device, card):
             bad.append(f"{name}: min SDR {r['min_sdr']:.2f} dB not within "
                        f"{SDR_SLACK} dB of the CPU run ({cpu})")
     if not (out["inst"]["finite"] and out["ten"]["finite"]
+            and out["twenty"]["finite"]
             and np.all(np.isfinite(out["reverb5"]["loglik"]))):
         bad.append("non-finite images or loglik")
     log(f"phase 19 done | {time.perf_counter() - t0:.2f}s")
@@ -4074,8 +4235,10 @@ def mesh_pool(device, mesh):
 # 7.7e-5, the Viterbi row 4.6e-5 and the source-filter model 1.4e-4 over
 # the 50 (cpu_mesh_states(), on a CPU of 8 cores). A sum left unrouted is
 # off by a share of its terms
-# from the first M-step on, orders of magnitude past either bar
-NITER_MESH_STATE, MESH_STATE_EARLY = 50, 3
+# from the first M-step on, orders of magnitude past either bar. Cut from
+# 50 to 25 iterations when phase 19 (d) came (the whole script read 1089 s
+# of its 1200 s on an H100 with 50); both bars still apply
+NITER_MESH_STATE, MESH_STATE_EARLY = 25, 3
 
 
 def mesh_state_models():
@@ -4428,7 +4591,7 @@ def main() -> int:
     cli_nums = phase_cli_shapes(device)
     join_wide()
     wide = phase_wide_vs_plain(device)
-    phase_many_vs_plain(device)
+    many_path = phase_many_vs_plain(device)
     _reset_counts()
     launches = phase_host_api(device, DUR, NITER)
     timing = phase_batch(device, DUR, NITER, BATCH, card)
@@ -4594,6 +4757,19 @@ def main() -> int:
                   f"{REPLACES} (J = {J_}, ranks {ranks}, "
                   f"real_cov={real}, ns_inj={ns})", launches, nums),
             **extra))
+    # csrc/estep_many.cu (J = 1 and J >= 17, J at run time): phase 19 (d)'s
+    # path, `separate --sources 20`
+    kernels.append(dict(
+        entry(f"estep_many J={MANY_PATH[1]} (J at run time; variant a's "
+              f"model: real rank 1)", "pyfasst_tpu_torch/csrc/estep_many.cu",
+              f"{REPLACES} (J = 1 and J >= 17; here J = {MANY_PATH[1]}, "
+              f"real_cov=True, ns_inj=False)", five["twenty"]["a"],
+              many_path),
+        shape=many_path["shape"], nofma_floor_ms=many_path["nofma_floor_ms"],
+        registers_frames_sums=many_path["registers"],
+        local_bytes_frames_sums=many_path["local_bytes"],
+        frames_a_chunk=many_path["chunk"],
+        launches_from="phase 19 (d)"))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,10 @@ kernel's GENERAL_CASES at the bench shape and at the conv paths' own
 (B = 1, F = 513, N = 189), 1c at the configs[2] bucket and blind pool, 1c'
 at the speech pool and the music coarse stage, and its WIDE_CASES (J = 5
 to 16; a side whose wrapper refuses a J skips it) at the bench shape and
-at phase 19's path shapes; fb_stats and tw_stats at the bench shape (B = 8,
+at phase 19's path shapes, and csrc/estep_many.cu (J at run time) at
+(8, J, 513, 863) for each J of chip_smoke.MANY_TABLE_J, real rank 1 and
+complex rank 2, and at chip_smoke.MANY_PATH; fb_stats and tw_stats at the
+bench shape (B = 8,
 J = 2, F = 513, N = 863, K = 8) and at B = 1, and the same at each K of
 chip_smoke.K_BIG (40 and 64: the tiled kernel past 32). The sides run in
 turns, forward and then backward (this, parent, parent, this), --rounds
@@ -142,6 +145,24 @@ def cases(smoke, device):
                         cuda_estep.estep_general(*a, r, **k),
                         lambda a=g_inp, r=ranks, k=kw:
                         cuda_estep.estep_ref(*a, r, **k), tol))
+    # csrc/estep_many.cu (J at run time): row 1g'''s bench shapes, real
+    # rank 1 and complex rank 2 at each J of MANY_TABLE_J, and phase 19
+    # (d)'s path (a tree from before it refuses these: skipped)
+    many = [(bench, J_, (R,) * J_, R == 1) for J_ in smoke.MANY_TABLE_J
+            for R in (1, 2)]
+    many.append((smoke.MANY_PATH[:1] + smoke.MANY_PATH[2:],
+                 smoke.MANY_PATH[1], (1,) * smoke.MANY_PATH[1], True))
+    for shape, J_, ranks, real in many:
+        tol = dict(smoke.TOL, xi=3e-4 if max(ranks) == 2 else smoke.TOL["xi"])
+        g_inp = smoke._general_inputs(shape[0], J_, *shape[1:], ranks, real,
+                                      seed=2, device=device)
+        out.append((f"1g''' J={J_} rank {max(ranks)} "
+                    f"{'real' if real else 'complex'} "
+                    f"{'x'.join(map(str, shape))}",
+                    lambda a=g_inp, r=ranks, re=real:
+                    cuda_estep.estep_general(*a, r, real_cov=re),
+                    lambda a=g_inp, r=ranks, re=real:
+                    cuda_estep.estep_ref(*a, r, real_cov=re), tol))
     for K_ in (smoke.K,) + smoke.K_BIG:
         for B, tag in ((smoke.BATCH, ""), (1, " 1x2x513x863")):
             s_inp = smoke._spectral_inputs(B, smoke.J, 513, 863, K_,

@@ -76,8 +76,9 @@
 // 88 / 100% (two Tss slots of 18 lanes, 56, 8), complex rank 1 90 / 100 /
 // 100% (seven T7 slots of 8 lanes). Shared memory is the tile, (4 + J
 // blocks) x 132 words: at J = 8 rank 2, 140 x 528 B = 72 KB, three
-// blocks (12 warps) to an SM; at J = 16 (the most the package builds,
-// csrc/estep_j16.cu) 276 x 528 B = 146 KB, one block.
+// blocks (12 warps) to an SM; at J = 16 (the last J instantiated here,
+// csrc/estep_j16.cu; past it csrc/estep_many.cu takes J at run time)
+// 276 x 528 B = 146 KB, one block.
 //
 // Numerics follow the Pallas forms term by term: the subtract-free dets of
 // Sigma_x and of each S_j, the rank-2 dG clamp and coef = (g00 + g11)/dG,
@@ -1010,13 +1011,14 @@ __device__ __forceinline__ float at(const float4& a, int i) {
 // Tss_jk, every (r, s), over nq quads of frames from pa (source j's
 // block) and pb (source k's), added to tot as one tile partial. Operands
 // load per column r and s (w_ks again for each r; under ns_inj a barrier
-// between the columns keeps them from being carried: registers).
-template <int J, int R, bool REAL, bool NS>
+// between the columns keeps them from being carried: registers). ST: the
+// tile's words per feature row (estep_many.cu stages narrower tiles).
+template <int J, int R, bool REAL, bool NS, int ST = kFeatStride>
 __device__ __forceinline__ void tss_item(const float* pa, const float* pb,
                                          int nq, float sig,
                                          float (&tot)[2 * R * R]) {
   using FT = Feats<J, R, REAL>;
-  constexpr int S = kFeatStride;
+  constexpr int S = ST;
   constexpr int ZN = NS ? (REAL ? 1 : 2) : 0;  // words of a z channel
   float tp[2 * R * R];
 #pragma unroll
@@ -1077,12 +1079,12 @@ __device__ __forceinline__ void tss_item(const float* pa, const float* pb,
 
 // T7_jk, every (r, s): v_j v_k A_jr^H z_ks over nq quads of frames from pa
 // (source j's block: v_j) and pb (source k's: v_k, z_k); A = &c.A[j].
-template <int J, int R, bool REAL>
+template <int J, int R, bool REAL, int ST = kFeatStride>
 __device__ __forceinline__ void t7_item(const float* pa, const float* pb,
                                         const cf (&A)[R][2], int nq,
                                         float (&tot)[R * R * (REAL ? 1 : 2)]) {
   using FT = Feats<J, R, REAL>;
-  constexpr int S = kFeatStride;
+  constexpr int S = ST;
   constexpr int W = REAL ? 1 : 2;
   cf a[R][2];
 #pragma unroll
@@ -1132,13 +1134,13 @@ __device__ __forceinline__ void t7_item(const float* pa, const float* pb,
 // Source j's Txs (4 words per column r) and T4 (NT4 words after them) over
 // nq quads of frames from pa (its block) and px (the frames' x). Operands
 // load per column r.
-template <int J, int R, bool REAL, bool NS>
+template <int J, int R, bool REAL, bool NS, int ST = kFeatStride>
 __device__ __forceinline__ void src_item(const float* pa, const float* px,
                                          int nq, float sig,
                                          float (&tot)[4 * R +
                                                       Slots<J, R>::NT4]) {
   using FT = Feats<J, R, REAL>;
-  constexpr int S = kFeatStride;
+  constexpr int S = ST;
   constexpr int NT4 = FT::NT4;
   constexpr int ZN = NS ? (REAL ? 1 : 2) : 0;  // words of a z channel
   float tp[4 * R + NT4];

@@ -228,7 +228,7 @@ def separate_streaming(filename, J: int = 2, K: int = 8, wlen: int = 1024,
 
     device: where the blocks are transformed and the GEM runs, the card
     unless it says "cpu". On CUDA an E-step no kernel computes raises
-    NotImplementedError (J outside 2-16 at I = 2, float64); there is no
+    NotImplementedError (float64, ranks past 2 at I = 2); there is no
     CPU fallback. A non-finite block log-likelihood in pass 1 raises
     RuntimeError naming the block (checked once, at the pass's end).
     """

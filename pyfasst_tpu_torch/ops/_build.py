@@ -7,18 +7,19 @@ source, all started together:
          -Xcompiler -fPIC -c -o _build/<name>.o csrc/<name>.cu
 
 and links them into shared libraries with a plain C interface
-(``nvcc -shared``) in ``pyfasst_tpu_torch/_build/``. There are two: "core"
-(csrc/estep.cu, csrc/spectral.cu and the general E-step at J = 2 to 8,
-csrc/estep_j{2..8}.cu) and "wide" (the general E-step at J = 9 to 16,
-csrc/estep_j{9..16}.cu, the longest units to compile). Each is built and
-loaded the first time one of its kernels is asked for, so a caller at
-J <= 8 does not wait for the wide units. A stamp beside each library holds
-a hash of its sources, the shared headers and the flags, so an unchanged
-tree is not rebuilt. Only the sources in the package and the CUDA
-toolkit's headers go into the build. A failed build raises with nvcc's
-output; nothing falls back to the plain PyTorch versions. Each J of the
-general E-step kernel is its own source, so its instantiations compile in
-parallel. No --use_fast_math: the kernels rely on exact IEEE divides and
+(``nvcc -shared``) in ``pyfasst_tpu_torch/_build/``. There are three:
+"core" (csrc/estep.cu, csrc/spectral.cu and the general E-step at J = 2 to
+8, csrc/estep_j{2..8}.cu), "wide" (the general E-step at J = 9 to 16,
+csrc/estep_j{9..16}.cu, the longest units to compile) and "many" (the
+E-step at any other J, J an argument of the launch, csrc/estep_many.cu).
+Each is built and loaded the first time one of its kernels is asked for,
+so a caller at J <= 8 waits for neither of the others. A stamp beside
+each library holds a hash of its sources, the shared headers and the
+flags, so an unchanged tree is not rebuilt. Only the sources in the
+package and the CUDA toolkit's headers go into the build. A failed build
+raises with nvcc's output; nothing falls back to the plain PyTorch
+versions. Each compile-time J of the general E-step kernel is its own
+source, so its instantiations compile in parallel. No --use_fast_math: the kernels rely on exact IEEE divides and
 logf (the E-step's fast_recip flag asks for its approximate reciprocal
 explicitly, csrc/recip.cuh); and --fmad=false keeps every product rounded
 as the plain versions round it (see csrc/estep.cu).
@@ -37,9 +38,13 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAMES = {"core": "libpyfasst_kernels.so",
-             "wide": "libpyfasst_estep_wide.so"}
-# the general E-step's J in the wide library
+             "wide": "libpyfasst_estep_wide.so",
+             "many": "libpyfasst_estep_many.so"}
+# the general E-step's compile-time J in the core and the wide library;
+# every other J is the many library's
+CORE_J = range(2, 9)
 WIDE_J = range(9, 17)
+MANY_SOURCE = "estep_many.cu"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
@@ -63,14 +68,16 @@ def nvcc_path() -> str:
 
 def library_of(J: int) -> str:
     """The library that holds the general E-step kernel at J sources."""
-    return "wide" if J in WIDE_J else "core"
+    return "core" if J in CORE_J else "wide" if J in WIDE_J else "many"
 
 
 def sources(name: str):
     """(.cu sources of library `name`, every shared header)."""
-    wide = {f"estep_j{J}.cu" for J in WIDE_J}
-    cu = [p for p in sorted(SRC_DIR.glob("*.cu"))
-          if (p.name in wide) == (name == "wide")]
+    own = {"wide": {f"estep_j{J}.cu" for J in WIDE_J},
+           "many": {MANY_SOURCE}}
+    own["core"] = {p.name for p in SRC_DIR.glob("*.cu")} - own["wide"] \
+        - own["many"]
+    cu = [p for p in sorted(SRC_DIR.glob("*.cu")) if p.name in own[name]]
     return cu, sorted(SRC_DIR.glob("*.cuh"))
 
 
@@ -157,13 +164,30 @@ def _stamp(name: str) -> Path:
 
 
 def load(name: str = "core") -> ctypes.CDLL:
-    """Library `name` ("core" or "wide"), built on first use, with its C
-    signatures set."""
+    """Library `name` ("core", "wide" or "many"), built on first use, with
+    its C signatures set."""
     if name in _libs:
         return _libs[name]
     from pyfasst_tpu_torch.ops.cuda_estep import GENERAL_J
     lib = ctypes.CDLL(build(names=(name,))["paths"][name])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "many":
+        fn = lib.pyfasst_estep_many
+        # x4 v A4 sigma, xi txs tss t4 t7 ll ws; B J F N; ranks (host);
+        # rmax real_cov ns_inj; eps; fast_recip no_ll; stream
+        fn.argtypes = ([p] * 11 + [i] * 4 + [ctypes.POINTER(i)] + [i] * 3
+                       + [f] + [i] * 2 + [p])
+        fn.restype = i
+        # B J F N rmax real_cov
+        lib.pyfasst_estep_many_workspace.argtypes = [i] * 6
+        lib.pyfasst_estep_many_workspace.restype = ctypes.c_longlong
+        lib.pyfasst_estep_many_chunk.argtypes = [i] * 5   # J F N rmax real
+        lib.pyfasst_estep_many_chunk.restype = i
+        # which (0 frames, 1 sums) rmax real_cov ns_inj; out
+        lib.pyfasst_estep_many_info.argtypes = [i] * 4 + [p]
+        lib.pyfasst_estep_many_info.restype = i
+        _libs[name] = lib
+        return lib
     for J in GENERAL_J:
         if library_of(J) != name:
             continue
@@ -212,12 +236,14 @@ def kernel_info(name: str, *args: int) -> dict:
     the launch's dynamic bytes for the general E-step and tw_stats).
 
     name is "estep_j{J}" (J in cuda_estep.GENERAL_J) with args (rmax,
-    real_cov, ns_inj), "estep_r1_real" with args (J,), "fb_stats" with
-    args (K,), or "tw_stats" with args (K, F). Needs a CUDA device.
+    real_cov, ns_inj), "estep_many" with args (which, rmax, real_cov,
+    ns_inj), which 0 its frames kernel, 1 its sums kernel,
+    "estep_r1_real" with args (J,), "fb_stats" with args (K,), or
+    "tw_stats" with args (K, F). Needs a CUDA device.
     """
     out = (ctypes.c_int * 4)()
     lib = load(library_of(int(name[7:])) if name.startswith("estep_j")
-               else "core")
+               else "many" if name == "estep_many" else "core")
     err = getattr(lib, f"pyfasst_{name}_info")(*args, out)
     if err != 0:
         raise RuntimeError(f"{name}{args} info failed: cudaError_t {err}")

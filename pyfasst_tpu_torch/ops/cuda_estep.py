@@ -12,6 +12,8 @@ ops/_build.py:
                                            ranks in {1, 2} per source,
                                            'ann_ns_inj'; J = 2 to 16 (and
                                            variant a's model at J = 4-16)
+                    csrc/estep_many.cu     the same at J = 1 and any J >=
+                                           17, J an argument of the launch
 
 Both take the flags fast_recip (variant e: approximate reciprocals with a
 Newton step, csrc/recip.cuh) and no_ll (variant f: the loglik without
@@ -25,8 +27,8 @@ launch of a complex rank-2 E-step with fast_recip counts for b, c and e).
 ``suff_stats_cuda`` returns an estep.SuffStats laid out as
 pallas_suff_stats lays it out.
 
-Still to port: float64, I != 2 and J outside 2-16: kernel_eligible names
-them and suff_stats_cuda raises.
+Not computed on CUDA: float64, I != 2, ranks past 2 and more than
+MAX_SOURCES sources: kernel_eligible names them and suff_stats_cuda raises.
 """
 from __future__ import annotations
 
@@ -49,10 +51,15 @@ on real rank-1 mixing without noise injection), b (complex mixing),
 c (a rank-2 source), d (noise injection), e (fast_recip), f (no_ll)."""
 
 GENERAL_J = tuple(range(2, 17))
-"""Source counts the general kernel is built for (one translation unit
-each, csrc/estep_j{J}.cu). The kernel's design has no limit of its own on
-J (csrc/estep_general.cuh); J >= 17 has no translation unit (its tile
-would still fit one block's shared memory up to J = 24 at rank 2)."""
+"""Source counts with a compile-time instantiation of the general kernel
+(one translation unit each, csrc/estep_j{J}.cu). Every other J, one source
+and J >= 17, goes to csrc/estep_many.cu, which takes J at run time."""
+
+MAX_SOURCES = 4096
+"""The most sources csrc/estep_many.cu takes: their ranks reach the card
+as a bit mask of this many bits in the launch's arguments. Past some
+thousand sources the outputs (J^2 frame sums a row) outgrow the card's
+memory at any real width first."""
 
 
 def pack_x4(X: torch.Tensor) -> torch.Tensor:
@@ -346,6 +353,34 @@ def estep_ref(x4, v, A4, sigma, ranks: Tuple[int, ...],
                          for k in keep for l in keep)
         return a, d, b, sig * sig + sig * lin + quad
 
+    def leave_one_out():
+        """mixture([k for k in range(J) if k != j]) for every j at once,
+        each entry stacked over j: the same sums term by term in the same
+        order, each term formed once and added to the sums that take it,
+        in J^2 operations on (J, B, F, N) tensors rather than J^3 on
+        (B, F, N)."""
+        def others(k, l):                       # the j that take term (k, l)
+            return torch.tensor([j for j in range(J) if j != k and j != l],
+                                dtype=torch.long, device=v.device)
+
+        def lin(terms):                                  # sum over k != j
+            acc = torch.zeros((J,) + terms[0].shape, dtype=v.dtype,
+                              device=v.device)
+            for k, t in enumerate(terms):
+                acc[others(k, k)] += t
+            return acc
+
+        a = sig + lin([vs[k] * Ra[k] for k in range(J)])
+        d = sig + lin([vs[k] * Rd[k] for k in range(J)])
+        b = (lin([vs[k] * Rb[k][0] for k in range(J)]),
+             None if real_cov else lin([vs[k] * Rb[k][1] for k in range(J)]))
+        lin_tr = lin([vs[k] * trR[k] for k in range(J)])
+        quad = torch.zeros_like(lin_tr)
+        for k in range(J):
+            for l in range(J):
+                quad[others(k, l)] += vs[k] * vs[l] * Xc[(k, l)]
+        return a, d, b, sig * sig + sig * lin_tr + 0.5 * quad
+
     def herm_apply(a, d, b, rinv, u0, u1):
         """Sigma^-1 (u0, u1) via the adjugate [d, -b; -conj(b), a]."""
         y0 = _cscale(rinv, _csub(_cscale(d, u0), _cmul(b, u1)))
@@ -373,6 +408,7 @@ def estep_ref(x4, v, A4, sigma, ranks: Tuple[int, ...],
     def rsum(t):
         return zero if t is None else torch.sum(t, dim=-1)
 
+    loo_a, loo_d, loo_b, loo_det = leave_one_out()
     xi = torch.empty((B, J, F, N), **like)
     txs = torch.zeros((B, J, F, 4 * Rmax), **like)
     t4 = torch.zeros((B, J, F, 4), **like)
@@ -382,7 +418,8 @@ def estep_ref(x4, v, A4, sigma, ranks: Tuple[int, ...],
             trCR = trCR + sig * sum(
                 _cabs2(sxiA[j][r][0]) + _cabs2(sxiA[j][r][1])
                 for r in range(ranks[j]))
-        aS, dS, bS, detS = mixture([k for k in range(J) if k != j])
+        aS, dS, detS = loo_a[j], loo_d[j], loo_det[j]
+        bS = (loo_b[0][j], None if loo_b[1] is None else loo_b[1][j])
         rinvS = 1.0 / detS
         sjA = [herm_apply(aS, dS, bS, rinvS, Acol[j][s][0], Acol[j][s][1])
                for s in range(ranks[j])]
@@ -468,9 +505,12 @@ def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
     (estep_ref) on a CPU one. Shapes and outputs as estep_ref.
 
     On CUDA every input must be float32, contiguous and on one device, with
-    J in GENERAL_J and every rank in {1, 2}; the outputs are allocated here
-    and the kernel runs on the current stream. fast_recip (variant e) takes
-    the kernel's approximate reciprocals; no_ll (variant f) as in estep_ref.
+    J <= MAX_SOURCES and every rank in {1, 2}; the outputs (and outside
+    GENERAL_J the kernel's scratch) are allocated here and the kernel runs
+    on the current stream: a compile-time instantiation for J in
+    GENERAL_J, csrc/estep_many.cu for any other J. fast_recip (variant e)
+    takes the kernel's approximate reciprocals; no_ll (variant f) as in
+    estep_ref.
     """
     ranks = tuple(int(r) for r in ranks)
     if v.device.type == "cpu":
@@ -487,16 +527,17 @@ def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
     _check("v", v, (B, J, F, N), dev)
     _check("A4", A4, (B, J, F, 4 * Rmax), dev)
     _check("sigma", sigma, (B, F), dev)
-    if J not in GENERAL_J:
+    if J > MAX_SOURCES:
         raise NotImplementedError(
-            f"the E-step kernel is built for J = 2 to 16 sources, got {J} "
-            "(ROADMAP kernel queue 2)")
+            f"the E-step kernel takes at most {MAX_SOURCES} sources (their "
+            f"ranks reach the card as a bit mask of that many bits), got "
+            f"{J}")
     if any(r not in (1, 2) for r in ranks):
         raise NotImplementedError(f"the E-step kernel takes ranks 1 and 2, "
                                   f"got {ranks}")
     from pyfasst_tpu_torch.ops import _build
 
-    fn = getattr(_build.load(_build.library_of(J)), f"pyfasst_estep_j{J}")
+    lib = _build.load(_build.library_of(J))
     f32 = dict(dtype=torch.float32, device=dev)
     xi = torch.empty((B, J, F, N), **f32)
     txs = torch.empty((B, J, F, 4 * Rmax), **f32)
@@ -504,14 +545,31 @@ def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
     t4 = torch.empty((B, J, F, 4), **f32)
     t7 = torch.empty((B, J, J, F, 2 * Rmax * Rmax), **f32)
     ll = torch.empty((B, F), **f32)
-    rank_mask = sum(1 << j for j, r in enumerate(ranks) if r == 2)
+    outs = (xi.data_ptr(), txs.data_ptr(), tss.data_ptr(), t4.data_ptr(),
+            t7.data_ptr(), ll.data_ptr())
+    ins = (x4.data_ptr(), v.data_ptr(), A4.data_ptr(), sigma.data_ptr())
+    flags = (ctypes.c_float(eps), int(fast_recip), int(no_ll))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(x4.data_ptr(), v.data_ptr(), A4.data_ptr(),
-                 sigma.data_ptr(), xi.data_ptr(), txs.data_ptr(),
-                 tss.data_ptr(), t4.data_ptr(), t7.data_ptr(), ll.data_ptr(),
-                 B, F, N, rank_mask, Rmax, int(real_cov), int(ns_inj),
-                 ctypes.c_float(eps), int(fast_recip), int(no_ll), stream)
+    if J in GENERAL_J:
+        rank_mask = sum(1 << j for j, r in enumerate(ranks) if r == 2)
+        with torch.cuda.device(dev):
+            err = getattr(lib, f"pyfasst_estep_j{J}")(
+                *ins, *outs, B, F, N, rank_mask, Rmax, int(real_cov),
+                int(ns_inj), *flags, stream)
+    else:
+        # the rows' constants and a chunk of frames' features, in here
+        words = lib.pyfasst_estep_many_workspace(B, J, F, N, Rmax,
+                                                 int(real_cov))
+        if words < 0:
+            raise NotImplementedError(
+                f"the E-step kernel cannot take (B, J, F, N) = {(B, J, F, N)}"
+                " (a launch's grid past 2^31 blocks)")
+        ws = torch.empty((words,), **f32)
+        with torch.cuda.device(dev):
+            err = lib.pyfasst_estep_many(
+                *ins, *outs, ws.data_ptr(), B, J, F, N,
+                (ctypes.c_int * J)(*ranks), Rmax, int(real_cov), int(ns_inj),
+                *flags, stream)
     if err != 0:
         raise RuntimeError(f"E-step kernel launch failed: cudaError_t {err}")
     variants = ([] if real_cov else ["b"]) + (["c"] if Rmax == 2 else []) \
@@ -533,9 +591,10 @@ def kernel_eligible(ranks: Tuple[int, ...], real_cov: bool,
     if dtype != torch.float32:
         return (f"dtype {dtype} (the kernels are float32; float64 runs on "
                 "the CPU, ROADMAP kernel queue 1)")
-    if len(ranks) not in GENERAL_J:
-        return (f"J = {len(ranks)} sources (the kernels are built for "
-                "J = 2 to 16; ROADMAP kernel queue 2)")
+    if len(ranks) > MAX_SOURCES:
+        return (f"J = {len(ranks)} sources (the kernels take at most "
+                f"{MAX_SOURCES}: their ranks reach the card as a bit mask "
+                "of that many bits)")
     if any(r not in (1, 2) for r in ranks):
         return (f"ranks {tuple(ranks)} (the kernels take ranks 1 and 2; "
                 "ROADMAP kernel queue 1)")

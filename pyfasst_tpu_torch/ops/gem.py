@@ -21,10 +21,12 @@ E-step dispatch (gem_step), as the JAX gem_step takes it:
     I = 2, CUDA, kernel-eligible    cuda_estep.suff_stats_cuda: variant a
                                     (real rank-1 mixing) or the general
                                     kernel (complex mixing, rank 2, mixed
-                                    ranks, 'ann_ns_inj'); fast_recip in
+                                    ranks, 'ann_ns_inj'; any J, past 16
+                                    with J at run time); fast_recip in
                                     either (variant e)
-    I = 2, CUDA, anything else      NotImplementedError naming the
-                                    ROADMAP entry (float64, J outside 2-16)
+    I = 2, CUDA, anything else      NotImplementedError naming why
+                                    (float64, ranks past 2, more than
+                                    4096 sources)
 
 Spectral M-step dispatch (gem_step), as the JAX gem_step takes it:
     I = 2, CUDA tensor,             cuda_spectral.fused_spectral_update:

@@ -141,9 +141,9 @@ def test_gem_step_on_cuda_goes_through_the_kernel(dev, monkeypatch):
                                   "J17"])
 def test_variants_without_a_kernel_raise_on_cuda(dev, case):
     """Conv mixing, ann_ns_inj and J = 5 sources run through the general
-    kernel, fast_recip through variant e and fuse_spectral through the
-    spectral kernels; float64 and J = 17 sources, which no kernel
-    computes, raise, naming their ROADMAP entry."""
+    kernel, J = 17 sources through csrc/estep_many.cu, fast_recip through
+    variant e and fuse_spectral through the spectral kernels; float64,
+    which no kernel computes, raises, naming its ROADMAP entry."""
     rng = np.random.default_rng(2)
     dtype = torch.float64 if case == "float64" else torch.float32
     tree = _tree(rng, 9, 20, mix="conv" if case == "conv" else "inst")
@@ -159,7 +159,8 @@ def test_variants_without_a_kernel_raise_on_cuda(dev, case):
                     annealing="ann_ns_inj" if case == "ann_ns_inj" else "ann",
                     fast_recip=case == "fast_recip",
                     fuse_spectral=case == "fuse_spectral")
-    if case in ("conv", "ann_ns_inj", "fast_recip", "fuse_spectral", "J5"):
+    if case in ("conv", "ann_ns_inj", "fast_recip", "fuse_spectral", "J5",
+                "J17"):
         launches = cuda_estep.LAUNCHES
         e_launches = cuda_estep.VARIANT_LAUNCHES["e"]
         spectral = dict(cuda_spectral.LAUNCHES)
@@ -242,6 +243,58 @@ def test_general_kernel_matches_plain_version(dev, name, B, F, N):
     torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
                                atol=0)
     again = cuda_estep.estep_general(*inp, ranks, ns_inj=ns, real_cov=real)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+# csrc/estep_many.cu, J at run time: one source, J = 17 (three tiles of
+# sources in the sums kernel, the last of one), 24 (three whole tiles), 32
+# and 48; every variant among the cases; one frame, ragged quads and
+# 32-frame turns, B = 2; (1, 513, 500) at J = 17 rank 2 outgrows one
+# chunk of frames' features (256 MiB): two chunks, 416 and 84 frames. xi
+# equals the plain version's bits (no fast_recip), two launches give the
+# same bits.
+MANY = [(1, (1,), True, False, "", 1, 5, 33),
+        (17, (1,) * 17, True, False, "", 1, 33, 70),
+        (17, (2,) * 17, False, False, "", 2, 9, 45),
+        (17, (1, 2) * 8 + (1,), False, True, "no_ll", 1, 7, 1),
+        (17, (2,) * 17, False, False, "", 1, 513, 500),
+        (24, (1,) * 24, False, False, "fast_recip", 1, 13, 65),
+        (24, (2,) * 24, True, True, "", 1, 5, 37),
+        (32, (1,) * 32, True, False, "", 2, 9, 129),
+        (32, (2,) * 32, False, True, "fast_recip", 1, 5, 31),
+        (48, (1,) * 48, False, False, "", 1, 5, 33),
+        (48, (2, 1) * 24, False, False, "no_ll", 1, 3, 40)]
+
+
+@pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", MANY)
+def test_many_kernel_matches_plain_version(dev, J, ranks, real, ns, flag, B,
+                                           F, N):
+    from pyfasst_tpu_torch.ops import _build
+    chunk = _build.load("many").pyfasst_estep_many_chunk(J, F, N, max(ranks),
+                                                         int(real))
+    assert chunk == (416 if N == 500 else -(-N // 32) * 32)
+    inp = _general_inputs(B, J, F, N, ranks, real, B * F * N + J, dev)
+    kw = dict(ns_inj=ns, real_cov=real)
+    fl = {flag: True} if flag else {}
+    launches = dict(cuda_estep.VARIANT_LAUNCHES)
+    got = cuda_estep.estep_general(*inp, ranks, **kw, **fl)
+    want = cuda_estep.estep_ref(*inp, ranks, **kw, no_ll=flag == "no_ll")
+    torch.cuda.synchronize()
+    key = "b" if not real else "a"
+    key = "c" if max(ranks) == 2 else key
+    key = "d" if ns else key
+    assert cuda_estep.VARIANT_LAUNCHES[key] == launches[key] + 1
+    xi_bar = 3e-4 if max(ranks) == 2 else 2e-4
+    for g, w, rtol in zip(got[:5], want[:5], (xi_bar,) + (5e-4,) * 4):
+        # (one source has no T7: an all-zero output, equal word for word)
+        assert g.shape == w.shape and (torch.equal(g, w)
+                                       or _rel(g, w) <= rtol)
+    torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
+                               atol=0)
+    if flag != "fast_recip":
+        assert torch.equal(got[0], want[0])
+    again = cuda_estep.estep_general(*inp, ranks, **kw, **fl)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
 

@@ -205,10 +205,10 @@ def test_kernel_wrapper_uses_plain_version_on_cpu():
 
 
 # Variants b (complex mixing), c (rank 2) and d (ann_ns_inj) and J = 4 to
-# 16 run in the general kernel, e (fast_recip) in either kernel; the rest
-# (float64, J = 17) have no kernel.
+# 16 run in the general kernel, J = 17 and up in csrc/estep_many.cu, e
+# (fast_recip) in either kernel; float64 has no kernel.
 _PORTED = ("rank 2", "complex mixing", "ann_ns_inj", "fast_recip", "J = 4",
-           "J = 5", "J = 8", "J = 9")
+           "J = 5", "J = 8", "J = 9", "J = 17")
 
 
 @pytest.mark.parametrize("why,kw", [
@@ -257,10 +257,14 @@ def test_suff_stats_cuda_raises_for_variants_not_ported():
     with pytest.raises(NotImplementedError, match="float64"):
         cuda_estep.suff_stats_cuda(tin[0], tin[1].double(), None, tin[3],
                                    ranks, tin[4])
+    # J = 17 goes to csrc/estep_many.cu on CUDA: on the CPU, its plain
+    # version, with no launch
     many = (tin[4] * 9)[:17]
-    with pytest.raises(NotImplementedError, match="J = 17"):
-        cuda_estep.suff_stats_cuda(tin[0], tin[1][:, [0, 1] * 8 + [0]], None,
-                                   tin[3], (1,) * 17, many)
+    stats = cuda_estep.suff_stats_cuda(tin[0], tin[1][:, [0, 1] * 8 + [0]],
+                                       None, tin[3], (1,) * 17, many)
+    assert stats.xi.shape[1] == 17 and len(stats.Tss) == 17
+    assert bool(torch.isfinite(stats.xi).all())
+    assert cuda_estep.LAUNCHES == launches
 
 
 # -- the symmetries the rank-1 real CUDA kernel relies on ----------------------
@@ -339,3 +343,34 @@ def test_rank1_real_t7_is_not_mirrored_bit_for_bit(which, J):
                                        rtol=1e-4)
             differing += int(np.sum(t7[j, k, :, 0] != t7[k, j, :, 0]))
     assert differing > 0
+
+
+@pytest.mark.parametrize("J,ill", [(1, True), (17, False)])
+def test_one_source_amplifies_a_reciprocal_ulp(monkeypatch, J, ill):
+    """Why variant e (fast_recip, ~1 ulp from 1/x) is not held at xi's
+    2e-4 bar with one source: Sigma_x = sigma I + v_1 R_1 is so
+    ill-conditioned that one ulp more in every reciprocal of the plain
+    version moves xi past the bar (chip_smoke.many_variants divides exactly
+    there); at 17 sources it stays far inside."""
+    rng = np.random.default_rng(J)
+    B, F, N = 1, 33, 70
+    FB, TW = 0.5 + rng.random((B, J, F, 8)), 0.5 + rng.random((B, J, 8, N))
+    A4 = 0.7 * rng.standard_normal((B, J, F, 4))
+    inp = [torch.as_tensor(a, dtype=torch.float32) for a in (
+        rng.standard_normal((B, 4, F, N)),
+        np.einsum("bjfk,bjkn->bjfn", FB, TW), A4,
+        0.01 + 0.005 * rng.random((B, F)))]
+    want = cuda_estep.estep_ref(*inp, (1,) * J)[0]
+    exact = torch.Tensor.__rtruediv__
+
+    def one_ulp_more(self, other):
+        r = exact(self, other)
+        if isinstance(other, float) and other == 1.0:
+            return torch.nextafter(r, torch.full_like(r, float("inf")))
+        return r
+
+    monkeypatch.setattr(torch.Tensor, "__rtruediv__", one_ulp_more)
+    got = cuda_estep.estep_ref(*inp, (1,) * J)[0]
+    floor = 1e-3 * float(want.abs().max())
+    rel = float(((got - want).abs() / (want.abs() + floor)).max())
+    assert (rel > 2e-4) == ill

@@ -62,13 +62,16 @@ def test_wide_plain_version_matches_pallas(name):
 
 @pytest.mark.parametrize("J", tuple(range(5, 17)))
 def test_kernel_takes_five_to_sixteen_sources(J):
-    """kernel_eligible passes J = 5..16 at every rank mix and flag; the
-    wrapper's shape checks pass them (its plain version runs on the CPU,
-    with no launch); J = 17 is refused, naming its ROADMAP item."""
+    """kernel_eligible passes J = 5..16 at every rank mix and flag, and
+    J = 17 (csrc/estep_many.cu, J at run time) and on to MAX_SOURCES;
+    past that it refuses, naming why."""
     for ranks in ((1,) * J, (2,) * J, (1, 2) * (J // 2) + (1,) * (J % 2)):
         for real, ns, fast in ((True, False, False), (False, True, True)):
             assert cuda_estep.kernel_eligible(
                 ranks, real, ns, torch.float32, fast, 2) == ""
-    why = cuda_estep.kernel_eligible((1,) * 17, True, False, torch.float32,
-                                     False, 2)
-    assert "J = 17" in why and "ROADMAP kernel queue 2" in why
+    for many in (17, cuda_estep.MAX_SOURCES):
+        assert cuda_estep.kernel_eligible((1,) * many, True, False,
+                                          torch.float32, False, 2) == ""
+    why = cuda_estep.kernel_eligible((1,) * (cuda_estep.MAX_SOURCES + 1),
+                                     True, False, torch.float32, False, 2)
+    assert f"J = {cuda_estep.MAX_SOURCES + 1}" in why and "bit mask" in why
