@@ -11,9 +11,10 @@ Phases (each prints one line with its numbers and seconds):
      beside phase 2's checks of the core kernels, until the first check
      that needs them), with ptxas' register and spill report, and the
      resident warps per SM, registers and local bytes of every
-     instantiation of the general E-step kernel, of estep_many's frames
-     and sums kernels, of fb_stats, of tw_stats and of estep_r1_real, as
-     the runtime reports them;
+     instantiation of the general E-step kernel, of estep_many's fused
+     kernel (at J = 20), its segments' second pass and its chunked
+     route's frames and sums kernels, of fb_stats, of tw_stats and of
+     estep_r1_real, as the runtime reports them;
   2. each kernel against its plain PyTorch version on the card, with
      CUDA-event timings of kernel and plain version in turns (the kernel's
      by CUDA-graph replay: device time), each kernel's bound from its
@@ -46,9 +47,12 @@ Phases (each prints one line with its numbers and seconds):
      for bit, timed with registers and spill, and at a ragged one, and at
      phase 19's path shapes; every variant at each J of 9 to 16 at a
      ragged shape (many_variants), two runs bit for bit; the same for
-     csrc/estep_many.cu at J = 1, 17, 24, 32 and 48 (MANY_KERNEL_J), xi
+     csrc/estep_many.cu at J = 1, 17, 24, 32, 48 and 61 (MANY_KERNEL_J;
+     its chunked route at rank 2 past J = 30 and at J = 61), xi
      bit for bit, and at phase 19 (d)'s path shape (1, 20, 513, 863),
-     timed with its bound, floor, registers and spill; fb_stats
+     timed with its bound, floor, registers and spill, its plan (fused:
+     tiles, segments, shared bytes), its scratch bytes a call and each
+     of its kernels' device ms a call (profiler); fb_stats
      and tw_stats at K = 40 and 64 (their tiled form past 32: V once per
      tile over all K) at the bench shapes and at the host API's B = 1
      (a split contracted axis), timed with the floor without FMA, and at
@@ -220,6 +224,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -424,9 +429,13 @@ WIDE_RAGGED = (1, 33, 70)
 # mixed ranks with no_ll (c, f), ns_inj at ranks 1 and 2 (d); at the J
 # that no case of WIDE_CASES times (11, 13, 14, 15) also real rank 1 (a)
 # and complex rank 2 (c). The same at each J of MANY_KERNEL_J, which
-# csrc/estep_many.cu takes (J at run time), and xi bit for bit there
+# csrc/estep_many.cu takes (J at run time), and xi bit for bit there: its
+# fused route in every variant at J = 1, 17 and 24 and at rank 1 at J =
+# 32 and 48, its chunked route at rank 2 at J = 32 and 48 (past the fused
+# route's last J there, 30 at complex mixing) and in every variant at J =
+# 61 (past the fused route's last J at any rank and mixing)
 MANY_J = tuple(range(9, 17))
-MANY_KERNEL_J = (1, 17, 24, 32, 48)
+MANY_KERNEL_J = (1, 17, 24, 32, 48, 61)
 # csrc/estep_many.cu at phase 19 (d)'s path, `separate --sources 20`:
 # (B, J, F, N), real rank 1; checked and timed in phase 2. many_table()
 # times it at the bench shape (BATCH, J, 513, 863) for each J of
@@ -885,27 +894,28 @@ def phase_machine(device):
 
 def phase_build():
     """Phase 1: builds the core library (every kernel but the general
-    E-step past J = 8) and, in a thread started first, the wide one
-    (J = 9 to 16, the longest units) and the many one (csrc/estep_many.cu,
-    J = 1 and J >= 17 at run time), so that phase 2's checks of the core
-    kernels run while those compile; prints ptxas' report and the core
-    kernels' occupancy. Returns the join: it waits for the wide and many
-    libraries (raising their build's error), loads them and prints their
-    report and occupancy."""
+    E-step past J = 8) and, in threads started first, the wide one (J = 9
+    to 16, the longest units) and the many one (csrc/estep_many.cu, J = 1
+    and J >= 17 at run time), so that phase 2's checks of the core kernels
+    (and of J = 5 to 16, for the many library) run while those compile;
+    prints ptxas' report and the core kernels' occupancy. Returns the
+    join: join(name) waits for library `name` ("wide" or "many"), raising
+    its build's error, loads it and prints its report and occupancy."""
     import threading
     from pyfasst_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    wide = {}
+    built = {}
 
-    def build_wide():
+    def build_bg(name):
         try:
-            wide["info"] = _build.build(verbose=True,
-                                        names=("wide", "many"))
+            built[name] = _build.build(verbose=True, names=(name,))
         except BaseException as e:        # raised again at the join
-            wide["error"] = e
+            built[name] = e
 
-    thread = threading.Thread(target=build_wide, daemon=True)
-    thread.start()
+    threads = {n: threading.Thread(target=build_bg, args=(n,), daemon=True)
+               for n in ("wide", "many")}
+    for thread in threads.values():
+        thread.start()
     info = _build.build(verbose=True, names=("core",))
     _build.load("core")
     log(f"phase 1 build: core library built={info['built']} nvcc "
@@ -914,20 +924,19 @@ def phase_build():
     _log_ptxas(info)
     occupancy_report("core")
 
-    def join():
+    def join(name):
         t1 = time.perf_counter()
-        thread.join()
-        if "error" in wide:
-            raise wide["error"]
-        _build.load("wide")
-        _build.load("many")
-        log(f"phase 1 build: wide and many libraries built="
-            f"{wide['info']['built']} nvcc {wide['info']['seconds']:.2f}s, "
-            f"waited {time.perf_counter() - t1:.2f}s for them after phase "
-            f"2's core checks")
-        _log_ptxas(wide["info"])
-        occupancy_report("wide")
-        occupancy_report("many")
+        threads[name].join()
+        if isinstance(built[name], BaseException):
+            raise built[name]
+        _build.load(name)
+        after = "core" if name == "wide" else "J = 5..16"
+        log(f"phase 1 build: {name} library built={built[name]['built']} "
+            f"nvcc {built[name]['seconds']:.2f}s, waited "
+            f"{time.perf_counter() - t1:.2f}s for it after phase 2's "
+            f"{after} checks")
+        _log_ptxas(built[name])
+        occupancy_report(name)
     return join
 
 
@@ -943,18 +952,23 @@ def occupancy_report(lib):
     instantiations (with shared bytes, static and dynamic), eight at each J
     of library `lib` ("core": J = 2 to 8, with the three each of fb_stats
     and tw_stats and their tiled form at K_BIG, and the two of
-    estep_r1_real; "wide": J = 9 to 16); "many": the eight of each of
-    csrc/estep_many.cu's frames and sums kernels. The ones a path takes
-    are marked."""
+    estep_r1_real; "wide": J = 9 to 16); "many": the eight of
+    csrc/estep_many.cu's fused kernel at MANY_PATH's J (its shared bytes
+    set by J), and of its segments' second pass and its chunked route's
+    frames and sums kernels (no J in their resources). The ones a path
+    takes are marked."""
     import itertools
     from pyfasst_tpu_torch.ops import _build
     from pyfasst_tpu_torch.ops.cuda_estep import GENERAL_J
     path = {v: k for k, v in GENERAL_PATH_INSTANCES.items()}
     if lib == "many":
-        for which, name in enumerate(("frames", "sums")):
+        J_ = MANY_PATH[1]
+        for which, name in ((2, f"fused J={J_}"), (3, "segments"),
+                            (0, "chunked frames"), (1, "chunked sums")):
             cells = []
             for rmax, real, ns in itertools.product((1, 2), (0, 1), (0, 1)):
-                i = _build.kernel_info("estep_many", which, rmax, real, ns)
+                i = _build.kernel_info("estep_many", which, J_, rmax, real,
+                                       ns)
                 tag = "[twenty]" if (rmax, real, ns) == (1, 1, 0) else ""
                 cells.append(f"R{rmax}{'real' if real else 'cplx'}"
                              f"{'+ns' if ns else ''}{tag} "
@@ -1446,9 +1460,12 @@ def general_numbers(device, B, J_, F, N, ranks, real, ns, seed=None):
     """csrc/estep_many.cu (through estep_general, J_ past 16) at (B, J_, F,
     N) against its plain version at phase 2's bars, two runs bit for bit
     (xi too), timed in turns (_turns: the kernel by CUDA-graph replay),
-    with its bound, float32 floor without FMA, its frames per chunk, and
-    registers, spill and warps per SM of its frames and sums kernels; logs
-    one line. Returns the numbers."""
+    with its bound, float32 floor without FMA, its plan (cuda_estep.
+    many_plan: route, tiles and segments or chunks, scratch bytes a
+    call), each of its kernels' device ms a call (kernel_split, a traced
+    CUDA-graph replay), and registers, spill and warps per SM of its route's
+    kernels (fused and segments, or frames and sums); logs one line.
+    Returns the numbers."""
     import torch
     from pyfasst_tpu_torch.ops import _build, cuda_estep
     tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
@@ -1469,10 +1486,15 @@ def general_numbers(device, B, J_, F, N, ranks, real, ns, seed=None):
     kern, plain = _turns(lambda: cuda_estep.estep_general(*inp, ranks, **kw),
                          lambda: cuda_estep.estep_ref(*inp, ranks, **kw),
                          plain_reps=2, plain_inner=1)
+    split = kernel_split(lambda: cuda_estep.estep_general(*inp, ranks, **kw))
+    if sum(split.values()) < 0.9 * statistics.median(kern):
+        split = None      # the trace missed launches: not measured
+    plan = cuda_estep.many_plan(B, J_, F, N, max(ranks), real)
     ops = general_ops(inp, ranks, **kw)
     b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
-    args = (max(ranks), int(real), int(ns))
-    res = [_build.kernel_info("estep_many", w, *args) for w in (0, 1)]
+    args = (J_, max(ranks), int(real), int(ns))
+    res = [_build.kernel_info("estep_many", w, *args)
+           for w in ((2, 3) if plan["route"] == "fused" else (0, 1))]
     nums = {"max_abs_err": abs_err, "shape": [B, J_, F, N],
             "ranks": list(ranks), "real_cov": real, "ns_inj": ns,
             "ms": statistics.median(kern), "ms_min": min(kern),
@@ -1481,9 +1503,9 @@ def general_numbers(device, B, J_, F, N, ranks, real, ns, seed=None):
             "nofma_floor_ms": ops / FP32_NOFMA_OPS_PER_S * 1e3,
             "registers": [r["registers"] for r in res],
             "local_bytes": [r["local_bytes"] for r in res],
-            "warps_per_sm": [r["warps_per_sm"] for r in res], "errs": errs,
-            "chunk": _build.load("many").pyfasst_estep_many_chunk(
-                J_, F, N, max(ranks), int(real))}
+            "warps_per_sm": [r["warps_per_sm"] for r in res],
+            "shared_bytes": [r["shared_bytes"] for r in res], "errs": errs,
+            "split_ms": split, "plan": plan}
     log(f"phase 2 estep J={J_} ranks {sorted(set(ranks))} real_cov={real} "
         f"ns_inj={ns} B={B} F={F} N={N}: "
         + " ".join(f"{n} {e:.2e}<={tol[n]:.0e}" for n, e in errs.items())
@@ -1493,17 +1515,29 @@ def general_numbers(device, B, J_, F, N, ranks, real, ns, seed=None):
         f"{ops / 1e9:.3f} Gop; without FMA {nums['nofma_floor_ms']:.4f} ms) "
         f"| two runs bit for bit, xi bit for bit | registers "
         f"{nums['registers']}, local bytes {nums['local_bytes']}, warps an "
-        f"SM {nums['warps_per_sm']} | {nums['chunk']} frames a chunk")
+        f"SM {nums['warps_per_sm']}, shared bytes {nums['shared_bytes']} "
+        f"({'fused, segments' if plan['route'] == 'fused' else 'frames, sums'}"
+        f") | {plan['route']}: {plan['frames']} frames a "
+        + (f"tile, {plan['segments']} segments a row of {plan['tiles']} "
+           f"tiles" if plan["route"] == "fused"
+           else f"chunk, {plan['segments']} chunks")
+        + f", {plan['blocks']} blocks | device ms a call by kernel "
+        f"(profiler) " + (", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                          if split else "not measured (the trace missed "
+                          "launches)")
+        + f" | scratch {plan['workspace_bytes'] / 1e6:.1f} MB a call")
     if bad:
         raise RuntimeError(f"the E-step kernel at J = {J_} disagrees with "
                            f"its plain version at B={B} F={F} N={N}: {bad}")
     return nums
 
 
-def many_table():
+def many_table(shapes=None):
     """PERF.md row 1g''': csrc/estep_many.cu at the bench shape (BATCH, J,
     513, 863) for each J of MANY_TABLE_J, real rank 1 and complex rank 2,
-    and at MANY_PATH, through general_numbers; the card's name and power
+    and at MANY_PATH, through general_numbers (which splits each call's
+    device time between its kernels and gives its scratch bytes), or at
+    `shapes`, (B, J, F, N, rank, real_cov) each; the card's name and power
     limit first. Writes chiprun_out/many_table.json. One card; run alone:
 
         python3 -c "import chip_smoke; chip_smoke.many_table()"
@@ -1517,13 +1551,11 @@ def many_table():
     info = _build.build(verbose=True, names=("many",))
     _log_ptxas(info)
     occupancy_report("many")
-    rows = []
-    for J_ in MANY_TABLE_J:
-        for ranks, real in (((1,) * J_, True), ((2,) * J_, False)):
-            rows.append(general_numbers(device, BATCH, J_, 513, 863, ranks,
-                                        real, False))
-    B, J_, F, N = MANY_PATH
-    rows.append(general_numbers(device, B, J_, F, N, (1,) * J_, True, False))
+    if shapes is None:
+        shapes = [(BATCH, J_, 513, 863, R, R == 1) for J_ in MANY_TABLE_J
+                  for R in (1, 2)] + [MANY_PATH + (1, True)]
+    rows = [general_numbers(device, B, J_, F, N, (R,) * J_, real, False)
+            for B, J_, F, N, R, real in shapes]
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out", "many_table.json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -1918,6 +1950,39 @@ def _profile(window, n):
     return {"wall_ms": wall * 1e3 / n, "enqueue_ms": enqueue * 1e3 / n,
             "busy_ms": busy / n if dev else None,
             "kernels": len(dev) / n if dev else None}
+
+
+def kernel_split(fn, n=5):
+    """{kernel: device ms per call of fn()} from one replay of n calls
+    captured in a CUDA graph, traced by torch.profiler, by the kernel's
+    name without its namespace and template arguments: how a call's
+    device time splits between the kernels it launches. (A trace of eager
+    calls can miss launches once a process has traced before.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                      # warm-up off the capture, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+)(<[^()]*>)?\(", e.name)
+        key = m.group(1) if m else e.name
+        out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    return out
 
 
 def gem_window(params, X, cfg, start=60, stop=80):
@@ -4582,15 +4647,16 @@ def main() -> int:
     torch.cuda.set_device(device)
     t0 = time.perf_counter()
     card = phase_machine(device)
-    join_wide = phase_build()
+    join = phase_build()
     main_abs, erb_kernel = phase_kernel_vs_plain(device)
     general = phase_general_vs_plain(device)
     ef, f_launches = phase_variants_ef(device)
     spectral = phase_spectral_vs_plain(device)
     stream_kernel = stream_kernel_check(device)
     cli_nums = phase_cli_shapes(device)
-    join_wide()
+    join("wide")
     wide = phase_wide_vs_plain(device)
+    join("many")
     many_path = phase_many_vs_plain(device)
     _reset_counts()
     launches = phase_host_api(device, DUR, NITER)
@@ -4766,9 +4832,9 @@ def main() -> int:
               f"real_cov=True, ns_inj=False)", five["twenty"]["a"],
               many_path),
         shape=many_path["shape"], nofma_floor_ms=many_path["nofma_floor_ms"],
-        registers_frames_sums=many_path["registers"],
-        local_bytes_frames_sums=many_path["local_bytes"],
-        frames_a_chunk=many_path["chunk"],
+        registers=many_path["registers"],
+        local_bytes=many_path["local_bytes"], plan=many_path["plan"],
+        split_ms=many_path["split_ms"],
         launches_from="phase 19 (d)"))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

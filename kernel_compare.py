@@ -26,17 +26,20 @@ at the speech pool and the music coarse stage, and its WIDE_CASES (J = 5
 to 16; a side whose wrapper refuses a J skips it) at the bench shape and
 at phase 19's path shapes, and csrc/estep_many.cu (J at run time) at
 (8, J, 513, 863) for each J of chip_smoke.MANY_TABLE_J, real rank 1 and
-complex rank 2, and at chip_smoke.MANY_PATH; fb_stats and tw_stats at the
+complex rank 2, at chip_smoke.MANY_PATH and at (1, 61, 513, 863) real
+rank 1 (its chunked route); fb_stats and tw_stats at the
 bench shape (B = 8,
 J = 2, F = 513, N = 863, K = 8) and at B = 1, and the same at each K of
 chip_smoke.K_BIG (40 and 64: the tiled kernel past 32). The sides run in
 turns, forward and then backward (this, parent, parent, this), --rounds
 times; a kernel's figure is the median of its side's samples. Each side
 also hashes the bits of each kernel's outputs on its (seeded) inputs, and
-the table says whether every other side's bits equal this checkout's.
-Prints the card (nvidia-smi name and power limit), one line per side and
-run, and a table of medians; writes every sample to
-chiprun_out/kernel_compare.json.
+the table says whether every other side's bits equal this checkout's, and
+for the E-step whether xi's do (the frame sums may differ in their last
+bits when a side changes their order).
+--only TEXT keeps the cases whose name holds TEXT. Prints the card
+(nvidia-smi name and power limit), one line per side and run, and a table
+of medians; writes every sample to chiprun_out/kernel_compare.json.
 Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -152,6 +155,9 @@ def cases(smoke, device):
             for R in (1, 2)]
     many.append((smoke.MANY_PATH[:1] + smoke.MANY_PATH[2:],
                  smoke.MANY_PATH[1], (1,) * smoke.MANY_PATH[1], True))
+    # and its chunked route at real mixing: J = 61 real rank 1 at B = 1,
+    # past the fused route's last J at any rank and mixing
+    many.append(((1, 513, 863), 61, (1,) * 61, True))
     for shape, J_, ranks, real in many:
         tol = dict(smoke.TOL, xi=3e-4 if max(ranks) == 2 else smoke.TOL["xi"])
         g_inp = smoke._general_inputs(shape[0], J_, *shape[1:], ranks, real,
@@ -186,7 +192,7 @@ def _bits(outputs):
     return h.hexdigest()[:16]
 
 
-def run_side(name, directory, reps):
+def run_side(name, directory, reps, only=()):
     """One side, in this process: build, check, time; prints one JSON
     line of {"side", "build_s", "ms": {case: samples}, "err": {case:
     error over bar}, "bits": {case: hash of the outputs}, "info": {kernel:
@@ -201,7 +207,7 @@ def run_side(name, directory, reps):
     info = _build.build()
     result = {"side": name, "dir": str(directory),
               "build_s": info["seconds"], "ms": {}, "err": {}, "bits": {},
-              "info": {}}
+              "xi_bits": {}, "info": {}}
     for label, kernel, args in (
             ("estep_r1_real", "estep_r1_real", (smoke.J,)),
             ("tw_stats", "tw_stats", (smoke.K, 513))) + tuple(
@@ -212,12 +218,16 @@ def run_side(name, directory, reps):
         except AttributeError:
             result["info"][label] = None
     for case, kernel, plain, tol in cases(smoke, device):
+        if only and not any(t in case for t in only):
+            continue
         try:
             got = kernel()
         except NotImplementedError:
             continue
         err = _within(smoke, got, plain(), tol)
         result["bits"][case] = _bits(got)
+        if tol is not None:     # the E-step: xi has no sum in it
+            result["xi_bits"][case] = _bits(got[:1])
         if not err <= 1.0:
             raise RuntimeError(f"{name}: {case} disagrees with its plain "
                                f"version ({err:.2f} of its bar)")
@@ -252,11 +262,14 @@ def main() -> int:
                     metavar=("NAME", "FILE", "OLD", "NEW"))
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--reps", type=int, default=11)
+    ap.add_argument("--only", action="append", default=[], metavar="TEXT",
+                    help="time only the cases whose name contains TEXT "
+                    "(repeatable)")
     ap.add_argument("--side", nargs=2, metavar=("NAME", "DIR"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.side:
-        run_side(*args.side, args.reps)
+        run_side(*args.side, args.reps, args.only)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -275,7 +288,8 @@ def main() -> int:
     for name, directory in order:
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--side", name,
-             str(directory), "--reps", str(args.reps)],
+             str(directory), "--reps", str(args.reps)]
+            + [a for t in args.only for a in ("--only", t)],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -290,19 +304,37 @@ def main() -> int:
     names = [n for n, _ in sides]
     table = {n: {} for n in names}
     bits = {n: {} for n in names}
+    xi_bits = {n: {} for n in names}
     for res in runs:
         for c, m in res["ms"].items():
             table[res["side"]].setdefault(c, []).extend(m)
             bits[res["side"]].setdefault(c, set()).add(res["bits"][c])
+            if c in res.get("xi_bits", {}):
+                xi_bits[res["side"]].setdefault(c, set()).add(
+                    res["xi_bits"][c])
+
+    def equal(kind, n, c):
+        return ("-" if c not in kind[n] or c not in kind["this"] else
+                str(kind[n][c] == kind["this"][c] and len(kind[n][c]) == 1))
+
+    def ratio(n, c):
+        if c not in table[n]:
+            return "-"
+        r = statistics.median(table["this"][c]) / statistics.median(
+            table[n][c])
+        return f"{r:.3f}"
+
     print("median ms by CUDA-graph replay | " + " | ".join(names)
-          + " | bits equal this side's (" + ", ".join(names[1:]) + ")")
+          + " | bits equal this side's (" + ", ".join(names[1:])
+          + ") | xi's bits equal (E-step) | this side's time over ("
+          + ", ".join(names[1:]) + ")")
     for c in table["this"]:
-        same = ["-" if c not in bits[n] else
-                str(bits[n][c] == bits["this"][c] and len(bits[n][c]) == 1)
-                for n in names[1:]]
         print(f"{c} | " + " | ".join(
             f"{statistics.median(table[n][c]):.4f}" if c in table[n]
-            else "-" for n in names) + " | " + ", ".join(same))
+            else "-" for n in names) + " | "
+            + ", ".join(equal(bits, n, c) for n in names[1:]) + " | "
+            + ", ".join(equal(xi_bits, n, c) for n in names[1:]) + " | "
+            + ", ".join(ratio(n, c) for n in names[1:]))
     out = ROOT / "chiprun_out" / "kernel_compare.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps({"card": smoke.smi(), "order": [

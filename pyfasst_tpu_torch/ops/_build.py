@@ -181,10 +181,12 @@ def load(name: str = "core") -> ctypes.CDLL:
         # B J F N rmax real_cov
         lib.pyfasst_estep_many_workspace.argtypes = [i] * 6
         lib.pyfasst_estep_many_workspace.restype = ctypes.c_longlong
-        lib.pyfasst_estep_many_chunk.argtypes = [i] * 5   # J F N rmax real
-        lib.pyfasst_estep_many_chunk.restype = i
-        # which (0 frames, 1 sums) rmax real_cov ns_inj; out
-        lib.pyfasst_estep_many_info.argtypes = [i] * 4 + [p]
+        # B J F N rmax real_cov; out (6 long longs)
+        lib.pyfasst_estep_many_plan.argtypes = [i] * 6 + [p]
+        lib.pyfasst_estep_many_plan.restype = i
+        # which (0 frames, 1 sums, 2 fused, 3 segments) J rmax real_cov
+        # ns_inj; out
+        lib.pyfasst_estep_many_info.argtypes = [i] * 5 + [p]
         lib.pyfasst_estep_many_info.restype = i
         _libs[name] = lib
         return lib
@@ -236,8 +238,10 @@ def kernel_info(name: str, *args: int) -> dict:
     the launch's dynamic bytes for the general E-step and tw_stats).
 
     name is "estep_j{J}" (J in cuda_estep.GENERAL_J) with args (rmax,
-    real_cov, ns_inj), "estep_many" with args (which, rmax, real_cov,
-    ns_inj), which 0 its frames kernel, 1 its sums kernel,
+    real_cov, ns_inj), "estep_many" with args (which, J, rmax, real_cov,
+    ns_inj), which 0 and 1 its chunked route's frames and sums kernels, 2
+    its fused kernel (with its dynamic shared bytes at J sources), 3 the
+    fused route's second pass over segments,
     "estep_r1_real" with args (J,), "fb_stats" with args (K,), or
     "tw_stats" with args (K, F). Needs a CUDA device.
     """

@@ -14,6 +14,9 @@ ops/_build.py:
                                            variant a's model at J = 4-16)
                     csrc/estep_many.cu     the same at J = 1 and any J >=
                                            17, J an argument of the launch
+                                           (fused up to J = 48-93 by rank
+                                           and mixing, chunked past it;
+                                           many_plan)
 
 Both take the flags fast_recip (variant e: approximate reciprocals with a
 Newton step, csrc/recip.cuh) and no_ll (variant f: the loglik without
@@ -557,17 +560,19 @@ def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
                 *ins, *outs, B, F, N, rank_mask, Rmax, int(real_cov),
                 int(ns_inj), *flags, stream)
     else:
-        # the rows' constants and a chunk of frames' features, in here
+        # the fused route's partial sums of a row's segments (none for one
+        # segment), or the chunked route's row constants and a chunk of
+        # frames' features (many_plan)
         words = lib.pyfasst_estep_many_workspace(B, J, F, N, Rmax,
                                                  int(real_cov))
         if words < 0:
             raise NotImplementedError(
                 f"the E-step kernel cannot take (B, J, F, N) = {(B, J, F, N)}"
                 " (a launch's grid past 2^31 blocks)")
-        ws = torch.empty((words,), **f32)
+        ws = torch.empty((words,), **f32) if words else None
         with torch.cuda.device(dev):
             err = lib.pyfasst_estep_many(
-                *ins, *outs, ws.data_ptr(), B, J, F, N,
+                *ins, *outs, ws.data_ptr() if words else None, B, J, F, N,
                 (ctypes.c_int * J)(*ranks), Rmax, int(real_cov), int(ns_inj),
                 *flags, stream)
     if err != 0:
@@ -576,6 +581,27 @@ def estep_general(x4, v, A4, sigma, ranks: Tuple[int, ...],
         + (["d"] if ns_inj else [])
     _count(variants or ["a"], fast_recip, no_ll)
     return xi, txs, tss, t4, t7, ll
+
+
+def many_plan(B: int, J: int, F: int, N: int, rmax: int,
+              real_cov: bool) -> dict:
+    """How csrc/estep_many.cu launches at this shape (its library, so a
+    card's machine): "route" "fused" (a block a segment of a row's tiles
+    of "frames" = 32, "segments" a row of "tiles" each, "shared_bytes" a
+    block) or "chunked" ("frames" a chunk, "segments" the chunks), the
+    main kernel's "blocks" and the scratch's "workspace_bytes". Set by
+    the shape alone."""
+    from pyfasst_tpu_torch.ops import _build
+    lib = _build.load("many")
+    out = (ctypes.c_longlong * 6)()
+    if lib.pyfasst_estep_many_plan(B, J, F, N, rmax, int(real_cov), out):
+        raise NotImplementedError(f"the E-step kernel cannot take (B, J, F,"
+                                  f" N) = {(B, J, F, N)}")
+    return {"route": ("fused", "chunked")[out[0]], "frames": out[1],
+            "segments": out[2], "tiles": out[3], "blocks": out[4],
+            "shared_bytes": out[5],
+            "workspace_bytes": 4 * lib.pyfasst_estep_many_workspace(
+                B, J, F, N, rmax, int(real_cov))}
 
 
 def kernel_eligible(ranks: Tuple[int, ...], real_cov: bool,

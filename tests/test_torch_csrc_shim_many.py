@@ -4,24 +4,27 @@ The source is compiled with g++ against the stand-in headers of
 tests/cuda_shim/ from a scratch copy rewritten as test_torch_csrc_shim.py
 rewrites the others (launches, dynamic shared memory, the approximate
 reciprocal's asm), and held against the plain version
-(cuda_estep.estep_ref) through its C entry point: at J = 17 (three tiles
-of sources for the sums kernel, the last of one source), 20, 24 (three
-whole tiles) and 33 (five, the last of one), at one source, real and
-complex mixing, ranks 1, 2 and mixed, noise injection and each flag, one
-frame and ragged frame edges (a last quad of 1 to 3 frames, a last
-staged turn of fewer than 32); and planes whose features outgrow one
-chunk (the frames kernel and the sums kernel run two or three times, the
-later chunks adding to the first's sums): for that the scratch copy's
-chunk budget, kChunkBytes, is cut from 256 MiB to SHIM_CHUNK_BYTES, so
-the chunks come at small planes (the card's tests cross the real one).
-xi has no sum in it and must equal the plain version's bits; two
-launches give the same bits. Bars: chip_smoke.py's (xi 2e-4, 3e-4 at
-rank 2; frame sums 5e-4 relative with a floor of 1e-3 of the output's
-largest entry; loglik 1e-4). Built with -ffp-contract=off,
-as nvcc builds with --fmad=false. A check of indexing, masking, barriers
-and the order of the sums, not of the card (tests/test_torch_cuda.py and
-chip_smoke.py phase 2 run it there). Skips where g++ or -std=c++20
-(std::barrier) is missing.
+(cuda_estep.estep_ref) through its C entry point. The fused route (a block
+a segment of a row's 32-frame tiles, everything of a tile in shared
+memory): at J = 17 (three leave-one-out runs, the last of one source), 20,
+24 and 33, at one source, real and complex mixing, ranks 1, 2 and mixed,
+noise injection and each flag, one frame and ragged frame edges (a last
+quad of 1 to 3 frames, a last tile of fewer than 32); rows whose tiles
+span several segments (the second pass adding their partials), with a
+ragged last tile; and J = 30 at complex rank 2, the last J the fused
+route takes there. The chunked route at J = 31, one past it: its chunk
+budget, kChunkBytes, is cut in the scratch copy from 256 MiB to
+SHIM_CHUNK_BYTES, so the chunks come at small planes (the frames kernel
+and the sums kernel run several times, the later chunks adding to the
+first's sums). The plan of each route (tiles, segments, chunks, shared
+bytes) at the card's shapes, from the shape alone. xi has no sum in it
+and must equal the plain version's bits; two launches give the same bits.
+Bars: chip_smoke.py's (xi 2e-4, 3e-4 at rank 2; frame sums 5e-4 relative
+with a floor of 1e-3 of the output's largest entry; loglik 1e-4). Built
+with -ffp-contract=off, as nvcc builds with --fmad=false. A check of
+indexing, masking, barriers and the order of the sums, not of the card
+(tests/test_torch_cuda.py and chip_smoke.py phase 2 run it there). Skips
+where g++ or -std=c++20 (std::barrier) is missing.
 """
 import ctypes
 import shutil
@@ -75,9 +78,17 @@ def lib(tmp_path_factory):
                                       + [i] * 2 + [p])
     so.pyfasst_estep_many_workspace.argtypes = [i] * 6
     so.pyfasst_estep_many_workspace.restype = ctypes.c_longlong
-    so.pyfasst_estep_many_chunk.argtypes = [i] * 5
-    so.pyfasst_estep_many_info.argtypes = [i] * 4 + [p]
+    so.pyfasst_estep_many_plan.argtypes = [i] * 6 + [p]
+    so.pyfasst_estep_many_info.argtypes = [i] * 5 + [p]
     return so
+
+
+def _plan(lib, B, J, F, N, rmax, real):
+    """The launch's plan: (route, frames a tile or chunk, segments or
+    chunks, tiles a segment, blocks, shared bytes a block)."""
+    out = (ctypes.c_longlong * 6)()
+    assert lib.pyfasst_estep_many_plan(B, J, F, N, rmax, int(real), out) == 0
+    return tuple(out)
 
 
 def _inputs(J, ranks, real, B, F, N):
@@ -106,10 +117,11 @@ def _run(lib, inp, ranks, real, ns, flag):
               (B, J, J, F, 2 * Rmax * Rmax), (B, F)]
     got = [torch.full(s, float("nan")) for s in shapes]
     words = lib.pyfasst_estep_many_workspace(B, J, F, N, Rmax, int(real))
-    assert words > 0
+    assert words >= 0
     ws = torch.full((words,), float("nan"))
     err = lib.pyfasst_estep_many(
-        *(t.data_ptr() for t in (x4, v, A4, sigma, *got, ws)), B, J, F, N,
+        *(t.data_ptr() for t in (x4, v, A4, sigma, *got)),
+        ws.data_ptr() if words else None, B, J, F, N,
         (ctypes.c_int * J)(*ranks), Rmax, int(real), int(ns),
         ctypes.c_float(1e-30), int(flag == "fast_recip"),
         int(flag == "no_ll"), None)
@@ -165,34 +177,91 @@ def test_many_source_twice_gives_the_same_bits(lib, case):
         assert torch.equal(g, a)
 
 
-# The chunk of frames: a clip's features of a chunk take at most
-# kChunkBytes of scratch (SHIM_CHUNK_BYTES, 1 MiB, here), in whole 32-frame
-# warps, the row's frames whole where they fit. At J = 17 complex rank 2 a
-# frame of a row has 294 features (1176 B): 9 rows of 96 frames fit one
-# chunk, 10 rows take 64 frames a chunk; at least one warp of frames.
-@pytest.mark.parametrize("J,F,N,rmax,real,chunk", [
-    (17, 9, 96, 2, 0, 96), (17, 10, 96, 2, 0, 64), (17, 2, 33, 1, 1, 64),
-    (20, 513, 863, 1, 1, 32), (48, 513, 863, 2, 0, 32)])
-def test_many_chunk_plan(lib, J, F, N, rmax, real, chunk):
-    assert lib.pyfasst_estep_many_chunk(J, F, N, rmax, real) == chunk
+# The plan, from the shape alone. Fused (route 0): tiles of 32 frames,
+# S = 2048 // (B F) segments a row, at most one per 4 tiles: phase 19
+# (d)'s path (1, 20, 513, 863), 27 tiles, 3 segments of 9, 1,539 blocks
+# of 24,824 shared bytes; B = 8 at complex rank 2, one segment of 27,
+# 4,104 blocks of 64,424. The last J the fused route takes at each rank
+# and mixing (60 real rank 1, 51 complex rank 1, 37 real rank 2, 30
+# complex rank 2: the tile's features, the row's constants and totals and
+# the owner table in at most 113 KB, so that two blocks share an SM), and
+# one past it, chunked (route 1: frames a chunk within SHIM_CHUNK_BYTES of
+# a clip's features here).
+FUSED_SMEM = 233472 // 2 - 1024
+FUSED_LAST = {(1, True): 60, (1, False): 51, (2, True): 37, (2, False): 30}
 
 
-# two chunks (64 and 29 frames) and three (64, 64, 22), the last ragged
-@pytest.mark.parametrize("N,flag", [(93, ""), (150, "no_ll")])
-def test_many_source_over_chunks(lib, N, flag):
-    J, ranks, real, ns, B, F = 17, (2,) * 17, False, False, 1, 10
-    assert lib.pyfasst_estep_many_chunk(J, F, N, 2, 0) == 64
+@pytest.mark.parametrize("shape,rmax,real,plan", [
+    ((1, 20, 513, 863), 1, True, (0, 32, 3, 9, 1539, 24824)),
+    ((8, 20, 513, 863), 2, False, (0, 32, 1, 27, 4104, 64424)),
+    ((1, 17, 1, 300), 2, False, (0, 32, 2, 5, 2, None)),
+    ((2, 20, 1, 271), 1, True, (0, 32, 2, 5, 4, None))])
+def test_many_fused_plan(lib, shape, rmax, real, plan):
+    got = _plan(lib, *shape, rmax, real)
+    assert got[:5] == plan[:5] and got[5] == (plan[5] or got[5])
+    B, J, F, N = shape
+    words = lib.pyfasst_estep_many_workspace(B, J, F, N, rmax, int(real))
+    # the partials of a row's segments, none at one segment
+    assert (words == 0) == (plan[2] == 1) and words >= 0
+
+
+@pytest.mark.parametrize("rmax,real", sorted(FUSED_LAST))
+def test_many_route_crossover(lib, rmax, real):
+    J = FUSED_LAST[rmax, real]
+    last = _plan(lib, 1, J, 513, 863, rmax, real)
+    past = _plan(lib, 1, J + 1, 513, 863, rmax, real)
+    assert last[0] == 0 and last[5] <= FUSED_SMEM
+    assert past[0] == 1 and past[1] % 32 == 0 and past[5] == 0
+
+
+# rows whose tiles span two segments (the second pass adds the partials in
+# segment order), the last tile ragged: 300 frames = 9 tiles and 12
+# frames (segments of 5 and 5 tiles), 271 = 8 tiles and 15 (5 and 4)
+SEGMENTED = [(17, (2,) * 17, False, False, "", 1, 1, 300),
+             (20, (1,) * 20, True, False, "no_ll", 2, 1, 271)]
+
+
+@pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", SEGMENTED)
+def test_many_source_over_segments(lib, J, ranks, real, ns, flag, B, F, N):
+    assert _plan(lib, B, J, F, N, max(ranks), real)[2] == 2
     inp = _inputs(J, ranks, real, B, F, N)
     _check(_run(lib, inp, ranks, real, ns, flag), inp, ranks, real, ns, flag)
 
 
+def test_many_segments_twice_give_the_same_bits(lib):
+    J, ranks, real, ns, flag, B, F, N = SEGMENTED[1]
+    inp = _inputs(J, ranks, real, B, F, N)
+    got = _run(lib, inp, ranks, real, ns, flag)
+    for g, a in zip(got, _run(lib, inp, ranks, real, ns, flag)):
+        assert torch.equal(g, a)
+
+
+# complex rank 2 at the crossover: J = 30 fused, J = 31 chunked (F = 8
+# rows of 532 features a frame: 32-frame chunks within 1 MiB, two of them,
+# the second of one frame)
+@pytest.mark.parametrize("J,route,F,N", [(30, 0, 1, 33), (31, 1, 8, 33)])
+def test_many_source_at_the_crossover(lib, J, route, F, N):
+    ranks = (2,) * J
+    plan = _plan(lib, 1, J, F, N, 2, False)
+    assert plan[0] == route and plan[2] == (1 if route == 0 else 2)
+    inp = _inputs(J, ranks, False, 1, F, N)
+    _check(_run(lib, inp, ranks, False, True, ""), inp, ranks, False, True,
+           "")
+
+
 def test_many_refuses_what_it_cannot_take(lib):
     out = (ctypes.c_int * 4)()
-    for which in (0, 1):
+    for which in (0, 1, 2, 3):
         for rmax in (1, 2):
-            assert lib.pyfasst_estep_many_info(which, rmax, 0, 1, out) == 0
-    assert lib.pyfasst_estep_many_info(2, 1, 0, 0, out) != 0
-    assert lib.pyfasst_estep_many_info(0, 3, 0, 0, out) != 0
+            assert lib.pyfasst_estep_many_info(which, 20, rmax, 0, 1,
+                                               out) == 0
+    assert lib.pyfasst_estep_many_info(4, 20, 1, 0, 0, out) != 0
+    assert lib.pyfasst_estep_many_info(0, 20, 3, 0, 0, out) != 0
+    # the fused kernel's info at a J it does not take
+    assert lib.pyfasst_estep_many_info(2, 31, 2, 0, 0, out) != 0
+    plan = (ctypes.c_longlong * 6)()
+    assert lib.pyfasst_estep_many_plan(1, 4097, 1, 1, 1, 1, plan) != 0
+    assert lib.pyfasst_estep_many_plan(1, 17, 0, 1, 1, 1, plan) != 0
     assert lib.pyfasst_estep_many_workspace(1, 4097, 1, 1, 1, 1) == -1
     assert lib.pyfasst_estep_many_workspace(1, 17, 1, 1, 3, 1) == -1
     assert lib.pyfasst_estep_many_workspace(0, 17, 1, 1, 1, 1) == -1

@@ -247,13 +247,18 @@ def test_general_kernel_matches_plain_version(dev, name, B, F, N):
         assert torch.equal(g, a)
 
 
-# csrc/estep_many.cu, J at run time: one source, J = 17 (three tiles of
-# sources in the sums kernel, the last of one), 24 (three whole tiles), 32
-# and 48; every variant among the cases; one frame, ragged quads and
-# 32-frame turns, B = 2; (1, 513, 500) at J = 17 rank 2 outgrows one
-# chunk of frames' features (256 MiB): two chunks, 416 and 84 frames. xi
-# equals the plain version's bits (no fast_recip), two launches give the
-# same bits.
+# csrc/estep_many.cu, J at run time: one source, J = 17 (three leave-one-out
+# runs, the last of one source), 24 (three whole runs), 32 and 48; every
+# variant among the cases; one frame, ragged quads and 32-frame tiles,
+# B = 2; (1, 513, 500) at J = 17 rank 2 splits each row's 16 tiles into 3
+# segments of the fused route (the second pass adds their partials). The
+# chunked route past the fused route's last J (MANY_FUSED_LAST, by rank
+# and mixing): J = 32 and 48 at complex rank 2, and at (1, 513, 500) J =
+# 49 complex rank 2 and J = 94 real rank 1, whose features outgrow one
+# chunk (256 MiB a clip): 4 and 3 chunks. xi equals the plain version's
+# bits (no fast_recip), two launches give the same bits.
+MANY_FUSED_LAST = {(1, True): 60, (1, False): 51, (2, True): 37,
+                   (2, False): 30}
 MANY = [(1, (1,), True, False, "", 1, 5, 33),
         (17, (1,) * 17, True, False, "", 1, 33, 70),
         (17, (2,) * 17, False, False, "", 2, 9, 45),
@@ -264,16 +269,22 @@ MANY = [(1, (1,), True, False, "", 1, 5, 33),
         (32, (1,) * 32, True, False, "", 2, 9, 129),
         (32, (2,) * 32, False, True, "fast_recip", 1, 5, 31),
         (48, (1,) * 48, False, False, "", 1, 5, 33),
-        (48, (2, 1) * 24, False, False, "no_ll", 1, 3, 40)]
+        (48, (2, 1) * 24, False, False, "no_ll", 1, 3, 40),
+        (49, (2,) * 49, False, False, "", 1, 513, 500),
+        (94, (1,) * 94, True, False, "", 1, 513, 500)]
 
 
 @pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", MANY)
 def test_many_kernel_matches_plain_version(dev, J, ranks, real, ns, flag, B,
                                            F, N):
-    from pyfasst_tpu_torch.ops import _build
-    chunk = _build.load("many").pyfasst_estep_many_chunk(J, F, N, max(ranks),
-                                                         int(real))
-    assert chunk == (416 if N == 500 else -(-N // 32) * 32)
+    plan = cuda_estep.many_plan(B, J, F, N, max(ranks), real)
+    if J <= MANY_FUSED_LAST[max(ranks), real]:
+        assert plan["route"] == "fused"
+        assert plan["segments"] == (3 if N == 500 else 1)
+    else:
+        assert plan["route"] == "chunked"
+        assert plan["segments"] == (-(-N // plan["frames"]))
+        assert plan["segments"] == ({49: 4, 94: 3}[J] if N == 500 else 1)
     inp = _general_inputs(B, J, F, N, ranks, real, B * F * N + J, dev)
     kw = dict(ns_inj=ns, real_cov=real)
     fl = {flag: True} if flag else {}
