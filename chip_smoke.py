@@ -46,10 +46,10 @@ Phases (each prints one line with its numbers and seconds):
      mixed ranks and ns_inj at J = 5) at the bench shapes, two runs bit
      for bit, timed with registers and spill, and at a ragged one, and at
      phase 19's path shapes; every variant at each J of 9 to 16 at a
-     ragged shape (many_variants), two runs bit for bit; the same for
-     csrc/estep_many.cu at J = 1, 17, 24, 32, 48 and 61 (MANY_KERNEL_J;
-     its chunked route at rank 2 past J = 30 and at J = 61), xi
-     bit for bit, and at phase 19 (d)'s path shape (1, 20, 513, 863),
+     ragged shape (many_variants), two runs bit for bit, xi bit for
+     bit; the same for csrc/estep_many.cu at J = 1, 17, 24, 32, 48 and
+     61 (MANY_KERNEL_J; its chunked route at rank 2 past J = 30 and at
+     rank 1 at J = 61), and at phase 19 (d)'s path shape (1, 20, 513, 863),
      timed with its bound, floor, registers and spill, its plan (fused:
      tiles, segments, shared bytes), its scratch bytes a call and each
      of its kernels' device ms a call (profiler); fb_stats
@@ -428,12 +428,15 @@ WIDE_RAGGED = (1, 33, 70)
 # WIDE_RAGGED, two runs bit for bit: complex rank 1 with fast_recip (b, e),
 # mixed ranks with no_ll (c, f), ns_inj at ranks 1 and 2 (d); at the J
 # that no case of WIDE_CASES times (11, 13, 14, 15) also real rank 1 (a)
-# and complex rank 2 (c). The same at each J of MANY_KERNEL_J, which
-# csrc/estep_many.cu takes (J at run time), and xi bit for bit there: its
-# fused route in every variant at J = 1, 17 and 24 and at rank 1 at J =
-# 32 and 48, its chunked route at rank 2 at J = 32 and 48 (past the fused
-# route's last J there, 30 at complex mixing) and in every variant at J =
-# 61 (past the fused route's last J at any rank and mixing)
+# and complex rank 2 (c); xi bit for bit but with fast_recip. The same at
+# each J of MANY_KERNEL_J, which csrc/estep_many.cu takes (J at run time):
+# its fused route in every variant at J = 1, 17 and 24 and at rank 1 at
+# J = 32 and 48, its chunked route at rank 2 at J = 32 and 48 (past the
+# fused route's last J there, 30 at complex mixing; ranks 2 and mixed,
+# no_ll, ns_inj) and at rank 1 at J = 61 (past the fused route's last J
+# at any rank and mixing: a, b with fast_recip, d). J = 61's plain
+# version is these checks' costly part (~27 s for six variants),
+# so its rank-2 variants, whose route J = 32 and 48 check, are left out
 MANY_J = tuple(range(9, 17))
 MANY_KERNEL_J = (1, 17, 24, 32, 48, 61)
 # csrc/estep_many.cu at phase 19 (d)'s path, `separate --sources 20`:
@@ -1079,31 +1082,156 @@ def count_ops(fn, *args, **kw) -> int:
 
 def general_ops(inp, ranks, **kw) -> int:
     """Operations of one general E-step on inputs `inp`: those of its plain
-    version (count_ops), less the ones estep_ref spends on Tss_jk for
-    j > k, which the function does not need: the kernel takes them from
-    Tss_kj, since Tss_jk = Tss_kj^H bit for bit. That part is counted by
-    repeating estep_ref's Tss products and sums for one (j > k, r, s)
-    pair, with its own helpers, on tensors of the input's (B, F, N)."""
-    import torch
+    version (count_ops), with its frame sums (Txs, Tss, T7) counted as the
+    function needs them rather than as estep_ref forms them (_frame_sums).
+    estep_ref forms, per frame, v_j v_k and every product of Tss_jk and
+    T7_jk for each (j, k, r, s), T7's as conj(A_jr) . Sigma_x^-1 A_ks, and
+    Tss_jk for j > k too. The function needs, per frame, u_jr = v_j w_jr
+    and y_jr = v_j z_jr (z_jr = Sigma_x^-1 A_jr) once per source column;
+    Txs_j the frame sums of x conj(u_jr) (and of y_jr with ns_inj, times
+    sigma once a row); Tss_jk for j <= k only (Tss_kj is its conjugate),
+    the frame sums of u_jr conj(u_ks) (and of y_jr^H y_ks, times sigma once
+    a row); T7_jk (j != k) A_jr^H times the frame sums of v_j y_ks, that
+    product once a row."""
     from pyfasst_tpu_torch.ops import cuda_estep as ce
-    ops = count_ops(ce.estep_ref, *inp, ranks, **kw)
-    B, _, F, N = inp[1].shape
+    return (count_ops(ce.estep_ref, *inp, ranks, **kw)
+            - _frame_sums(ce, inp, ranks, False, **kw)
+            + _frame_sums(ce, inp, ranks, True, **kw))
+
+
+# the general E-step's shapes in PERF.md's kernel table (rows 1b-1g'''):
+# (row, B, J, F, N, ranks, real_cov, ns_inj)
+BOUND_SHAPES = tuple(
+    ("1b", B, 3, F, N, (1,) * 3, False, False)
+    for B, F, N in ((8, 513, 863), (1, 513, 189), (4, 513, 256))) + (
+    ("1b stream", 1, 2, 513, 64, (1, 1), False, False),) + tuple(
+    ("1c", B, 4, 513, N, ranks, False, False)
+    for B, N in ((8, 863), (1, 189), (8, 256), (24, 189))
+    for ranks in ((2,) * 4, (1, 2, 2, 1))) + tuple(
+    ("1c'", B, 3, F, N, (2,) * 3, False, False)
+    for B, F, N in ((24, 1025, 158), (66, 32, 158), (24, 1025, 260),
+                    (2, 1025, 260), (6, 4097, 66), (2, 4097, 66))) + tuple(
+    ("1d", B, J_, 513, N, (R,) * J_, False, True)
+    for J_, R in ((3, 1), (4, 2)) for B, N in ((8, 863), (1, 189))) + (
+    ("1g", 8, 5, 513, 863, (1, 2, 2, 1, 2), False, False),
+    ("1g", 8, 5, 513, 863, (1,) * 5, False, True),
+    ("1g", 1, 5, 513, 863, (1,) * 5, True, False),
+    ("1g", 1, 5, 513, 189, (2,) * 5, False, False)) + tuple(
+    (row, BATCH, J_, 513, 863, (R,) * J_, R == 1, False)
+    for row, js in (("1g", (5, 6, 7, 8)), ("1g''", (9, 10, 12, 16)),
+                    ("1g'''", MANY_TABLE_J))
+    for J_ in js for R in (1, 2)) + (
+    ("1g''", 1, 10, 513, 863, (1,) * 10, True, False),
+    ("1g'''",) + MANY_PATH + ((1,) * MANY_PATH[1], True, False))
+
+
+def bound_table(shapes=BOUND_SHAPES):
+    """Bound (ms, by what) and float32 floor without FMA of the general
+    E-step at each shape of `shapes` (BOUND_SHAPES: PERF.md's rows 1b-
+    1g'''), from general_ops and bound() on meta tensors: shapes alone, no
+    card. One JSON line a shape; ~5 min on one CPU core, half of it the
+    count at J = 32 rank 2:
+
+        python3 -c "import chip_smoke; chip_smoke.bound_table()"
+    """
+    import torch
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+    for row, B, J_, F, N, ranks, real, ns in shapes:
+        R = max(ranks)
+        inp = [meta(B, 4, F, N), meta(B, J_, F, N), meta(B, J_, F, 4 * R),
+               meta(B, F)]
+        outs = [meta(B, J_, F, N), meta(B, J_, F, 4 * R),
+                meta(B, J_, J_, F, 2 * R * R), meta(B, J_, F, 4),
+                meta(B, J_, J_, F, 2 * R * R), meta(B, F)]
+        ops = general_ops(inp, ranks, ns_inj=ns, real_cov=real)
+        b_ms, b_by, nbytes = bound(inp + outs, ops)
+        print(json.dumps({"row": row, "shape": [B, J_, F, N],
+                          "ranks": list(ranks), "real_cov": real,
+                          "ns_inj": ns, "gop": round(ops / 1e9, 4),
+                          "mb": round(nbytes / 1e6, 2),
+                          "bound_ms": round(b_ms, 4), "bound_by": b_by,
+                          "nofma_floor_ms": round(
+                              ops / FP32_NOFMA_OPS_PER_S * 1e3, 4)}),
+              flush=True)
+
+
+def _frame_sums(ce, inp, ranks, need, ns_inj=False, real_cov=False, **_):
+    """Operations of the general E-step's frame sums (Txs, Tss, T7) on
+    `inp`'s (B, F, N): estep_ref's, in its own forms (need False), or the
+    function's (need True; general_ops). Each kind of term is counted once
+    with estep_ref's helpers on meta tensors, times the number of (j, k, r,
+    s) that take it."""
+    import torch
+    B, J, F, N = inp[1].shape
     t = torch.empty((B, F, N), device="meta")
-    sig = torch.empty((B, F, 1), device="meta")
-    w = (t, t)                               # w_jr = A_jr^H y: complex
-    z = (t, None) if kw.get("real_cov") else (t, t)   # Sigma_x^-1 A_jr
+    col = torch.empty((B, F, 1), device="meta")
+    row = torch.empty((B, F), device="meta")
+    x = w = (t, t)                  # x0 or x1, and w_jr = A_jr^H y: complex
+    z = (t, None) if real_cov else (t, t)   # a channel of z_jr or y_jr
+    A, A_row, S = ((c, None) if real_cov else (c, c) for c in (col, row, row))
 
-    def pair():
-        pr = ce._cmul(w, ce._cconj(w))
-        if kw.get("ns_inj"):
-            zc = ce._cadd(ce._cdot_conj(z, z), ce._cdot_conj(z, z))
-            pr = ce._cadd(pr, ce._cscale(sig, zc))
-        for part in pr:
-            torch.sum(ce._m(t, part), dim=-1)
+    def rsum(*parts):
+        for p in parts:
+            if p is not None:
+                torch.sum(p, dim=-1)
 
-    lower = sum(ranks[j] * ranks[k] for j in range(len(ranks))
-                for k in range(j))
-    return ops - lower * count_ops(pair)
+    def row_sig(*parts):        # frame sums, times sigma once a row
+        for p in parts:
+            if p is not None:
+                row * torch.sum(p, dim=-1)
+
+    cols = sum(ranks)                           # source columns (j, r)
+    pairs = cols * cols                         # (j, k, r, s)
+    cross = pairs - sum(r * r for r in ranks)   # those with j != k
+    if not need:
+        def txs():
+            cw = ce._cconj(w)
+            p0, p1 = ce._cmul(x, cw), ce._cmul(x, cw)
+            if ns_inj:
+                p0 = ce._cadd(p0, ce._cscale(col, z))
+                p1 = ce._cadd(p1, ce._cscale(col, z))
+            rsum(*(ce._m(t, c) for c in p0 + p1))
+
+        def tss():
+            pr = ce._cmul(w, ce._cconj(w))
+            if ns_inj:
+                zc = ce._cadd(ce._cdot_conj(z, z), ce._cdot_conj(z, z))
+                pr = ce._cadd(pr, ce._cscale(col, zc))
+            rsum(ce._m(t, pr[0]), ce._m(t, pr[1]))
+
+        def t7():
+            m = ce._cadd(ce._cmul(ce._cconj(A), z),
+                         ce._cmul(ce._cconj(A), z))
+            rsum(ce._m(t, m[0]), ce._m(t, m[1]))
+        return (cols * count_ops(txs) + J * J * count_ops(lambda: t * t)
+                + pairs * count_ops(tss) + cross * count_ops(t7))
+
+    def scale():                # u_jr = v_j w_jr, y_jr = v_j z_jr
+        ce._cscale(t, w)
+        ce._cscale(t, z)
+        ce._cscale(t, z)
+
+    def txs():
+        rsum(*ce._cdot_conj(w, x), *ce._cdot_conj(w, x))
+        if ns_inj:
+            row_sig(*z, *z)
+
+    def tss():
+        rsum(*ce._cdot_conj(w, w))
+        if ns_inj:
+            row_sig(*ce._cadd(ce._cdot_conj(z, z), ce._cdot_conj(z, z)))
+
+    def t7_frames():            # sum_n v_j y_ks, both channels
+        rsum(*(ce._m(t, p) for p in z + z))
+
+    def t7_row():               # A_jr^H times those sums, once a row
+        ce._cadd(ce._cdot_conj(A_row, S), ce._cdot_conj(A_row, S))
+    return (cols * (count_ops(scale) + count_ops(txs))
+            + (2 * pairs - cross) // 2 * count_ops(tss)
+            + (J - 1) * cols * count_ops(t7_frames)
+            + cross * count_ops(t7_row))
 
 
 def bound(tensors, ops):
@@ -1341,7 +1469,8 @@ def phase_wide_vs_plain(device):
     """The general kernel at J = 5 to 16 (WIDE_CASES) against its plain
     version at the bench shapes (timed in turns, with its bound and
     float32 floor without FMA, two runs bit for bit), at phase 19's path
-    shape where it has one (timed too) and at WIDE_RAGGED. Returns the
+    shape where it has one (timed too) and at WIDE_RAGGED; past J = 8
+    (the WIDE kernel) xi bit for bit at each shape. Returns the
     bench-shape numbers by label, with "path" where timed there, and the
     launches of each case in this phase ("phase2_launches": checks,
     warm-ups and the timing's eager calls; replays do not count)."""
@@ -1364,15 +1493,20 @@ def phase_wide_vs_plain(device):
             torch.cuda.synchronize()
             errs, abs_err = _estep_errors(got, want)
             bad = [n for n, e in errs.items() if not e <= tol[n]]
+            if J_ > 8 and not torch.equal(got[0], want[0]):
+                bad.append("xi not bit for bit")
             timing = ""
             if (B, F, N) in timed:
                 again = cuda_estep.estep_general(*inp, ranks, **kw)
                 if not all(torch.equal(g, a) for g, a in zip(got, again)):
                     bad.append("two runs differ")
+                # one plain sample a turn: the plain version at J = 16
+                # rank 2 takes ~0.9 s a call, and these cases' plain
+                # calls are most of this phase's time
                 kern, plain = _turns(
                     lambda: cuda_estep.estep_general(*inp, ranks, **kw),
                     lambda: cuda_estep.estep_ref(*inp, ranks, **kw),
-                    plain_reps=2, plain_inner=1)
+                    plain_reps=1, plain_inner=1)
                 ops = general_ops(inp, ranks, **kw)
                 b_ms, b_by, nbytes = bound(list(inp) + list(got), ops)
                 nums = {"max_abs_err": abs_err, "shape": [B, F, N],
@@ -1421,6 +1555,8 @@ def phase_many_vs_plain(device):
     B, F, N = WIDE_RAGGED
     for J_ in MANY_J + MANY_KERNEL_J:
         for key, label, ranks, real, ns, flag in many_variants(J_):
+            if J_ == MANY_KERNEL_J[-1] and max(ranks) == 2:
+                continue    # rank 2's chunked route: J = 32 and 48
             tol = dict(TOL, xi=3e-4 if max(ranks) == 2 else TOL["xi"])
             kw = dict(ns_inj=ns, real_cov=real)
             inp = _general_inputs(B, J_, F, N, ranks, real,
@@ -1442,8 +1578,7 @@ def phase_many_vs_plain(device):
             bad = [n for n, e in errs.items() if not e <= tol[n]]
             if not same:
                 bad.append("two runs differ")
-            if J_ in MANY_KERNEL_J and flag != "fast_recip" \
-                    and not torch.equal(got[0], want[0]):
+            if flag != "fast_recip" and not torch.equal(got[0], want[0]):
                 bad.append("xi not bit for bit")
             if bad:
                 raise RuntimeError(f"the general kernel ({label}) disagrees "

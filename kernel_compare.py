@@ -24,7 +24,9 @@ kernel's GENERAL_CASES at the bench shape and at the conv paths' own
 (B = 1, F = 513, N = 189), 1c at the configs[2] bucket and blind pool, 1c'
 at the speech pool and the music coarse stage, and its WIDE_CASES (J = 5
 to 16; a side whose wrapper refuses a J skips it) at the bench shape and
-at phase 19's path shapes, and csrc/estep_many.cu (J at run time) at
+at phase 19's path shapes, every J of 9 to 16 at real rank 1, complex
+rank 1, complex rank 2 and real rank 2 and with ns_inj at complex rank 1
+and 2 at the bench shape ("1g''"), and csrc/estep_many.cu (J at run time) at
 (8, J, 513, 863) for each J of chip_smoke.MANY_TABLE_J, real rank 1 and
 complex rank 2, at chip_smoke.MANY_PATH and at (1, 61, 513, 863) real
 rank 1 (its chunked route); fb_stats and tw_stats at the
@@ -47,7 +49,6 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
-import os
 import shutil
 import statistics
 import subprocess
@@ -148,6 +149,30 @@ def cases(smoke, device):
                         cuda_estep.estep_general(*a, r, **k),
                         lambda a=g_inp, r=ranks, k=kw:
                         cuda_estep.estep_ref(*a, r, **k), tol))
+    # row 1g'': the general kernel at every J of 9 to 16, real rank 1,
+    # complex rank 1, complex rank 2 and real rank 2, and ns_inj at
+    # complex rank 1 and 2, at the bench shape (those that WIDE_CASES does
+    # not time already)
+    timed = {(J_, ranks, real, ns) for _, _, J_, ranks, real, ns, _ in
+             smoke.WIDE_CASES}
+    for J_ in range(9, 17):
+        for R, real, ns in ((1, True, False), (1, False, False),
+                            (2, False, False), (2, True, False),
+                            (1, False, True), (2, False, True)):
+            ranks = (R,) * J_
+            if (J_, ranks, real, ns) in timed:
+                continue
+            tol = dict(smoke.TOL, xi=3e-4 if R == 2 else smoke.TOL["xi"])
+            g_inp = smoke._general_inputs(bench[0], J_, *bench[1:], ranks,
+                                          real, seed=2, device=device)
+            kw = dict(ns_inj=ns, real_cov=real)
+            out.append((f"1g'' {'ns_inj ' if ns else ''}"
+                        f"{'real' if real else 'complex'} J={J_} rank "
+                        f"{R} {'x'.join(map(str, bench))}",
+                        lambda a=g_inp, r=ranks, k=kw:
+                        cuda_estep.estep_general(*a, r, **k),
+                        lambda a=g_inp, r=ranks, k=kw:
+                        cuda_estep.estep_ref(*a, r, **k), tol))
     # csrc/estep_many.cu (J at run time): row 1g'''s bench shapes, real
     # rank 1 and complex rank 2 at each J of MANY_TABLE_J, and phase 19
     # (d)'s path (a tree from before it refuses these: skipped)
@@ -236,22 +261,51 @@ def run_side(name, directory, reps, only=()):
     print(json.dumps(result), flush=True)
 
 
-def make_variant(name, edits):
-    """A copy of this checkout's package with, for each (FILE, OLD, NEW) of
-    `edits`, the one occurrence of OLD in csrc/FILE replaced by NEW; returns
-    its directory."""
-    dest = ROOT / "chip_checkout" / "variants" / name
+def make_copy(dest, edits=(), tree=ROOT):
+    """The package under `tree` copied into `dest` (without its builds),
+    with, for each (FILE, OLD, NEW) of `edits`, the one occurrence of OLD
+    in csrc/FILE replaced by NEW; returns `dest`."""
+    dest = Path(dest)
     shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(ROOT / PKG, dest / PKG, ignore=shutil.ignore_patterns(
-        "_build", "__pycache__"))
+    shutil.copytree(Path(tree) / PKG, dest / PKG,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for file, old, new in edits:
         src = dest / PKG / "csrc" / file
         text = src.read_text()
         if text.count(old) != 1:
-            raise SystemExit(f"variant {name}: {old!r} occurs "
+            raise SystemExit(f"{dest.name}: {old!r} occurs "
                              f"{text.count(old)} times in {file}, not once")
         src.write_text(text.replace(old, new))
     return dest
+
+
+def make_variant(name, edits):
+    """make_copy of this checkout's package under
+    chip_checkout/variants/NAME/."""
+    return make_copy(ROOT / "chip_checkout" / "variants" / name, edits)
+
+
+def build_copies(dirs, names):
+    """Builds the libraries `names` of the package in each directory of
+    `dirs` ({side: directory}), one process a copy, all started together;
+    {side: {name: path of its library}}. Load one with _build.load(name,
+    path)."""
+    cmd = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+           "from pyfasst_tpu_torch.ops import _build; "
+           "i = _build.build(names=sys.argv[2:]); "
+           "print(json.dumps([i['seconds'], i['paths']]))")
+    procs = {side: subprocess.Popen(
+        [sys.executable, "-c", cmd, str(d), *names], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for side, d in dirs.items()}
+    paths = {}
+    for side, proc in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(out[-3000:])
+        secs, paths[side] = json.loads(out.strip().splitlines()[-1])
+        print(f"built {side}: {', '.join(names)} in {secs:.1f} s",
+              flush=True)
+    return paths
 
 
 def main() -> int:

@@ -28,8 +28,8 @@
 // :286-303, :308-359), which these kernels contract over the row's frames.
 //
 // One block of four warps owns one (b, f) row of the plane: GPU blocks run
-// in no order, so the row's frame sums never leave the block. Two designs,
-// by how many sums a row has (Slots::COUNT):
+// in no order, so the row's frame sums never leave the block. Three
+// designs, by how many sums a row has (Slots::COUNT) and by J:
 //
 // REG (estep_reg_kernel; up to kRegSums = 40: J <= 3 at rank 1). The warps
 // take the row's tiles of 32 frames in turn, lane = frame; each lane keeps
@@ -37,8 +37,9 @@
 // loaded while this one is computed. At the end of the row the lanes' sums
 // go through the warp's 32 x 33 tile once, lanes in order.
 //
-// FRAMES (estep_frames_kernel; every other instantiation: J = 2, 3 at rank
-// 2, J >= 4). The block takes the row's tiles of kFrames = 128 frames.
+// FRAMES (estep_frames_kernel; every other instantiation up to J = 8, and
+// past it where WIDE is not the faster: wide_lanes). The block takes the
+// row's tiles of kFrames = 128 frames.
 //   Phase 1, thread = frame, is the Pallas arithmetic term by term
 //   (frame_terms: REG's, the leave-one-out sums per source): it writes the
 //   frame's features into the block's tile in shared memory, feature-major
@@ -76,32 +77,75 @@
 // 88 / 100% (two Tss slots of 18 lanes, 56, 8), complex rank 1 90 / 100 /
 // 100% (seven T7 slots of 8 lanes). Shared memory is the tile, (4 + J
 // blocks) x 132 words: at J = 8 rank 2, 140 x 528 B = 72 KB, three
-// blocks (12 warps) to an SM; at J = 16 (the last J instantiated here,
-// csrc/estep_j16.cu; past it csrc/estep_many.cu takes J at run time)
-// 276 x 528 B = 146 KB, one block.
+// blocks (12 warps) to an SM; at J = 16 276 x 528 B = 146 KB, one block.
+//
+// WIDE (estep_wide_kernel; J = 9 to 16, the last J instantiated here,
+// csrc/estep_j16.cu; past it csrc/estep_many.cu takes J at run time),
+// where it is the faster (wide_lanes). What bounds FRAMES there (PERF.md,
+// row 1g'', tools/wide_probe.py): phase 1 is at its FADD count already
+// (nvcc forms each product (v_k v_l) X_kl once and adds it to every
+// leave-one-out sum that takes it) and issues at ~full rate where 16
+// warps share an SM, but its 6 J leave-one-out sums live beside phase 2's
+// totals (spills at J = 12-16 rank 1; 255 registers at complex rank 1 J =
+// 16), and the tile with its T4 rows outgrows shared memory at rank 2
+// (146 KB at J = 16: one block, four warps an SM, 62% of the time in
+// phase 1). WIDE keeps FRAMES' block, roles and Split, and:
+//   - The T4 terms leave the tile: each lane keeps its frame's, and after
+//     the tile's sources every shuffle tree runs at once into the warp's
+//     totals (shared memory, tile order; the warps of a half added in warp
+//     order at the end of the row).
+//   - The tile holds u_jr = v_j w_jr and y_jr = v_j z_jr beside v_j, so a
+//     frame sum is a plain product of tile words (wide_tss, wide_txs), and
+//     T7_jk = A_j^H sum_n v_j y_ks: its frame sums are 2 R W words an
+//     owner (wide_t7: 4 R W operations a frame against t7_item's R^2 x
+//     18), A_j^H applied once at the end of the row.
+//   - G lanes a frame in phase 1 (wide_lanes: 1 or 2). G = 2: tiles of 64
+//     frames, lane h = tid / 64 (a warp pair) owning the leave-one-out sums
+//     of sources h JH .. (JH = ceil(J / 2)), each warp running code
+//     specialised for its half (wide_terms: every term of Sigma_x's sums
+//     formed once and added to Sigma_x's sum and to the half's own sums,
+//     in the plain version's order); each lane forms Sigma_x whole (3 J^2
+//     + 10 J more instructions a frame). At J = 16 complex rank 2 the tile
+//     is 212 x 272 B = 58 KB, three blocks (12 warps) an SM. G = 1: a
+//     thread a frame over FRAMES' 128-frame tiles.
+//   Busy share of phase 2 by role Tss / T7 / source (tools/wide_probe.py
+//   shares): J = 9 complex rank 1 94 / 90 / 75% (15, 18 and 9 lanes),
+//   complex rank 2 94 / 82 / 75%; J = 10 complex rank 2 86 / 94 / 83% (55,
+//   30, 10); J = 12 real rank 1 98 / 82 / 75%, complex rank 1 89 / 92 /
+//   75%, complex rank 2 89 / 69 / 75%; J = 16 rank 1 94 / 94 / 100% (nine
+//   Tss slots of 16 lanes, two T7 slots of 128, 16), complex rank 2 (G =
+//   2, 16 quads a tile) 71 / 94 / 100% (46, 128, 16). Real mixing at
+//   rank 1 up to J = 11 and at rank 2 up to J = 10, and ns_inj at complex
+//   rank 2 J = 11, keep FRAMES (PERF.md).
 //
 // Numerics follow the Pallas forms term by term: the subtract-free dets of
 // Sigma_x and of each S_j, the rank-2 dG clamp and coef = (g00 + g11)/dG,
 // xi / rank, exact IEEE divides and logf; built with --fmad=false (see
 // estep.cu) so that every product rounds as in the plain version; xi has
-// no sum in it and keeps the plain version's bits. Each product is formed
-// as the Pallas kernel forms it (vv = v_j v_k, then vv * pr); only the
-// order of the frame sums is the kernel's own. With real mixing (REAL) the
-// imaginary parts of the mixing columns and of z are zero; `if constexpr
-// (REAL)` drops that arithmetic, as the Pallas symbolic-zero algebra does.
+// no sum in it and keeps the plain version's bits. In REG and FRAMES each
+// product is formed as the Pallas kernel forms it (vv = v_j v_k, then vv *
+// pr); only the order of the frame sums is the kernel's own. WIDE forms
+// its frame sums' products from the scaled features u, y (and T7 as A^H
+// times a sum): other roundings, within the same bars. With real mixing
+// (REAL) the imaginary parts of the mixing columns and of z are zero; `if
+// constexpr (REAL)` drops that arithmetic, as the Pallas symbolic-zero
+// algebra does.
 // Only j <= k of Tss is summed: Tss_kj = Tss_jk^H holds bit for bit, since
 // both are written from the same sums; T7 has no such exact symmetry and
 // is summed for every j != k.
 //
 // What bounds it on an H100: per bin it reads x4 (16 B) and v (4 B per
-// source) and writes xi (4 B per source), against ~1,200 (J = 5, real rank
-// 1) to ~10,000 (J = 8, rank 2) float32 operations counted in its plain
-// version: bound by operations, and with --fmad=false each multiply and add
-// issues on its own, so the yardstick is the floor at half the card's FMA
-// rate. On top of the operations come the exact divides, logf, the loads
-// of phase 2 and its idle lanes: the kernel is bound by instruction issue
-// (kernel_sass.py); at J = 8 rank 2 it runs at ~1.4x that floor, at J = 16
-// rank 2 (255 registers, one block an SM) ~2.8x (PERF.md).
+// source) and writes xi (4 B per source), against ~930 (J = 5, real rank
+// 1), ~5,500 (J = 8, rank 2) and ~19,000 (J = 16, rank 2) float32
+// operations the function needs (chip_smoke.general_ops: the plain
+// version's, with the frame sums formed as WIDE forms them): bound by
+// operations, and with --fmad=false each multiply and add issues on its
+// own, so the yardstick is the floor at half the card's FMA rate. On top
+// of the operations come the exact divides, logf, the loads of phase 2 and
+// its idle lanes: the kernel is bound by instruction issue
+// (kernel_sass.py); at J = 8 rank 2 FRAMES runs at ~2.6x that floor; at
+// J = 16 complex rank 2 FRAMES took 6.3x (255 registers, one block an
+// SM), WIDE 2.9x, real rank 1 2.0x (PERF.md, row 1g'').
 //
 // Layouts (float32, contiguous), with the clip axis B; Rmax = max rank:
 //   x4    (B, 4, F, N)        [Re x0, Im x0, Re x1, Im x1]
@@ -303,6 +347,91 @@ struct Args {
 template <int J, int R, bool REAL, bool NS>
 struct Split;  // FRAMES' choices per instantiation (below)
 
+// Source j of one frame from its leave-one-out sums (la, ld, lbr, lbi,
+// llin, lquad) and the frame's Sigma_x = [a, d, sb] (1 / det = rinv) and y:
+// w_jr = A_jr^H y and z_jr = Sigma_x^-1 A_jr (zero past the rank rkj), S_j's
+// subtract-free det, the posterior and the T4 terms (1 / den for rank 1,
+// v G^-1 for rank 2); returns xi_j, floored at eps.
+template <int J, int R, bool REAL, bool NS>
+__device__ __forceinline__ float source_post(
+    const Row<J, R>& c, int j, int rkj, float vj, float sig, float a,
+    float d, cf sb, float rinv, cf y0, cf y1, float la, float ld, float lbr,
+    float lbi, float llin, float lquad, bool fast, float eps, cf (&wj)[R],
+    cf (&zj)[R][2], float (&t4)[Slots<J, R>::NT4]) {
+  constexpr int NT4 = Slots<J, R>::NT4;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    wj[r] = cf{0.f, 0.f};
+    zj[r][0] = zj[r][1] = cf{0.f, 0.f};
+    if (r < rkj) {
+      const cf p = cmul_conj<REAL>(c.A[j][r][0], y0);
+      const cf q = cmul_conj<REAL>(c.A[j][r][1], y1);
+      wj[r] = cf{p.re + q.re, p.im + q.im};
+      herm_apply<REAL>(a, d, sb, rinv, c.A[j][r][0], c.A[j][r][1], zj[r][0],
+                       zj[r][1]);
+    }
+  }
+
+  float trCR = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < rkj) trCR += cabs2(wj[r]);
+  if constexpr (NS) {
+    float zz = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < rkj) zz += cabs2(zj[r][0]) + cabs2(zj[r][1]);
+    trCR = trCR + sig * zz;
+  }
+
+  // S_j's subtract-free det
+  const cf lb{lbr, REAL ? 0.f : lbi};
+  const float aS = sig + la;
+  const float dS = sig + ld;
+  const float detS = sig * sig + sig * llin + 0.5f * lquad;
+  const float rinvS = pyfasst::recip(detS, fast);
+
+  // M_rs = A_jr^H S_j^-1 A_js
+  cf sj[R][2];
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    if (s < rkj)
+      herm_apply<REAL>(aS, dS, lb, rinvS, c.A[j][s][0], c.A[j][s][1],
+                       sj[s][0], sj[s][1]);
+  auto M = [&](int r, int s) {
+    const cf p = cmul_conj<REAL>(c.A[j][r][0], sj[s][0]);
+    const cf q = cmul_conj<REAL>(c.A[j][r][1], sj[s][1]);
+    return cf{p.re + q.re, p.im + q.im};
+  };
+
+  // the T4 terms: 1 / den for rank 1, v G^-1 for rank 2
+  float coef = 0.f;
+  bool rank1 = true;
+  if constexpr (R == 2) rank1 = rkj == 1;
+  if (rank1) {
+    const float den = 1.0f + vj * M(0, 0).re;
+    coef = pyfasst::recip(den, fast);
+    t4[0] = vj / den;
+#pragma unroll
+    for (int q = 1; q < NT4; ++q) t4[q] = 0.f;
+  } else if constexpr (R == 2) {
+    const cf m01 = M(0, 1);
+    const float g00 = 1.0f + vj * M(0, 0).re;
+    const float g11 = 1.0f + vj * M(1, 1).re;
+    const cf g01{vj * m01.re, REAL ? 0.f : vj * m01.im};
+    float gg = g01.re * g01.re;
+    if constexpr (!REAL) gg += g01.im * g01.im;
+    const float dG = fmaxf(g00 * g11 - gg, 1.0f);
+    const float rG = pyfasst::recip(dG, fast);
+    coef = (g00 + g11) * rG;
+    t4[0] = vj * g11 * rG;
+    t4[1] = vj * g00 * rG;
+    t4[2] = -vj * g01.re * rG;
+    t4[3] = REAL ? 0.f : -vj * g01.im * rG;
+  }
+  return fmaxf((vj * vj * trCR + vj * coef) / (float)rkj, eps);
+}
+
 // Phase 1 for one frame (x0, x1; v): Sigma_x, its subtract-free det, y, the
 // loglik term (returned), and per source j: w_jr = A_jr^H y and z_jr =
 // Sigma_x^-1 A_jr (zero past the rank), the leave-one-out posterior, the
@@ -369,81 +498,12 @@ __device__ __forceinline__ float frame_terms(
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     cf wj[R], zj[R][2];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      wj[r] = cf{0.f, 0.f};
-      zj[r][0] = zj[r][1] = cf{0.f, 0.f};
-      if (r < rk[j]) {
-        const cf p = cmul_conj<REAL>(c.A[j][r][0], y0);
-        const cf q = cmul_conj<REAL>(c.A[j][r][1], y1);
-        wj[r] = cf{p.re + q.re, p.im + q.im};
-        herm_apply<REAL>(a, d, sb, rinv, c.A[j][r][0], c.A[j][r][1],
-                         zj[r][0], zj[r][1]);
-      }
-    }
-
-    float trCR = 0.f;
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r < rk[j]) trCR += cabs2(wj[r]);
-    if constexpr (NS) {
-      float zz = 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (r < rk[j]) zz += cabs2(zj[r][0]) + cabs2(zj[r][1]);
-      trCR = trCR + sig * zz;
-    }
-
-    // S_j's subtract-free det
-    const cf lb{lbr[j], REAL ? 0.f : lbi[j]};
-    const float aS = sig + la[j];
-    const float dS = sig + ld[j];
-    const float detS = sig * sig + sig * llin[j] + 0.5f * lquad[j];
-    const float rinvS = pyfasst::recip(detS, fast);
-
-    // M_rs = A_jr^H S_j^-1 A_js
-    cf sj[R][2];
-#pragma unroll
-    for (int s = 0; s < R; ++s)
-      if (s < rk[j])
-        herm_apply<REAL>(aS, dS, lb, rinvS, c.A[j][s][0], c.A[j][s][1],
-                         sj[s][0], sj[s][1]);
-    auto M = [&](int r, int s) {
-      const cf p = cmul_conj<REAL>(c.A[j][r][0], sj[s][0]);
-      const cf q = cmul_conj<REAL>(c.A[j][r][1], sj[s][1]);
-      return cf{p.re + q.re, p.im + q.im};
-    };
-
-    // the T4 terms: 1 / den for rank 1, v G^-1 for rank 2
-    const float vj = v[j];
-    float coef = 0.f;
     float t4[NT4];
-    bool rank1 = true;
-    if constexpr (R == 2) rank1 = rk[j] == 1;
-    if (rank1) {
-      const float den = 1.0f + vj * M(0, 0).re;
-      coef = pyfasst::recip(den, fast);
-      t4[0] = vj / den;
-#pragma unroll
-      for (int q = 1; q < NT4; ++q) t4[q] = 0.f;
-    } else if constexpr (R == 2) {
-      const cf m01 = M(0, 1);
-      const float g00 = 1.0f + vj * M(0, 0).re;
-      const float g11 = 1.0f + vj * M(1, 1).re;
-      const cf g01{vj * m01.re, REAL ? 0.f : vj * m01.im};
-      float gg = g01.re * g01.re;
-      if constexpr (!REAL) gg += g01.im * g01.im;
-      const float dG = fmaxf(g00 * g11 - gg, 1.0f);
-      const float rG = pyfasst::recip(dG, fast);
-      coef = (g00 + g11) * rG;
-      t4[0] = vj * g11 * rG;
-      t4[1] = vj * g00 * rG;
-      t4[2] = -vj * g01.re * rG;
-      t4[3] = REAL ? 0.f : -vj * g01.im * rG;
-    }
+    const float xij = source_post<J, R, REAL, NS>(
+        c, j, rk[j], v[j], sig, a, d, sb, rinv, y0, y1, la[j], ld[j], lbr[j],
+        lbi[j], llin[j], lquad[j], fast, eps, wj, zj, t4);
     out(j, wj, zj, t4);
-    if (valid)
-      xi[j * FN] = fmaxf((vj * vj * trCR + vj * coef) / (float)rk[j], eps);
+    if (valid) xi[j * FN] = xij;
   }
   return llt;
 }
@@ -896,10 +956,11 @@ __host__ __device__ constexpr int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
 
-// Issue slots a thread spends on role r per whole tile with groups of L
-// lanes: kFrames / L groups share the tile's quads of frames.
-constexpr long role_cost(Role r, int L) {
-  const int quads = ceil_div(kFrames / 4, kFrames / L);
+// Issue slots a thread spends on role r per whole tile of `frames` frames
+// with groups of L lanes: kGenThreads / L groups share the tile's quads of
+// frames.
+constexpr long role_cost(Role r, int L, int frames) {
+  const int quads = ceil_div(frames / 4, kGenThreads / L);
   return (long)ceil_div(r.owners, L) * (4 * quads * r.per_frame + r.per_item);
 }
 
@@ -916,9 +977,10 @@ constexpr int lanes_for(int owners, int slots) {
 }
 
 // Lanes per group of the three roles, packed 8 bits each: the choice that
-// costs the fewest issue slots per tile within `budget` running totals a
-// thread (past it, the fewest totals).
-constexpr int choose_lanes(Role a, Role b, Role c, int budget) {
+// costs the fewest issue slots per tile of `frames` frames within `budget`
+// running totals a thread (past it, the fewest totals).
+constexpr int choose_lanes(Role a, Role b, Role c, int budget,
+                           int frames = kFrames) {
   long best = -1;
   int pick = 0, fewest = 1 << 30, least = 0;
   for (int sa = 1; sa <= ceil_div(a.owners, kMinLanes); ++sa)
@@ -929,8 +991,8 @@ constexpr int choose_lanes(Role a, Role b, Role c, int budget) {
         const int regs = ceil_div(a.owners, la) * a.sums +
                          ceil_div(b.owners, lb) * b.sums +
                          ceil_div(c.owners, lc) * c.sums;
-        const long cost =
-            role_cost(a, la) + role_cost(b, lb) + role_cost(c, lc);
+        const long cost = role_cost(a, la, frames) +
+                          role_cost(b, lb, frames) + role_cost(c, lc, frames);
         const int lanes = la | lb << 8 | lc << 16;
         if (regs <= budget && (best < 0 || cost < best)) {
           best = cost;
@@ -1447,6 +1509,636 @@ __global__ void __launch_bounds__(kGenThreads, Split<J, R, REAL, NS>::MIN_BLOCKS
   write_outputs<J, R, REAL>(g, red, rk, b, f, row, tid);
 }
 
+// -- WIDE ------------------------------------------------------------------
+
+// Lanes a frame in the WIDE kernel's phase 1 (J >= 9), by measured speed
+// (PERF.md, row 1g''; kernel_compare.py, FRAMES and both forms in turns
+// at (8, J, 513, 863)): 0 keeps the FRAMES kernel where it wins by more
+// than the run-to-run spread, at real mixing and few sources (rank 1 up
+// to J = 11, rank 2 up to J = 10); G = 2 lanes each own the leave-one-out
+// sums of about J / 2 sources, so a lane's registers and the tile's
+// shared memory halve: faster at rank 2 from J = 13 (complex) and at J =
+// 16 (real). ns_inj follows the instantiation without it, but at complex
+// rank 2 J = 11, where WIDE read 1.124x FRAMES' time (0.958x without
+// ns_inj; one kernel_compare.py call of two rounds).
+constexpr int wide_lanes(int J, int R, bool REAL, bool NS) {
+  if (J < 9 || (REAL && J <= (R == 1 ? 11 : 10))) return 0;
+  if (NS && R == 2 && !REAL && J == 11) return 0;
+  return R == 2 && J >= (REAL ? 16 : 13) ? 2 : 1;
+}
+
+// The WIDE kernel's choices per instantiation: a tile of TF = kGenThreads /
+// G frames, lane h of a frame (h = tid / TF, the same in a warp) owning
+// sources h JH .. min(J, (h + 1) JH) - 1; the tile's feature rows: x (4),
+// then per source v, w_jr and z_jr (BLK rows, odd: see kFeatStride; the T4
+// terms are summed in phase 1), TF + 4 words a row (an odd number of 16-
+// byte groups); phase 2's roles split as FRAMES' are (Split), over the
+// tile's TF / 4 quads.
+template <int J, int R, bool REAL, bool NS>
+struct Wide {
+  using FT = Feats<J, R, REAL>;
+  using SP = Split<J, R, REAL, NS>;
+  static constexpr int G = wide_lanes(J, R, REAL, NS);
+  static constexpr int TF = kGenThreads / (G > 0 ? G : 1);
+  static constexpr int ST = TF + 4;
+  static constexpr int JH = (J + G - 1) / (G > 0 ? G : 1);
+  static constexpr int NT4 = FT::NT4, ZW = FT::ZW;
+  static constexpr int BLK = FT::T4;
+  static constexpr int ROWS = 4 + J * BLK;
+  __host__ __device__ static constexpr int blk(int j) { return 4 + j * BLK; }
+  // the roles on the tile's scaled features (wide_tss, wide_t7,
+  // wide_txs): Tss without its v_j v_k, T7's frame sums of v_j y_ks (2 R
+  // W7 words an owner), Txs without its v_j and the T4 terms
+  static constexpr int W7 = REAL ? 1 : 2;
+  static constexpr Role TSS{
+      J * (J + 1) / 2, 2 * R * R,
+      R * R * (8 + (NS ? (REAL ? 5 : 18) : 0)) +
+          (4 * R + (NS ? 2 * R * ZW : 0) + 3) / 4 + 1,
+      24 + 2 * R * R};
+  static constexpr Role T7{J * (J - 1), 2 * R * W7,
+                           4 * R * W7 + (1 + 2 * R * W7 + 3) / 4 + 1,
+                           24 + 2 * R * W7};
+  static constexpr Role SRC{
+      J, 4 * R,
+      R * (16 + (NS ? (REAL ? 4 : 8) : 0)) +
+          (4 + 2 * R + (NS ? R * ZW : 0) + 3) / 4 + 1,
+      24 + 4 * R};
+  static constexpr int LANES = choose_lanes(TSS, T7, SRC, kTotRegs, TF);
+  static constexpr int O_TSS = SP::O_TSS, O_T7 = SP::O_T7, O_SRC = J;
+  static constexpr int U_TSS = 2 * R * R, U_T7 = 2 * R * W7, U_SRC = 4 * R;
+  static constexpr int L_TSS = LANES & 255, L_T7 = (LANES >> 8) & 255,
+                       L_SRC = LANES >> 16;
+  static constexpr int N_TSS = ceil_div(O_TSS, L_TSS);
+  static constexpr int N_T7 = ceil_div(O_T7, L_T7);
+  static constexpr int N_SRC = ceil_div(O_SRC, L_SRC);
+  static constexpr int TOT_TSS = 0;
+  static constexpr int TOT_T7 = TOT_TSS + N_TSS * U_TSS;
+  static constexpr int TOT_SRC = TOT_T7 + N_T7 * U_T7;
+  static constexpr int TOTS = TOT_SRC + N_SRC * U_SRC;
+  static constexpr int RED = TOTS * kGenThreads;
+  static constexpr int TILE = ROWS * ST;
+  static constexpr int SUMS = RED + Slots<J, R>::COUNT + 1;
+  static constexpr size_t BYTES =
+      (size_t)(TILE > SUMS ? TILE : SUMS) * sizeof(float);
+  // the static shared memory: the row's constants, the owners, the warps'
+  // loglik and T4 totals
+  static constexpr size_t STATIC =
+      sizeof(Row<J, R>) + 2 * (SP::O_TSS + SP::O_T7) +
+      4 * kGenWarps * (1 + JH * NT4);
+  // resident blocks per SM asked of ptxas: three (168 registers), two (255)
+  // for ns_inj at rank 2, four (128) at rank 1 up to J = 10, where a lane
+  // fits 128 registers without spill (complex rank 1 at J = 9: 0.937x the
+  // FRAMES kernel's time at four, 1.013x at three, each in its own call),
+  // or as many as shared memory holds
+  static constexpr int BLOCKS_BY_SMEM =
+      kSmemPerSM / (int)(BYTES + STATIC + 1024);
+  static constexpr int BLOCKS = NS && R == 2 ? 2 : R == 1 && J <= 10 ? 4 : 3;
+  static constexpr int MIN_BLOCKS =
+      BLOCKS_BY_SMEM < BLOCKS ? BLOCKS_BY_SMEM : BLOCKS;
+};
+
+// Phase 2's roles of the WIDE kernel. Its tile holds, per source j and
+// frame, v_j, u_jr = v_j w_jr and y_jr = v_j z_jr (Feats' rows V, W, Z):
+// each frame sum is then a plain product of tile words. Tss_jk (r, s) =
+// sum_n u_jr conj(u_ks) (+ sig y_jr^H y_ks with ns_inj), over nq quads of
+// frames from pa (source j's block) and pb (source k's), into tot.
+template <int J, int R, bool REAL, bool NS, int ST>
+__device__ __forceinline__ void wide_tss(const float* pa, const float* pb,
+                                         int nq, float sig,
+                                         float (&tot)[2 * R * R]) {
+  using FT = Feats<J, R, REAL>;
+  constexpr int ZN = NS ? (REAL ? 1 : 2) : 0;  // words of a y channel
+  float tp[2 * R * R];
+#pragma unroll
+  for (int i = 0; i < 2 * R * R; ++i) tp[i] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q, pa += 4, pb += 4) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (NS && R > 1) asm volatile("" ::: "memory");
+      const float4 uj0 = ld4(pa + (FT::W + 2 * r) * ST),
+                   uj1 = ld4(pa + (FT::W + 2 * r + 1) * ST);
+      float4 yj[2][2];  // [ch][re, im]
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+        for (int p = 0; p < ZN; ++p)
+          yj[ch][p] = ld4(pa + (p ? FT::zim(r, ch) : FT::zre(r, ch)) * ST);
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const float4 uk0 = ld4(pb + (FT::W + 2 * s) * ST),
+                     uk1 = ld4(pb + (FT::W + 2 * s + 1) * ST);
+        float4 yk[2][2];
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+          for (int p = 0; p < ZN; ++p)
+            yk[ch][p] = ld4(pb + (p ? FT::zim(s, ch) : FT::zre(s, ch)) * ST);
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const cf a{at(uj0, f), at(uj1, f)}, b{at(uk0, f), at(uk1, f)};
+          cf pr{a.re * b.re + a.im * b.im, a.im * b.re - a.re * b.im};
+          if constexpr (NS) {
+            const float a0r = at(yj[0][0], f), b0r = at(yk[0][0], f);
+            const float a1r = at(yj[1][0], f), b1r = at(yk[1][0], f);
+            if constexpr (REAL) {
+              pr.re = pr.re + sig * (a0r * b0r + a1r * b1r);
+            } else {
+              const float a0i = at(yj[0][1], f), b0i = at(yk[0][1], f);
+              const float a1i = at(yj[1][1], f), b1i = at(yk[1][1], f);
+              const cf zc{(a0r * b0r + a0i * b0i) + (a1r * b1r + a1i * b1i),
+                          (a0r * b0i - a0i * b0r) + (a1r * b1i - a1i * b1r)};
+              pr = cf{pr.re + sig * zc.re, pr.im + sig * zc.im};
+            }
+          }
+          tp[2 * (r * R + s)] += pr.re;
+          tp[2 * (r * R + s) + 1] += pr.im;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * R * R; ++i) tot[i] += tp[i];
+}
+
+// The frame sums behind T7_jk: sum_n v_j y_ks (per column s and channel,
+// re and im; re alone with real mixing), from pa (source j's block: v_j)
+// and pb (source k's: y_k). T7_jk (r, s) = A_jr^H times them, once at the
+// end of the row: 2 R W words a frame instead of R^2 times v_j v_k A_jr^H
+// z_ks (t7_item).
+template <int J, int R, bool REAL, int ST>
+__device__ __forceinline__ void wide_t7(const float* pa, const float* pb,
+                                        int nq,
+                                        float (&tot)[2 * R * (REAL ? 1 : 2)]) {
+  using FT = Feats<J, R, REAL>;
+  constexpr int W = REAL ? 1 : 2;
+  float tp[2 * R * W];
+#pragma unroll
+  for (int i = 0; i < 2 * R * W; ++i) tp[i] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q, pa += 4, pb += 4) {
+    const float4 vj = ld4(pa + FT::V * ST);
+    float4 y[R][2][W];  // [s][ch][re, im]
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        y[s][ch][0] = ld4(pb + FT::zre(s, ch) * ST);
+        if constexpr (!REAL) y[s][ch][W - 1] = ld4(pb + FT::zim(s, ch) * ST);
+      }
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+          for (int p = 0; p < W; ++p)
+            tp[(s * 2 + ch) * W + p] += at(vj, f) * at(y[s][ch][p], f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2 * R * W; ++i) tot[i] += tp[i];
+}
+
+// Source j's Txs (4 words per column r): sum_n [x0 conj(u_jr), x1
+// conj(u_jr)] (+ sig y_jr with ns_inj), from pa (its block) and px (the
+// frames' x).
+template <int J, int R, bool REAL, bool NS, int ST>
+__device__ __forceinline__ void wide_txs(const float* pa, const float* px,
+                                         int nq, float sig,
+                                         float (&tot)[4 * R]) {
+  using FT = Feats<J, R, REAL>;
+  constexpr int ZN = NS ? (REAL ? 1 : 2) : 0;
+  float tp[4 * R];
+#pragma unroll
+  for (int i = 0; i < 4 * R; ++i) tp[i] = 0.f;
+#pragma unroll 1
+  for (int q = 0; q < nq; ++q, pa += 4, px += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = ld4(px + (FT::X + i) * ST);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (NS && R > 1) asm volatile("" ::: "memory");
+      const float4 u0 = ld4(pa + (FT::W + 2 * r) * ST),
+                   u1 = ld4(pa + (FT::W + 2 * r + 1) * ST);
+      float4 y[2][2];  // [ch][re, im]
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+        for (int p = 0; p < ZN; ++p)
+          y[ch][p] = ld4(pa + (p ? FT::zim(r, ch) : FT::zre(r, ch)) * ST);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const cf x0{at(x[0], f), at(x[1], f)}, x1{at(x[2], f), at(x[3], f)};
+        const cf ur{at(u0, f), at(u1, f)};
+        cf p0{x0.re * ur.re + x0.im * ur.im, x0.im * ur.re - x0.re * ur.im};
+        cf p1{x1.re * ur.re + x1.im * ur.im, x1.im * ur.re - x1.re * ur.im};
+        if constexpr (NS) {
+          p0.re = p0.re + sig * at(y[0][0], f);
+          p1.re = p1.re + sig * at(y[1][0], f);
+          if constexpr (!REAL) {
+            p0.im = p0.im + sig * at(y[0][1], f);
+            p1.im = p1.im + sig * at(y[1][1], f);
+          }
+        }
+        tp[4 * r] += p0.re;
+        tp[4 * r + 1] += p0.im;
+        tp[4 * r + 2] += p1.re;
+        tp[4 * r + 3] += p1.im;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * R; ++i) tot[i] += tp[i];
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_down_sync(0xffffffffu, x, off);
+  return x;  // lane 0's is the warp's sum
+}
+
+// Phase 1 of the WIDE kernel for one frame and the JN sources J0 .. J0 + JN
+// - 1 of its lane: frame_terms' arithmetic, with each term of Sigma_x's
+// sums (v_k R_k, and the products (v_k v_l) X_kl) formed once and added to
+// Sigma_x's sum and to the leave-one-out sums of the lane's sources that
+// take it, each sum in the plain version's order (k, then l). Stores xi;
+// out(u, j, w_j, z_j, t4_j) takes source j = J0 + u's features. Returns
+// the frame's loglik term.
+template <int J, int R, bool REAL, bool NS, int J0, int JN, class Out>
+__device__ __forceinline__ float wide_terms(
+    const Row<J, R>& c, Ranks<J, R> rk, cf x0, cf x1, const float (&v)[J],
+    float sig, float eps, bool fast, bool no_ll, float* xi, size_t FN,
+    Out&& out) {
+  constexpr int NT4 = Slots<J, R>::NT4;
+  float sa = 0.f, sd = 0.f, lin = 0.f, quad = 0.f;
+  cf sb{0.f, 0.f};
+  float la[JN], ld[JN], lbr[JN], lbi[JN], llin[JN], lq[JN];
+#pragma unroll
+  for (int u = 0; u < JN; ++u)
+    la[u] = ld[u] = lbr[u] = lbi[u] = llin[u] = lq[u] = 0.f;
+#pragma unroll
+  for (int k = 0; k < J; ++k) {
+    const float ta = v[k] * c.Ra[k], td = v[k] * c.Rd[k];
+    const float tbr = v[k] * c.Rb[k].re, tl = v[k] * c.trR[k];
+    const float tbi = REAL ? 0.f : v[k] * c.Rb[k].im;
+    sa += ta;
+    sd += td;
+    sb.re += tbr;
+    if constexpr (!REAL) sb.im += tbi;
+    lin += tl;
+#pragma unroll
+    for (int u = 0; u < JN; ++u) {
+      if (J0 + u == k) continue;
+      la[u] += ta;
+      ld[u] += td;
+      lbr[u] += tbr;
+      if constexpr (!REAL) lbi[u] += tbi;
+      llin[u] += tl;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < J; ++k) {
+#pragma unroll
+    for (int l = 0; l < J; ++l) {
+      const float p = v[k] * v[l] * c.Xc[k][l];
+      quad += p;
+#pragma unroll
+      for (int u = 0; u < JN; ++u)
+        if (J0 + u != k && J0 + u != l) lq[u] += p;
+    }
+  }
+  const float a = sig + sa;
+  const float d = sig + sd;
+  const float det = sig * sig + sig * lin + 0.5f * quad;
+  const float rinv = pyfasst::recip(det, fast);
+
+  cf y0, y1;
+  herm_apply<REAL>(a, d, sb, rinv, x0, x1, y0, y1);
+  float tr = fmaxf((x0.re * y0.re + x0.im * y0.im)
+                   + (x1.re * y1.re + x1.im * y1.im), 0.0f);
+  if constexpr (NS) tr = tr + sig * (a + d) * rinv;
+  const float llt = no_ll ? tr : logf(det) + tr;
+
+#pragma unroll
+  for (int u = 0; u < JN; ++u) {
+    const int j = J0 + u;
+    cf wj[R], zj[R][2];
+    float t4[NT4];
+    const float xij = source_post<J, R, REAL, NS>(
+        c, j, rk[j], v[j], sig, a, d, sb, rinv, y0, y1, la[u], ld[u], lbr[u],
+        lbi[u], llin[u], lq[u], fast, eps, wj, zj, t4);
+    out(u, j, wj, zj, t4);
+    xi[j * FN] = xij;
+  }
+  return llt;
+}
+
+// One block of four warps owns one (b, f) row, as in FRAMES, over tiles of
+// TF = 128 / G frames (Wide). Phase 1, G lanes a frame, each its sources'
+// part of the arithmetic (wide_terms); the lanes of one half of the
+// sources are whole warps, so each warp runs code specialised for its
+// half. A frame past N writes zeros, so it adds nothing to any sum. The
+// T4 terms of a tile go through shuffle trees, all at once after the
+// sources, into the warp's totals (shared memory; in tile order). Phase 2
+// is FRAMES' over the tile's quads; at the end of the row the T4 totals of
+// the warps of a half are added in warp order.
+template <int J, int R, bool REAL, bool NS>
+__global__ void __launch_bounds__(kGenThreads, Wide<J, R, REAL, NS>::MIN_BLOCKS)
+    estep_wide_kernel(Args g) {
+  using S = Slots<J, R>;
+  using FT = Feats<J, R, REAL>;
+  using WP = Wide<J, R, REAL, NS>;
+  constexpr int ST = WP::ST, TF = WP::TF, JH = WP::JH, NT4 = S::NT4;
+  constexpr int W7 = REAL ? 1 : 2;
+  __shared__ Row<J, R> c;
+  // phase 2's owners: j | k << 8, Tss (Slots::pair order) then T7 (offd)
+  __shared__ unsigned short own[S::PAIRS + S::OFFD];
+  __shared__ float llw[kGenWarps];
+  __shared__ float t4w[kGenWarps][JH * NT4];  // the warps' T4 totals
+  // the tile's features [WP::ROWS][ST]; at the end of the row, the
+  // threads' totals [WP::TOTS][kGenThreads] and the row's sums
+  extern __shared__ __align__(16) float feats[];
+  static_assert(!S::REG && WP::G >= 1 && WP::G <= 2 && WP::MIN_BLOCKS >= 1 &&
+                    TF % 32 == 0 && J * R * 2 <= kGenThreads && J <= 32,
+                "WIDE: whole warps a half; one thread per mixing entry and "
+                "per source's Txs");
+
+  const int F = g.F, N = g.N;
+  const int row = blockIdx.x;  // b * F + f
+  const int b = row / F;
+  const int f = row - b * F;
+  const size_t FN = (size_t)F * N;
+  const int tid = threadIdx.x;
+  const int fr = tid % TF, h = tid / TF;  // this lane's frame, its half
+  const int lane = tid & 31, warp = tid >> 5;
+
+  const Ranks<J, R> rk{g.rank_mask};
+
+  for (int o = tid; o < S::PAIRS + S::OFFD; o += kGenThreads) {
+    int j = 0, k = 0;
+    if (o < S::PAIRS) {  // j <= k, row-major
+      int m = o;
+      while (m >= J - j) m -= J - j++;
+      k = j + m;
+    } else {
+      const int m = o - S::PAIRS;
+      j = m / (J - 1);
+      k = m % (J - 1);
+      k += k >= j;
+    }
+    own[o] = (unsigned short)(j | k << 8);
+  }
+  for (int i = tid; i < kGenWarps * JH * NT4; i += kGenThreads)
+    (&t4w[0][0])[i] = 0.f;
+  // the first tile's x4 and v, loaded while the row's constants are built
+  const float* xrow = g.x4 + (size_t)b * 4 * FN + (size_t)f * N;
+  const float* vrow = g.v + (size_t)b * J * FN + (size_t)f * N;
+  float px[4], pv[J];
+  {
+    const bool valid = fr < N;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) px[q] = valid ? xrow[q * FN + fr] : 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) pv[j] = valid ? vrow[j * FN + fr] : 0.f;
+  }
+  row_constants<J, R, REAL>(c, g.A4 + ((size_t)b * J * F + f) * 4 * R,
+                            (size_t)F * 4 * R, rk, g.sigma[row], tid);
+
+  float* xirow = g.xi + (size_t)b * J * FN + (size_t)f * N;
+  const float sig = c.sig;
+  const float eps = g.eps;
+  const bool fast = g.fast_recip;
+
+  float tot_tss[WP::N_TSS][2 * R * R], tot_t7[WP::N_T7][2 * R * W7],
+      tot_src[WP::N_SRC][4 * R];
+#pragma unroll
+  for (int i = 0; i < WP::N_TSS; ++i)
+#pragma unroll
+    for (int s = 0; s < 2 * R * R; ++s) tot_tss[i][s] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WP::N_T7; ++i)
+#pragma unroll
+    for (int s = 0; s < 2 * R * W7; ++s) tot_t7[i][s] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WP::N_SRC; ++i)
+#pragma unroll
+    for (int s = 0; s < 4 * R; ++s) tot_src[i][s] = 0.f;
+  float ll_acc = 0.f;  // lanes of half 0: their frames' loglik terms
+
+  float* col = feats + fr;  // this lane's frame of the tile
+  for (int n0 = 0; n0 < N; n0 += TF) {
+    const int n = n0 + fr;
+    const bool valid = n < N;
+
+    // -- phase 1, G lanes a frame -------------------------------------------
+    const cf x0{px[0], px[1]}, x1{px[2], px[3]};
+    float v[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) v[j] = pv[j];
+    auto phase1 = [&](auto half) {
+      constexpr int J0 = decltype(half)::value * JH;
+      constexpr int JN = J - J0 < JH ? J - J0 : JH;
+      float t4v[JN][NT4];  // the lane's T4 terms of the tile's frame
+      if (valid) {
+        if constexpr (J0 == 0) {
+          col[(FT::X + 0) * ST] = x0.re;
+          col[(FT::X + 1) * ST] = x0.im;
+          col[(FT::X + 2) * ST] = x1.re;
+          col[(FT::X + 3) * ST] = x1.im;
+        }
+        const float llt = wide_terms<J, R, REAL, NS, J0, JN>(
+            c, rk, x0, x1, v, sig, eps, fast, g.no_ll, xirow + n, FN,
+            [&](int u, int j, const cf(&wj)[R], const cf(&zj)[R][2],
+                const float(&t4)[NT4]) {
+              float* p = col + WP::blk(j) * ST;
+              const float vj = v[j];
+              p[FT::V * ST] = vj;
+#pragma unroll
+              for (int r = 0; r < R; ++r) {  // u_jr = v_j w_jr, y = v_j z
+                p[(FT::W + 2 * r) * ST] = vj * wj[r].re;
+                p[(FT::W + 2 * r + 1) * ST] = vj * wj[r].im;
+#pragma unroll
+                for (int ch = 0; ch < 2; ++ch) {
+                  p[FT::zre(r, ch) * ST] = vj * zj[r][ch].re;
+                  if constexpr (!REAL)
+                    p[FT::zim(r, ch) * ST] = vj * zj[r][ch].im;
+                }
+              }
+#pragma unroll
+              for (int q = 0; q < NT4; ++q) t4v[u][q] = t4[q];
+            });
+        if constexpr (J0 == 0) ll_acc += llt;
+      } else {  // a frame past N: its features 0, so it adds nothing
+        if constexpr (J0 == 0) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) col[(FT::X + e) * ST] = 0.f;
+        }
+#pragma unroll 1
+        for (int e = WP::blk(J0); e < WP::blk(J0 + JN); ++e) col[e * ST] = 0.f;
+#pragma unroll
+        for (int u = 0; u < JN; ++u)
+#pragma unroll
+          for (int q = 0; q < NT4; ++q) t4v[u][q] = 0.f;
+      }
+      // the warp's sums of the T4 terms, every shuffle tree at once, into
+      // the warp's totals
+#pragma unroll
+      for (int u = 0; u < JN; ++u)
+#pragma unroll
+        for (int q = 0; q < NT4; ++q) t4v[u][q] = warp_sum(t4v[u][q]);
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < JN; ++u)
+#pragma unroll
+          for (int q = 0; q < NT4; ++q) t4w[warp][u * NT4 + q] += t4v[u][q];
+      }
+    };
+    if constexpr (WP::G == 1) {
+      phase1(std::integral_constant<int, 0>());
+    } else {
+      if (h == 0)
+        phase1(std::integral_constant<int, 0>());
+      else
+        phase1(std::integral_constant<int, 1>());
+    }
+    __syncthreads();
+
+    // -- phase 2, each thread its owners over its group's frames --------------
+    const int quads = (min(TF, N - n0) + 3) >> 2;
+    auto span = [&](int L, int& q0) {
+      const int per = (quads + kGenThreads / L - 1) / (kGenThreads / L);
+      q0 = tid / L * per;
+      return min(per, quads - q0);
+    };
+#pragma unroll
+    for (int i = 0; i < WP::N_TSS; ++i) {
+      constexpr int L = WP::L_TSS;
+      const int o = i * L + tid % L;
+      int q0;
+      const int nq = span(L, q0), f0 = 4 * q0;
+      if (o < WP::O_TSS && nq > 0) {
+        const int jk = own[o];
+        wide_tss<J, R, REAL, NS, ST>(feats + WP::blk(jk & 255) * ST + f0,
+                                     feats + WP::blk(jk >> 8) * ST + f0, nq,
+                                     sig, tot_tss[i]);
+      }
+    }
+    // the next tile's x4 and v load while T7 and the sources' sums run
+    {
+      const int nn = n + TF;
+      const bool vn = nn < N;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) px[q] = vn ? xrow[q * FN + nn] : 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) pv[j] = vn ? vrow[j * FN + nn] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < WP::N_T7; ++i) {
+      constexpr int L = WP::L_T7;
+      const int o = i * L + tid % L;
+      int q0;
+      const int nq = span(L, q0), f0 = 4 * q0;
+      if (o < WP::O_T7 && nq > 0) {
+        const int jk = own[S::PAIRS + o];
+        wide_t7<J, R, REAL, ST>(feats + WP::blk(jk & 255) * ST + f0,
+                                feats + WP::blk(jk >> 8) * ST + f0, nq,
+                                tot_t7[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WP::N_SRC; ++i) {
+      constexpr int L = WP::L_SRC;
+      const int o = i * L + tid % L;
+      int q0;
+      const int nq = span(L, q0), f0 = 4 * q0;
+      if (o < WP::O_SRC && nq > 0)
+        wide_txs<J, R, REAL, NS, ST>(feats + WP::blk(o) * ST + f0,
+                                     feats + FT::X * ST + f0, nq, sig,
+                                     tot_src[i]);
+    }
+    __syncthreads();  // the tile is free for the next one's features
+  }
+
+  // -- the row's sums ----------------------------------------------------------
+#pragma unroll
+  for (int i = 0; i < WP::N_TSS; ++i)
+#pragma unroll
+    for (int s = 0; s < 2 * R * R; ++s)
+      feats[(WP::TOT_TSS + i * WP::U_TSS + s) * kGenThreads + tid] =
+          tot_tss[i][s];
+#pragma unroll
+  for (int i = 0; i < WP::N_T7; ++i)
+#pragma unroll
+    for (int s = 0; s < 2 * R * W7; ++s)
+      feats[(WP::TOT_T7 + i * WP::U_T7 + s) * kGenThreads + tid] =
+          tot_t7[i][s];
+#pragma unroll
+  for (int i = 0; i < WP::N_SRC; ++i)
+#pragma unroll
+    for (int s = 0; s < 4 * R; ++s)
+      feats[(WP::TOT_SRC + i * WP::U_SRC + s) * kGenThreads + tid] =
+          tot_src[i][s];
+  ll_acc = warp_sum(ll_acc);
+  if (lane == 0) llw[warp] = ll_acc;
+  __syncthreads();
+
+  auto total = [&](auto lanes, int base, int sums, int o, int s) {
+    constexpr int L = decltype(lanes)::value;
+    const float* p = feats + (base + (o / L) * sums + s) * kGenThreads +
+                     o % L;
+    float t = p[0];
+#pragma unroll
+    for (int g0 = L; g0 < kGenThreads / L * L; g0 += L) t += p[g0];
+    return t;
+  };
+  using LTss = std::integral_constant<int, WP::L_TSS>;
+  using LT7 = std::integral_constant<int, WP::L_T7>;
+  using LSrc = std::integral_constant<int, WP::L_SRC>;
+  constexpr int WH = kGenWarps / WP::G;  // warps a half
+  float* red = feats + WP::RED;  // the row's sums, Slots order
+  for (int s = tid; s <= S::COUNT; s += kGenThreads) {
+    float t;
+    if (s == S::LL) {
+      t = llw[0];
+#pragma unroll
+      for (int w2 = 1; w2 < kGenWarps; ++w2) t += llw[w2];
+    } else if (s < S::TXS) {  // T4: the warps of source j's half in order
+      const int j = (s - S::T4) / NT4, q = (s - S::T4) % NT4;
+      const int w0 = j / JH * WH, e = (j % JH) * NT4 + q;
+      t = t4w[w0][e];
+#pragma unroll
+      for (int w2 = 1; w2 < WH; ++w2) t += t4w[w0 + w2][e];
+    } else if (s < S::TSS) {
+      const int j = (s - S::TXS) / (4 * R);
+      t = total(LSrc(), WP::TOT_SRC, WP::U_SRC, j, (s - S::TXS) % (4 * R));
+    } else if (s < S::T7) {
+      const int o = (s - S::TSS) / (2 * R * R);
+      t = total(LTss(), WP::TOT_TSS, WP::U_TSS, o,
+                (s - S::TSS) % (2 * R * R));
+    } else {  // T7_jk (r, s) = A_jr^H sum_n v_j y_ks
+      const int o = (s - S::T7) / (2 * R * R), e = (s - S::T7) % (2 * R * R);
+      const int r = (e >> 1) / R, sk = (e >> 1) % R, j = own[S::PAIRS + o] & 255;
+      auto zs = [&](int ch, int p) {
+        return total(LT7(), WP::TOT_T7, WP::U_T7, o, (sk * 2 + ch) * W7 + p);
+      };
+      if constexpr (REAL) {
+        t = (e & 1) ? 0.f
+                    : c.A[j][r][0].re * zs(0, 0) + c.A[j][r][1].re * zs(1, 0);
+      } else {
+        const cf p = cmul_conj<false>(c.A[j][r][0], cf{zs(0, 0), zs(0, 1)});
+        const cf u = cmul_conj<false>(c.A[j][r][1], cf{zs(1, 0), zs(1, 1)});
+        t = (e & 1) ? p.im + u.im : p.re + u.re;
+      }
+    }
+    red[s] = t;
+  }
+  __syncthreads();
+  write_outputs<J, R, REAL>(g, red, rk, b, f, row, tid);
+}
+
 using Kernel = void (*)(Args);
 
 // An instantiation and its launch's dynamic shared bytes.
@@ -1459,6 +2151,9 @@ template <int J, int R, bool REAL, bool NS>
 Pick pick_one() {
   if constexpr (Slots<J, R>::REG)
     return Pick{&estep_reg_kernel<J, R, REAL, NS>, 0};
+  else if constexpr (Wide<J, R, REAL, NS>::G > 0)
+    return Pick{&estep_wide_kernel<J, R, REAL, NS>,
+                Wide<J, R, REAL, NS>::BYTES};
   else
     return Pick{&estep_frames_kernel<J, R, REAL, NS>,
                 Split<J, R, REAL, NS>::BYTES};

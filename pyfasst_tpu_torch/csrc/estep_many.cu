@@ -102,6 +102,7 @@ using pyfasst_general::cf;
 using pyfasst_general::cmul_conj;
 using pyfasst_general::Feats;
 using pyfasst_general::herm_apply;
+using pyfasst_general::warp_sum;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -368,13 +369,6 @@ struct FArgs {
   float eps;
   int fast_recip, no_ll;
 };
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_down_sync(0xffffffffu, x, off);
-  return x;  // lane 0's is the warp's sum
-}
 
 // Source j's Txs (4 words per column r) over nq quads of frames from pa
 // (its block of feature rows) and px (the frames' x): estep_general.cuh's

@@ -32,7 +32,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -163,13 +163,14 @@ def _stamp(name: str) -> Path:
     return BUILD_DIR / (LIB_NAMES[name] + ".sha256")
 
 
-def load(name: str = "core") -> ctypes.CDLL:
+def load(name: str = "core", path: Optional[str] = None) -> ctypes.CDLL:
     """Library `name` ("core", "wide" or "many"), built on first use, with
-    its C signatures set."""
-    if name in _libs:
+    its C signatures set; with `path`, that build of it (an edited copy's,
+    say), which then serves the calls that follow."""
+    if name in _libs and path is None:
         return _libs[name]
     from pyfasst_tpu_torch.ops.cuda_estep import GENERAL_J
-    lib = ctypes.CDLL(build(names=(name,))["paths"][name])
+    lib = ctypes.CDLL(path or build(names=(name,))["paths"][name])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "many":
         fn = lib.pyfasst_estep_many

@@ -2,7 +2,7 @@
 
 csrc/estep.cu, csrc/spectral.cu and the general E-step kernel
 (csrc/estep_general.cuh through csrc/estep_j{J}.cu for J in SHIM_J: 2 to
-10, 12 and 16) are compiled with g++ against the stand-in headers of
+10, 12, 13 and 16) are compiled with g++ against the stand-in headers of
 tests/cuda_shim/ (threads, barriers and shuffles on std::thread; one
 block at a time), from a scratch copy in which
 
@@ -11,8 +11,9 @@ block at a time), from a scratch copy in which
     recip.cuh's rcp.approx asm                     ->  1 / x
 
 and estep_r1_real (with the frame split of few rows and its threshold),
-the general E-step (J = 2 to 10, 12 and 16, real and complex, ranks 1, 2
-and mixed, noise injection and each flag), tw_stats and fb_stats are
+the general E-step (J = 2 to 10, 12, 13 and 16, real and complex, ranks
+1, 2 and mixed, noise injection and each flag; past eight sources its
+WIDE kernel, two lanes a frame over tiles of 64 frames), tw_stats and fb_stats are
 held against their plain PyTorch versions at shapes that cross every tile
 edge of the kernels (one frame, 31 and 33 frames, fewer rows than a batch,
 two rows more than a chunk, K below, at and above KMAX; past K = 32 the
@@ -48,12 +49,13 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT.parent / "pyfasst_tpu_torch" / "csrc"
 # the general kernel's translation units compiled here: every J up to 10,
-# then 12 and 16 (the same header; J = 10 is the first whose J^2 output
-# blocks loop over the block's threads while its J + J^2 row constants do
-# not, J = 11 the first where both loop; 11 and 13-15 cost ~5 s of g++
-# each and cross no edge that 12 and 16 do not; the card's tests run
-# every J)
-SHIM_J = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 16)
+# then 12, 13 and 16 (the same header; J = 10 is the first whose J^2
+# output blocks loop over the block's threads while its J + J^2 row
+# constants do not, J = 11 the first where both loop; J = 9 and 13 split
+# their sources unevenly over a frame's two lanes (5 + 4, 7 + 6) in the
+# WIDE kernel; 11, 14 and 15 cost ~5 s of g++ each and cross no edge that
+# these do not; the card's tests run every J)
+SHIM_J = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 13, 16)
 SOURCES = ("estep.cu", "spectral.cu") + tuple(
     f"estep_j{J}.cu" for J in SHIM_J)
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[\w, ]+>)?)<<<(.+?)>>>\((.*?)\);",
@@ -326,6 +328,24 @@ GENERAL = [(2, (1, 1), False, False, "", 1, 3, 33),
            (16, (2,) * 16, False, True, "", 1, 1, 129)]
 
 
+def _general_call(lib, x4, v, A4, sigma, ranks, real, ns, flag=""):
+    """One launch of the general kernel through its C entry point: its
+    outputs, NaN wherever it wrote nothing."""
+    B, J, F, N = v.shape
+    Rmax = max(ranks)
+    shapes = [(B, J, F, N), (B, J, F, 4 * Rmax),
+              (B, J, J, F, 2 * Rmax * Rmax), (B, J, F, 4),
+              (B, J, J, F, 2 * Rmax * Rmax), (B, F)]
+    got = [torch.full(s, float("nan")) for s in shapes]
+    mask = sum(1 << j for j, r in enumerate(ranks) if r == 2)
+    err = getattr(lib, f"pyfasst_estep_j{J}")(
+        *(t.data_ptr() for t in (x4, v, A4, sigma, *got)), B, F, N, mask,
+        Rmax, int(real), int(ns), ctypes.c_float(1e-30),
+        int(flag == "fast_recip"), int(flag == "no_ll"), None)
+    assert err == 0
+    return got
+
+
 def _general_run(lib, J, ranks, real, ns, flag, B, F, N):
     """One launch of the general kernel through its C entry point on inputs
     drawn for the case: (inputs, outputs), NaN wherever it wrote nothing."""
@@ -341,22 +361,17 @@ def _general_run(lib, J, ranks, real, ns, flag, B, F, N):
         A4[:, j, :, :4 * R] = a
     A4 = _t(A4)
     sigma = _t(0.01 + 0.005 * rng.random((B, F)))
-    shapes = [(B, J, F, N), (B, J, F, 4 * Rmax),
-              (B, J, J, F, 2 * Rmax * Rmax), (B, J, F, 4),
-              (B, J, J, F, 2 * Rmax * Rmax), (B, F)]
-    got = [torch.full(s, float("nan")) for s in shapes]
-    mask = sum(1 << j for j, r in enumerate(ranks) if r == 2)
-    err = getattr(lib, f"pyfasst_estep_j{J}")(
-        *(t.data_ptr() for t in (x4, v, A4, sigma, *got)), B, F, N, mask,
-        Rmax, int(real), int(ns), ctypes.c_float(1e-30),
-        int(flag == "fast_recip"), int(flag == "no_ll"), None)
-    assert err == 0
-    return (x4, v, A4, sigma), got
+    return (x4, v, A4, sigma), _general_call(lib, x4, v, A4, sigma, ranks,
+                                             real, ns, flag)
 
 
 @pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", GENERAL)
 def test_general_estep_source_matches_plain_version(lib, J, ranks, real, ns,
                                                     flag, B, F, N):
+    _check_general(lib, J, ranks, real, ns, flag, B, F, N)
+
+
+def _check_general(lib, J, ranks, real, ns, flag, B, F, N):
     (x4, v, A4, sigma), got = _general_run(lib, J, ranks, real, ns, flag, B,
                                            F, N)
     want = cuda_estep.estep_ref(x4, v, A4, sigma, ranks, ns_inj=ns,
@@ -384,6 +399,75 @@ def test_general_estep_source_twice_gives_the_same_bits(lib, case):
     _, again = _general_run(lib, *case)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+# Past eight sources the WIDE kernel (estep_wide_kernel) where wide_lanes
+# takes it: one lane a frame over 128-frame tiles (rank 1 from J = 12 real
+# and at every J complex, four blocks an SM up to J = 10; rank 2 at J =
+# 9-12 complex and J = 11-15 real) or two lanes a frame over 64-frame
+# tiles (complex rank 2 from J = 13, real rank 2 at J = 16), the first
+# lane owning sources 0 .. ceil(J / 2) - 1 (at J = 13 the second lane's
+# group is one source short); the T4 terms summed by each warp; FRAMES at
+# the rest (real rank 1 up to J = 11, real rank 2 up to J = 10, and ns_inj
+# at complex rank 2 J = 11: J = 9, 10 real rank 1 here). Its edges: one
+# frame;
+# 63, 64, 65 frames (a two-lane tile one short, whole, one past); 127, 128,
+# 129 and 192 (a one-lane tile and more); 70 and 100 (a last tile of 6
+# and 36 frames, a partial quad); real and complex mixing, ranks 1, 2 and
+# mixed, ns_inj and each flag; B = 2.
+WIDE = [(9, (1,) * 9, True, False, "", 1, 2, 63),
+        (9, (2,) * 9, False, False, "", 1, 1, 64),
+        (9, (1, 2, 1, 2, 1, 2, 1, 2, 1), False, True, "fast_recip", 1, 2,
+         127),
+        (10, (1,) * 10, True, False, "", 1, 2, 65),
+        (10, (1,) * 10, False, False, "fast_recip", 1, 1, 128),
+        (12, (2,) * 12, False, False, "", 1, 1, 129),
+        (12, (1,) * 12, False, True, "no_ll", 2, 1, 100),
+        (13, (1,) * 13, True, False, "", 1, 2, 1),
+        (13, (2,) * 13, False, False, "", 1, 1, 70),
+        (13, (1, 2) * 6 + (1,), False, False, "", 1, 1, 65),
+        (13, (2,) * 13, False, True, "", 1, 1, 33),
+        (13, (2,) * 13, True, False, "no_ll", 1, 2, 64),
+        (16, (1,) * 16, True, False, "", 1, 1, 192),
+        (16, (2,) * 16, False, False, "", 1, 1, 64),
+        (16, (2, 1) * 8, True, True, "", 1, 1, 67),
+        (16, (1,) * 16, False, False, "", 2, 1, 63)]
+
+
+@pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", WIDE)
+def test_wide_estep_source_matches_plain_version(lib, J, ranks, real, ns,
+                                                 flag, B, F, N):
+    _check_general(lib, J, ranks, real, ns, flag, B, F, N)
+
+
+# two launches give the same bits across its tiles, lanes and warps
+@pytest.mark.parametrize("case", [WIDE[2], WIDE[6], WIDE[8], WIDE[12]])
+def test_wide_estep_source_twice_gives_the_same_bits(lib, case):
+    _, got = _general_run(lib, *case)
+    _, again = _general_run(lib, *case)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_wide_estep_source_matches_the_jax_xla_estep(lib):
+    """The WIDE kernel at J = 12 (real rank 1, the instantaneous model) on
+    a tiny plane against the JAX package's XLA E-step, at the bars of
+    tests/test_torch_estep_many.py."""
+    from tests.test_torch_estep_general import (_BARS_R1, _case_inputs,
+                                                _compare_stats)
+    from tests.test_torch_estep_many import _xla
+    cases = {"real_r1_J12": (12, (1,) * 12, "inst", 5, 70, False, True,
+                             _BARS_R1)}
+    jin, tin, ranks, ns, real = _case_inputs("real_r1_J12", cases)
+    x4 = cuda_estep.pack_x4(tin[0])
+    A4 = cuda_estep.pack_A4(tin[3], ranks)
+    got = _general_call(lib, x4, tin[1].contiguous(), A4,
+                        tin[2].contiguous(), ranks, real, ns)
+    want = cuda_estep.estep_ref(x4, tin[1], A4, tin[2], ranks,
+                                real_cov=real)
+    assert torch.equal(got[0], want[0])                # xi: no sum in it
+    _compare_stats(cuda_estep.unpack_stats(got, ranks), _xla(jin, ranks, ns),
+                   len(ranks), cases["real_r1_J12"][-1])
 
 
 # (B, J, F, N, K). N = 1, 31, 33 and 17: tw_stats' strips of 16 frames and

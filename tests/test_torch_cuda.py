@@ -310,6 +310,57 @@ def test_many_kernel_matches_plain_version(dev, J, ranks, real, ns, flag, B,
         assert torch.equal(g, a)
 
 
+# The general kernel past eight sources (csrc/estep_j{9..16}.cu): its WIDE
+# kernel where wide_lanes takes it (one lane a frame over 128-frame tiles,
+# or two lanes over 64-frame tiles at rank 2 from J = 13 complex and at J =
+# 16 real, the second lane one source short at odd J), FRAMES elsewhere.
+# One frame; 63, 64, 65, 127, 128, 129 and 192 frames (across both tile
+# sizes); 70 and 100 (a last tile of 6 and 36 frames); every J of 9-16
+# with every variant among the cases, B = 2; and the path's plane (1, 513,
+# 863). xi equals the plain version's bits (no fast_recip), two launches
+# give the same bits.
+WIDE = [(9, (1,) * 9, True, False, "", 1, 33, 63),
+        (9, (2, 1) * 4 + (2,), False, True, "fast_recip", 2, 9, 127),
+        (10, (1,) * 10, True, False, "", 1, 513, 863),
+        (10, (1,) * 10, False, False, "no_ll", 1, 17, 65),
+        (11, (2,) * 11, True, False, "", 1, 9, 64),
+        (11, (1,) * 11, False, True, "", 2, 5, 1),
+        (12, (2,) * 12, False, False, "", 1, 13, 129),
+        (12, (1, 2) * 6, False, False, "fast_recip", 1, 9, 70),
+        (13, (1,) * 13, True, False, "", 1, 9, 100),
+        (13, (2,) * 13, False, True, "no_ll", 1, 5, 128),
+        (14, (1,) * 14, False, False, "", 1, 17, 192),
+        (14, (2,) * 14, True, True, "", 1, 5, 65),
+        (15, (2,) * 15, False, False, "", 2, 5, 63),
+        (15, (1,) * 15, True, False, "no_ll", 1, 33, 129),
+        (16, (2,) * 16, False, False, "", 1, 9, 64),
+        (16, (1,) * 16, True, False, "", 2, 5, 100),
+        (16, (2, 1) * 8, False, True, "", 1, 9, 70)]
+
+
+@pytest.mark.parametrize("J,ranks,real,ns,flag,B,F,N", WIDE)
+def test_wide_kernel_matches_plain_version(dev, J, ranks, real, ns, flag, B,
+                                           F, N):
+    inp = _general_inputs(B, J, F, N, ranks, real, B * F * N + J, dev)
+    kw = dict(ns_inj=ns, real_cov=real)
+    fl = {flag: True} if flag else {}
+    launches = cuda_estep.LAUNCHES
+    got = cuda_estep.estep_general(*inp, ranks, **kw, **fl)
+    want = cuda_estep.estep_ref(*inp, ranks, **kw, no_ll=flag == "no_ll")
+    torch.cuda.synchronize()
+    assert cuda_estep.LAUNCHES == launches + 1
+    xi_bar = 3e-4 if max(ranks) == 2 else 2e-4
+    for g, w, rtol in zip(got[:5], want[:5], (xi_bar,) + (5e-4,) * 4):
+        assert g.shape == w.shape and _rel(g, w) <= rtol
+    torch.testing.assert_close(got[5].sum(-1), want[5].sum(-1), rtol=1e-4,
+                               atol=0)
+    if flag != "fast_recip":
+        assert torch.equal(got[0], want[0])
+    again = cuda_estep.estep_general(*inp, ranks, **kw, **fl)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
 def test_general_kernel_wrapper_checks_its_inputs(dev):
     x4, v, A4, sigma = _general_inputs(1, 2, 5, 7, (2, 1), False, 0, dev)
     with pytest.raises(ValueError, match="shape"):

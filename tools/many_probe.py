@@ -27,9 +27,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
-import shutil
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -43,13 +41,21 @@ ROUTE_CASES = ([(8, J, 2, False) for J in (20, 24, 26, 28, 30, 32)]
                + [(8, J, 1, False) for J in (24, 28, 32, 36, 40, 48)]
                + [(1, J, 1, True) for J in (20, 28, 32)])
 
+# the routes mode's copy: fused_plan's first test made to refuse every shape
+ROUTE_EDIT = ("estep_many.cu",
+              "if (B <= 0 || J <= 0 || F <= 0 || N <= 0 || J > kFusedMaxJ ||",
+              "if (true ||")
 
-def _smoke():
-    spec = importlib.util.spec_from_file_location("probe_smoke",
-                                                  ROOT / "chip_smoke.py")
+
+def _load(path):
+    spec = importlib.util.spec_from_file_location(f"probe_{path.stem}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _smoke():
+    return _load(ROOT / "chip_smoke.py")
 
 
 def _call(cs, dev, B, J, R, real):
@@ -86,41 +92,13 @@ def split(tree: str, shapes=SHAPES):
 
 
 def routes():
-    dest = ROOT / "chip_checkout" / "routes"
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(ROOT / "pyfasst_tpu_torch", dest / "pyfasst_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = dest / "pyfasst_tpu_torch" / "csrc" / "estep_many.cu"
-    text = src.read_text()
-    old = "if (B <= 0 || J <= 0 || F <= 0 || N <= 0 || J > kFusedMaxJ ||"
-    if text.count(old) != 1:
-        raise SystemExit("fused_plan's first test not found once")
-    src.write_text(text.replace(old, "if (true ||"))
-    cmd = ("import sys; sys.path.insert(0, sys.argv[1]); "
-           "from pyfasst_tpu_torch.ops import _build; "
-           "i = _build.build(names=('many',)); "
-           "print(i['seconds'], i['paths']['many'])")
-    procs = [subprocess.Popen([sys.executable, "-c", cmd, str(t)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for t in (ROOT, dest)]
-    paths = []
-    for p in procs:
-        out = p.communicate()[0]
-        if p.returncode:
-            raise SystemExit(out[-3000:])
-        secs, path = out.split()[-2:]
-        print(f"built {path} in {float(secs):.1f} s", flush=True)
-        paths.append(path)
+    kc = _load(ROOT / "kernel_compare.py")
+    dest = kc.make_copy(ROOT / "chip_checkout" / "routes", [ROUTE_EDIT])
+    paths = {side: p["many"] for side, p in kc.build_copies(
+        {"fused": ROOT, "chunked": dest}, ("many",)).items()}
     import torch
     from pyfasst_tpu_torch.ops import _build, cuda_estep
     cs = _smoke()
-    libs = {"fused": _build.load("many")}
-    _build._libs.pop("many")
-    real_build = _build.build
-    _build.build = lambda **kw: {"paths": {"many": paths[1]}}
-    libs["chunked"] = _build.load("many")
-    _build.build = real_build
     dev = torch.device("cuda", 0)
     rows = []
     for B, J, R, real in ROUTE_CASES:
@@ -133,11 +111,11 @@ def routes():
         ms = {"fused": [], "chunked": []}
         outs = {}
         for side in ("fused", "chunked", "chunked", "fused"):
-            _build._libs["many"] = libs[side]
+            _build.load("many", paths[side])
             outs[side] = fn()
             ms[side] += cs._graph_ms(fn, 3, 2)
         same = torch.equal(outs["fused"][0], outs["chunked"][0])
-        _build._libs["many"] = libs["fused"]
+        _build.load("many", paths["fused"])
         plan = cuda_estep.many_plan(B, J, 513, 863, R, real)
         f, c = (statistics.median(ms[k]) for k in ("fused", "chunked"))
         row = dict(B=B, J=J, R=R, real=real, fused_ms=round(f, 4),
@@ -148,7 +126,6 @@ def routes():
         print(json.dumps(row), flush=True)
         del inp, outs
         torch.cuda.empty_cache()
-    _build._libs["many"] = libs["fused"]
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "route_probe.json").write_text(
         json.dumps(rows, indent=1))
