@@ -101,6 +101,16 @@ def _join_launcher_group(args) -> None:
 
 
 def _cmd_separate(args) -> int:
+    """`separate`; with --trace-dir DIR the whole of it runs under a
+    torch profiler (utils/logging.device_trace), which writes a Chrome
+    trace of the port's spans (api.*, stft, gem.*, wiener, istft) above
+    the kernels into DIR."""
+    from pyfasst_tpu_torch.utils.logging import device_trace
+    with device_trace(args.trace_dir):
+        return _separate(args)
+
+
+def _separate(args) -> int:
     from pyfasst_tpu_torch.audio import AudioObject, wav_info
     from pyfasst_tpu_torch.models.variants import (
         MultiChanHMM, MultiChanNMFConv, MultiChanNMFInst_FASST,
@@ -510,6 +520,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=None,
                    help="with --checkpoint: persist every K iterations and "
                         "roll back to the last checkpoint on divergence")
+    p.add_argument("--trace-dir", dest="trace_dir", default=None,
+                   metavar="DIR",
+                   help="run under torch.profiler and write a Chrome trace "
+                        "of the stages' spans and the kernels into DIR "
+                        "(large: try it with --iters 20)")
     p.set_defaults(fn=_cmd_separate)
 
     p = sub.add_parser("lead", help="lead/accompaniment separation (SIMM)")

@@ -26,6 +26,12 @@ estim_param_blind_reverb runs the blind reverberant pipeline
 (models/reverb.py) in place of estim_param_a_posteriori and installs the
 winner's parameters (with `multiscale_wlen=`, through the multiscale
 ladder).
+
+Under a torch profiler the stages are spans (utils/logging.py): api.init
+(a variant's constructor, variants.py), with api.read (the WAV read) and
+the front end's stft inside it; api.gem (estim_param_a_posteriori, with
+the GEM loop's gem.* inside it); wiener and istft; api.write (the WAV
+writes).
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from pyfasst_tpu_torch.utils.checkpoint import load_params, save_params
 from pyfasst_tpu_torch.utils.config import GEMConfig
 from pyfasst_tpu_torch.utils import prng
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from pyfasst_tpu_torch.utils.logging import span
 
 
 class FASST:
@@ -79,7 +86,8 @@ class FASST:
         if isinstance(audio, AudioObject):
             self.audio = audio
         elif isinstance(audio, (str, os.PathLike)):
-            self.audio = AudioObject(audio)
+            with span("api.read"):
+                self.audio = AudioObject(audio)
         else:
             self.audio = AudioObject(data=np.asarray(audio), samplerate=fs)
         self.fs = self.audio.samplerate
@@ -173,6 +181,7 @@ class FASST:
         return observed_covariance(self.Xs)
 
     # -- estimation ----------------------------------------------------------
+    @span("api.gem")
     def estim_param_a_posteriori(self, niter: Optional[int] = None,
                                  start_iter: int = 0,
                                  checkpoint_path: Optional[str] = None,
@@ -376,6 +385,7 @@ class FASST:
         """Alias kept for reference API parity: the separated source images."""
         return self.separated_images()
 
+    @span("api.write")
     def _write_sources(self, ys: np.ndarray, dir_results: Optional[str],
                        suffix: str) -> List[str]:
         if dir_results is None:

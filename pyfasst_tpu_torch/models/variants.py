@@ -15,6 +15,10 @@ Constructor kwarg names (`nbComps`, `nbNMFComps`, `spatial_rank`) follow
 the reference. `freq_basis` ("erb" or "mel") fixes each NMF component's FB
 to a tf.filterbank.spectral_basis of `n_bands` bands, with free weights FW
 on the band grid.
+
+Each constructor is the span api.init under a torch profiler
+(utils/logging.py); the WAV read (api.read) and the front end (stft) are
+spans inside it, so its self time is the initial draw.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from pyfasst_tpu_torch.models.components import (
 from pyfasst_tpu_torch.models.fasst import FASST
 from pyfasst_tpu_torch.tf.filterbank import spectral_basis
 from pyfasst_tpu_torch.utils import prng
+from pyfasst_tpu_torch.utils.logging import span
 
 
 def _fixed_basis(model: FASST, freq_basis: Optional[str], n_bands: int):
@@ -71,6 +76,7 @@ class MultiChanNMFInst_FASST(FASST):
     the same numbers for the same seed.
     """
 
+    @span("api.init")
     def __init__(self, audio, nbComps: int = 2, nbNMFComps: int = 4,
                  spatial_rank: int = 1, freq_basis: Optional[str] = None,
                  n_bands: int = 40, **kw):
@@ -107,6 +113,7 @@ class MultiChanNMFConv(FASST):
     `init_mixing` (J, F, I, R) to seed from DEMIX (models/demix.py).
     """
 
+    @span("api.init")
     def __init__(self, audio, nbComps: int = 3, nbNMFComps: int = 4,
                  spatial_rank: int = 1,
                  init_mixing: Optional[np.ndarray] = None,
@@ -147,6 +154,7 @@ class MultiChanHMM(FASST):
     from fold_in(that key, 1).
     """
 
+    @span("api.init")
     def __init__(self, audio, nbComps: int = 2, nbStates: int = 8,
                  spatial_rank: int = 1, sparsity: str = "HMM",
                  self_trans: float = 0.9, mix_type: str = INST,
@@ -286,6 +294,7 @@ class multiChanSourceF0Filter(FASST):
     a SeparateLeadStereoTF run on the same grids.
     """
 
+    @span("api.init")
     def __init__(self, audio, nbComps: int = 2, nbNMFComps: int = 4,
                  n_f0: int = 60, n_filter_bands: int = 20,
                  spatial_rank: int = 1, f0_min: float = 80.0,

@@ -52,6 +52,7 @@ from pyfasst_tpu_torch.ops.mstep import (
     _as_conv_A, renormalize, update_spatial, update_spectral,
 )
 from pyfasst_tpu_torch.ops.collectives import active_axis, reduce_stats
+from pyfasst_tpu_torch.utils import logging as tlog
 from pyfasst_tpu_torch.utils.config import AnnealingMode, GEMConfig
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
@@ -141,7 +142,7 @@ def _estep(params, X, v, sigma, cfg: GEMConfig, x4):
 
 
 def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,
-             spatial_enabled: bool = True, x4=None
+             spatial_enabled: bool = True, x4=None, traced: bool = False
              ) -> Tuple[FasstParams, torch.Tensor]:
     """One GEM iteration; returns updated params and the (B,) step
     log-likelihood.
@@ -149,8 +150,12 @@ def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,
     X is the complex mixture STFT (B, F, N, I). x4 optionally carries
     cuda_estep.pack_x4(X), hoisted out of the loop by run_gem. Under a
     shard of parallel/sharding.py X is this rank's slice, and the E-step's
-    sums over the sharded axis are finished by reduce_stats.
+    sums over the sharded axis are finished by reduce_stats. traced (the
+    caller has read utils/logging.recording() as true) records the spans
+    gem.e_step, gem.m_spatial and gem.m_spectral.
     """
+    if traced:
+        stage = tlog.begin("gem.e_step")
     v = params.all_source_powers()                    # (B, J, F, N)
     if X.shape[-1] != 2:
         # the general-I engine, on either device, and the unfused spectral
@@ -160,15 +165,16 @@ def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,
             X, v, tuple(_as_conv_A(c, F) for c in params.spat), sigma,
             tuple(c.rank for c in params.spat), eps=cfg.eps,
             noise_inject=cfg.annealing == AnnealingMode.ANN_NS_INJ))
-        params = update_spatial(params, stats, sigma,
-                                enabled=spatial_enabled)
-        params = update_spectral(params, stats, eps=cfg.eps, v=v)
-        if cfg.renormalize:
-            params = renormalize(params)
-        return params, stats.loglik
-    stats = reduce_stats(_estep(params, X, v, sigma, cfg, x4))
+    else:
+        stats = reduce_stats(_estep(params, X, v, sigma, cfg, x4))
+    if traced:
+        tlog.end(stage)
+        stage = tlog.begin("gem.m_spatial")
     params = update_spatial(params, stats, sigma, enabled=spatial_enabled)
-    if (cfg.fuse_spectral and X.device.type == "cuda"
+    if traced:
+        tlog.end(stage)
+        stage = tlog.begin("gem.m_spectral")
+    if (X.shape[-1] == 2 and cfg.fuse_spectral and X.device.type == "cuda"
             and cuda_spectral.eligible(params)):
         params = cuda_spectral.fused_spectral_update(params, stats,
                                                      eps=cfg.eps)
@@ -176,9 +182,12 @@ def gem_step(params: FasstParams, X, sigma, cfg: GEMConfig,
         params = update_spectral(params, stats, eps=cfg.eps, v=v)
     if cfg.renormalize:
         params = renormalize(params)
+    if traced:
+        tlog.end(stage)
     return params, stats.loglik
 
 
+@tlog.span("gem.run")
 @highest_precision
 def run_gem(params: FasstParams, X, cfg: GEMConfig, start_iter: int = 0,
             sigma_endpoints=None, end_iter: Optional[int] = None,
@@ -195,7 +204,9 @@ def run_gem(params: FasstParams, X, cfg: GEMConfig, start_iter: int = 0,
     sigma_endpoints, if given, is a (sigma0, sigma1) pair of (B, F) tensors
     overriding the endpoints derived from X.
 
-    Matrix products run in full float32 (no TF32).
+    Matrix products run in full float32 (no TF32). Under a torch profiler
+    the call is the span gem.run and each iteration's stages are spans
+    inside it (utils/logging.py).
     """
     if sigma_endpoints is None and active_axis() is not None:
         raise ValueError("a sharded run_gem needs the endpoints of the "
@@ -210,9 +221,11 @@ def run_gem(params: FasstParams, X, cfg: GEMConfig, start_iter: int = 0,
     x4 = (cuda_estep.pack_x4(X) if X.device.type == "cuda"
           and X.shape[-1] == 2 else None)
     stop = cfg.niter if end_iter is None else end_iter
+    traced = tlog.recording()
     for it in range(start_iter, stop):
         sigma = noise_psd(it, cfg.niter, sigma0, sigma1, cfg.annealing)
         params, ll = gem_step(params, X, sigma, cfg,
-                              spatial_enabled=it >= hold, x4=x4)
+                              spatial_enabled=it >= hold, x4=x4,
+                              traced=traced)
         logliks[:, it] = ll.to(torch.float32)
     return params, logliks

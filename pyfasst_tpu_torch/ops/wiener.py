@@ -23,6 +23,7 @@ from pyfasst_tpu_torch.ops.estep import (
 )
 from pyfasst_tpu_torch.ops.gem import spatial_covs
 from pyfasst_tpu_torch.ops.mstep import _as_conv_A
+from pyfasst_tpu_torch.utils.logging import span
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
 _I8 = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)  # packed general identity
@@ -34,6 +35,7 @@ def _herm_adj(P):
                        dim=-1)
 
 
+@span("wiener")
 @highest_precision
 def separate_sources(params: FasstParams, X, sigma):
     """Wiener posterior-mean source images y^_j = v_j R_j Sigma_x^-1 x.

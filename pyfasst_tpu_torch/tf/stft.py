@@ -31,6 +31,7 @@ import torch
 
 from pyfasst_tpu_torch.audio import wav_info, wavread_block
 from pyfasst_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from pyfasst_tpu_torch.utils.logging import span
 from pyfasst_tpu_torch.utils.precision import highest_precision
 
 
@@ -136,6 +137,7 @@ def _spec_from_padded(xp: torch.Tensor, window: torch.Tensor, wlen: int,
     return X.permute(*range(X.ndim - 3), -1, -2, -3)     # (..., F, N, I)
 
 
+@span("stft")
 def _stft_core(x: torch.Tensor, window: torch.Tensor, wlen: int, hop: int,
                method: str = "fft") -> torch.Tensor:
     """(nsamples,) -> (F, N); (..., nsamples, I) -> (..., F, N, I)."""
@@ -143,6 +145,7 @@ def _stft_core(x: torch.Tensor, window: torch.Tensor, wlen: int, hop: int,
                              method)
 
 
+@span("istft")
 @highest_precision
 def _istft_core(X: torch.Tensor, window: torch.Tensor, wlen: int, hop: int,
                 nsamples: int) -> torch.Tensor:

@@ -1,47 +1,107 @@
-"""Structured run logging and profiling hooks.
+"""Spans of the program's stages, and a profiler window around a phase.
 
-Port of pyfasst_tpu/utils/logging.py: per-run metrics as JSON lines, a
-wall-clock phase timer, and a profiler window around a phase
-(``device_trace``: torch.profiler here, jax.profiler in the JAX package).
+``span(name)`` marks a stage. A span is recorded only while a torch
+profiler records in this process (``recording()``); there is no other
+switch, so the spans and the device trace always cover the same window.
+A recorded span goes two ways:
+
+- into a bounded in-memory buffer (``spans()``, the newest SPAN_BUFFER
+  records), as a ``Span``: its name, the span open around it, and its
+  start and end on ``time.perf_counter_ns``;
+- into the profiler's trace as a host-only range
+  (``torch._C._profiler._RecordFunctionFast``): a CPU event on the clock
+  of the profiler's kernel records. ``torch.profiler.record_function``
+  would also add a CUDA-type ``gpu_user_annotation`` event under CUDA
+  activity, which a reader of the device's events would count as a
+  kernel.
+
+A hot loop reads ``recording()`` once and calls ``begin`` and ``end`` only
+when it is true (ops/gem.py::run_gem), so with no profiler an iteration
+does no more than a branch per stage. ``device_trace(logdir)`` runs a
+phase under the profiler and writes a Chrome trace, spans and kernels
+together.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
-import json
-import logging
+import itertools
 import os
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import NamedTuple, Optional
 
-logger = logging.getLogger("pyfasst_tpu_torch")
+import torch
+
+SPAN_BUFFER = 65536
 
 
-class JSONLWriter:
-    """Append-only JSONL metrics sink (one dict per line)."""
+class Span(NamedTuple):
+    id: int
+    name: str
+    parent: Optional[int]          # the id of the span open around it
+    start_ns: int
+    end_ns: int
 
-    def __init__(self, path: str):
-        self.path = path
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
-    def write(self, record: Dict[str, Any]) -> None:
-        with open(self.path, "a") as fh:
-            fh.write(json.dumps(record) + "\n")
+class _Open(threading.local):
+    def __init__(self):
+        self.stack = []            # this thread's open spans, innermost last
+
+
+_spans = collections.deque(maxlen=SPAN_BUFFER)
+_ids = itertools.count()
+_open = _Open()
+
+
+def recording() -> bool:
+    """True while a torch profiler records in this process."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def spans() -> collections.deque:
+    """The buffer of recorded spans, each appended when it ends."""
+    return _spans
+
+
+def begin(name: str) -> tuple:
+    """Open a span; the caller has read recording() as true. Returns the
+    token that end() takes."""
+    stack = _open.stack
+    rf = torch._C._profiler._RecordFunctionFast(name)
+    rf.__enter__()
+    token = (next(_ids), name, stack[-1][0] if stack else None, rf,
+             time.perf_counter_ns())
+    stack.append(token)
+    return token
+
+
+def end(token: tuple) -> None:
+    """Close the span begin() opened, and every span opened inside it
+    that is still open."""
+    t1 = time.perf_counter_ns()
+    stack = _open.stack
+    while stack:
+        top = stack.pop()
+        sid, name, parent, rf, t0 = top
+        rf.__exit__(None, None, None)
+        _spans.append(Span(sid, name, parent, t0, t1))
+        if top is token:
+            return
 
 
 @contextlib.contextmanager
-def phase_timer(name: str, sink: Optional[JSONLWriter] = None, **fields):
-    """Wall-clock a pipeline phase; logs and optionally emits JSONL.
-
-    CUDA work is asynchronous: end the block with a host read of a result
-    (or torch.cuda.synchronize()) for the device's time to be counted.
-    """
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    logger.info("%s: %.3f s", name, dt)
-    if sink is not None:
-        sink.write({"phase": name, "seconds": dt, "ts": time.time(),
-                    **fields})
+def span(name: str):
+    """A stage while a profiler records, nothing otherwise; a context
+    manager or a function's decorator."""
+    if not recording():
+        yield
+        return
+    token = begin(name)
+    try:
+        yield
+    finally:
+        end(token)
 
 
 @contextlib.contextmanager
@@ -51,7 +111,6 @@ def device_trace(logdir: Optional[str] = None):
     if logdir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -61,20 +120,3 @@ def device_trace(logdir: Optional[str] = None):
         yield
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-def gem_metrics_record(logliks, seconds: float, audio_seconds: float,
-                       niter: int, **extra) -> Dict[str, Any]:
-    """The per-run record of a GEM run: loglik trend, time, throughput."""
-    import numpy as np
-    ll = np.asarray(logliks, np.float64)
-    return {
-        "niter": int(niter),
-        "loglik_first": float(ll[0]),
-        "loglik_last": float(ll[-1]),
-        "loglik_monotone_frac": float(np.mean(np.diff(ll) >= 0)),
-        "seconds": float(seconds),
-        "iters_per_sec": float(niter / max(seconds, 1e-12)),
-        "xrt": float(audio_seconds / max(seconds, 1e-12)),
-        **extra,
-    }

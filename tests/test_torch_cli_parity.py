@@ -1,15 +1,15 @@
 """The port's CLI against the JAX package's (`pyfasst_tpu/__main__.py`).
 
 The parser (every subcommand and option, with its default, choices and
-metavar; the port adds only `--device`), the presets, and the same JSON
-from `info`, `demix` and `eval` on the same WAVs (DEMIX's gains and
-delays within 1e-3: the two packages' STFTs differ in float32 rounding;
-BSS-Eval figures within 0.01 dB). Checkpoints cross both ways: the JAX
-CLI's 8-iteration `--checkpoint` resumed by the port's CLI, the port's
-read by the JAX package. The port's `separate` report equals its API
-called with the same arguments, bit for bit. The JAX package's native WAV
-codec is switched off for these calls, so two test workers never race to
-build it.
+metavar; the port adds only `--device` and `separate --trace-dir`), the
+presets, and the same JSON from `info`, `demix` and `eval` on the same
+WAVs (DEMIX's gains and delays within 1e-3: the two packages' STFTs
+differ in float32 rounding; BSS-Eval figures within 0.01 dB).
+Checkpoints cross both ways: the JAX CLI's 8-iteration `--checkpoint`
+resumed by the port's CLI, the port's read by the JAX package. The port's
+`separate` report equals its API called with the same arguments, bit for
+bit. The JAX package's native WAV codec is switched off for these calls,
+so two test workers never race to build it.
 """
 import argparse
 import json
@@ -70,8 +70,8 @@ def test_parser_matches_jax(command):
     """Every option of the JAX CLI's subcommand exists in the port's with
     the same strings, default, choices, metavar, nargs and type; the port
     adds `--device` (default cuda) to the commands that build a model, and
-    nothing else; the subcommands' own defaults (lead's wlen and iters)
-    agree."""
+    `--trace-dir` (default none) to `separate`, and nothing else; the
+    subcommands' own defaults (lead's wlen and iters) agree."""
     want = _subparsers(j_build_parser())[command]
     got = _subparsers(build_parser())[command]
     assert set(_subparsers(build_parser())) == set(
@@ -79,8 +79,11 @@ def test_parser_matches_jax(command):
     w, g = _options(want), _options(got)
     extra = set(g) - set(w)
     if command in ("separate", "lead"):
-        assert extra == {"device"}
+        assert extra == ({"device", "trace_dir"} if command == "separate"
+                         else {"device"})
         assert g["device"][:3] == (("--device",), "cuda", ("cuda", "cpu"))
+        if command == "separate":
+            assert g["trace_dir"][:2] == (("--trace-dir",), None)
     else:
         assert not extra
     for dest, spec in w.items():

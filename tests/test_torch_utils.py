@@ -2,10 +2,9 @@
 its NumPy, so equal numbers), signal helpers on tensors (float64: rtol
 1e-12), the NumPy WAV codec (the cases of tests/test_native_wavio.py, held
 against scipy and against the native codec's documented conventions),
-logging, and the fused spectral step's eligibility at any NMF rank.
+and the fused spectral step's eligibility at any NMF rank (the spans of
+utils/logging.py: tests/test_torch_trace.py).
 """
-import json
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +15,6 @@ from pyfasst_tpu.utils import metrics as jmetrics
 from pyfasst_tpu.utils import signal as jsignal
 from pyfasst_tpu_torch import audio, convert
 from pyfasst_tpu_torch.ops import cuda_spectral
-from pyfasst_tpu_torch.utils import logging as tlog
 from pyfasst_tpu_torch.utils import metrics, signal
 
 torch.set_num_threads(1)
@@ -238,26 +236,6 @@ def test_audioobject_convention(tmp_path, stereo):
                                                           dtype=np.float32)
     np.testing.assert_array_equal(audio.AudioObject(q).data,
                                   stereo.astype(np.float32))
-
-
-# -- logging -------------------------------------------------------------------
-
-def test_logging_records(tmp_path):
-    sink = tlog.JSONLWriter(str(tmp_path / "logs" / "run.jsonl"))
-    with tlog.phase_timer("gem", sink, clips=2):
-        pass
-    with tlog.device_trace(None):
-        pass
-    with tlog.device_trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert list((tmp_path / "trace").iterdir())
-    rec = tlog.gem_metrics_record([1.0, 2.0, 1.5], 2.0, 10.0, 3, cell="x")
-    assert rec["xrt"] == 5.0 and rec["loglik_monotone_frac"] == 0.5
-    sink.write(rec)
-    lines = [json.loads(ln) for ln in
-             open(tmp_path / "logs" / "run.jsonl").read().splitlines()]
-    assert lines[0]["phase"] == "gem" and lines[0]["clips"] == 2
-    assert lines[1]["cell"] == "x"
 
 
 # -- fused spectral guard ------------------------------------------------------
