@@ -216,6 +216,14 @@ Phases (each prints one line with its numbers and seconds):
      cpu_reference_five(); CPU_SDR_TEN, cpu_reference_ten();
      CPU_SDR_TWENTY, cpu_reference_twenty()).
 
+"n launches" of a kernel over n GEM iterations means one an iteration:
+where run_gem replays a captured CUDA graph (ops/gem.py graph_rule), the
+host counts the launches of the eager iterations (cuda_estep.LAUNCHES,
+VARIANT_LAUNCHES, cuda_spectral.LAUNCHES) and gem.GRAPH_STEPS the
+replayed ones, which together make n (_ran); each profile window
+(profile_gem) holds the port's kernels in the device's trace, the
+replays' included, to a whole number of events an iteration.
+
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}} only when every phase passed. Without a CUDA
 device the script exits non-zero at once. It imports nothing of JAX.
@@ -1860,7 +1868,6 @@ def phase_host_api(device, dur, niter):
     import scipy.io.wavfile
     import torch
     from pyfasst_tpu_torch import MultiChanNMFInst_FASST
-    from pyfasst_tpu_torch.ops import cuda_estep
     t0 = time.perf_counter()
     mix, y1, y2 = make_mixture(dur=dur)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1868,25 +1875,29 @@ def phase_host_api(device, dur, niter):
         scipy.io.wavfile.write(wav, FS, mix)              # float32 WAV
         model = MultiChanNMFInst_FASST(wav, nbComps=J, nbNMFComps=K,
                                        iter_num=niter, device=device)
-        cuda_estep.LAUNCHES = 0
+        _reset_counts()
         t1 = time.perf_counter()
         ll = model.estim_param_a_posteriori()
         paths = model.separate_spat_comps(os.path.join(tmp, "out"))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t1
-        launches = cuda_estep.LAUNCHES
+        launches, counts = _counts()
+        prof = profile_gem(model.params, model.Xs, model.cfg)
         ys = model.separated_images()
         written = [p for p in paths if os.path.getsize(p) > 44]
         check_logliks(ll, "host API")
         sdr = float(min_sdr(torch.as_tensor(ys)[None],
                             torch.as_tensor(np.stack([y1, y2]))[None])[0])
         log(f"phase 3 host API: {niter} iters, loglik {ll[0]:.6g} -> "
-            f"{ll[-1]:.6g}, E-step kernel launches {launches}, min SDR "
+            f"{ll[-1]:.6g}, E-step kernel launches {launches} "
+            f"({counts['replayed']} iterations replayed; per iteration in "
+            f"the trace of 60-80 {_own(prof)}), min SDR "
             f"{sdr:.2f} dB, wavs {len(written)}/{J} | run {run_s:.2f}s | "
             f"{time.perf_counter() - t0:.2f}s")
-        if launches != niter:
-            raise RuntimeError(f"E-step kernel launched {launches} times in "
-                               f"{niter} iterations (expected {niter})")
+        if not _ran(launches, niter, counts):
+            raise RuntimeError(f"E-step kernel launched {launches} times and "
+                               f"{counts['replayed']} iterations replayed "
+                               f"in {niter} iterations")
         if not sdr > SDR_GATE:
             raise RuntimeError(f"host API separation {sdr:.2f} dB <= "
                                f"{SDR_GATE} dB")
@@ -1909,7 +1920,6 @@ def phase_resume(device, wav, niter, straight, ll_straight):
     uninterrupted run (`straight`) bit for bit."""
     import torch
     from pyfasst_tpu_torch import MultiChanNMFInst_FASST, convert
-    from pyfasst_tpu_torch.ops import cuda_estep
     t0 = time.perf_counter()
     half, every = niter // 2, niter // 4
     ck = os.path.join(os.path.dirname(wav), "resume.npz")
@@ -1924,7 +1934,7 @@ def phase_resume(device, wav, niter, straight, ll_straight):
         return out
 
     first.save_checkpoint = save_then_stop
-    cuda_estep.LAUNCHES = 0
+    _reset_counts()
     try:
         first.estim_param_a_posteriori(checkpoint_path=ck,
                                        checkpoint_every=every)
@@ -1938,7 +1948,7 @@ def phase_resume(device, wav, niter, straight, ll_straight):
                                           checkpoint_path=ck,
                                           checkpoint_every=every)
     torch.cuda.synchronize()
-    launches = cuda_estep.LAUNCHES
+    launches, counts = _counts()
     same_ll = bool(np.array_equal(ll[half:], ll_straight[half:]))
     trees = [convert.params_to_numpy(m.params)[0]
              for m in (straight, resumed)]
@@ -1950,12 +1960,14 @@ def phase_resume(device, wav, niter, straight, ll_straight):
         f"{half} (every {every}), resumed from {start}; logliks "
         f"{half}-{niter} bit-identical {same_ll}, parameter leaves "
         f"bit-identical {same_leaves}/{len(leaves)}; E-step launches "
-        f"{launches} (both legs) | {time.perf_counter() - t0:.2f}s")
+        f"{launches}, {counts['replayed']} iterations replayed (both legs) "
+        f"| {time.perf_counter() - t0:.2f}s")
     if start != half or not same_ll or same_leaves != len(leaves):
         raise RuntimeError("phase 3b: the resumed run is not the "
                            "uninterrupted one bit for bit")
-    if launches != niter:
-        raise RuntimeError(f"phase 3b: {launches} E-step launches in "
+    if not _ran(launches, niter, counts):
+        raise RuntimeError(f"phase 3b: {launches} E-step launches and "
+                           f"{counts['replayed']} iterations replayed in "
                            f"{niter} iterations over both legs")
 
 
@@ -2082,9 +2094,15 @@ def _profile(window, n):
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        m = re.search(r"(\w+)(<[^()]*>)?\(", e.name)
+        key = m.group(1) if m else e.name
+        by_name[key] = by_name.get(key, 0) + 1
     return {"wall_ms": wall * 1e3 / n, "enqueue_ms": enqueue * 1e3 / n,
             "busy_ms": busy / n if dev else None,
-            "kernels": len(dev) / n if dev else None}
+            "kernels": len(dev) / n if dev else None, "by_name": by_name,
+            "steps": n}
 
 
 def kernel_split(fn, n=5):
@@ -2132,9 +2150,28 @@ def gem_window(params, X, cfg, start=60, stop=80):
     return window, stop - start
 
 
+OWN_KERNEL = re.compile(r"(estep_\w+|fb_stats|tw_stats|frames|sums|segments"
+                        r"|sum_segments|sum_splits|stats_tile|fused|consts)"
+                        r"_kernel")
+"""The names of the port's own kernels (csrc/) in a device trace."""
+
+
 def profile_gem(params, X, cfg, start=60, stop=80):
-    """GEM iterations [start, stop) of one run, per iteration (_profile)."""
-    return _profile(*gem_window(params, X, cfg, start, stop))
+    """GEM iterations [start, stop) of one run, per iteration (_profile).
+    Each of the port's kernels must show in the device's trace a whole
+    number of times an iteration, the replays of a captured graph
+    included (those launches the host does not count), give or take the
+    one record a trace can lose at its edge."""
+    prof = _profile(*gem_window(params, X, cfg, start, stop))
+    steps = stop - start
+    ours = {k: n for k, n in prof["by_name"].items() if OWN_KERNEL.fullmatch(k)}
+    off = {k: n for k, n in ours.items()
+           if round(n / steps) < 1 or abs(n - round(n / steps) * steps) > 1}
+    if off:
+        raise RuntimeError(f"iterations {start}-{stop}: the port's kernels "
+                           f"{ours} in the device's trace, not a whole "
+                           "number of times an iteration")
+    return prof
 
 
 def _profile_line(label, prof, card,
@@ -2181,13 +2218,15 @@ def phase_fused(device, dur, niter, batch, card, unfused):
             + f" ms -> xRT {xrt:.2f} (median of {len(ms)}); unfused (phase 4)"
             f" {unfused['pipeline_ms']:.1f} ms, xRT "
             f"{unfused['xrt'][batch]:.2f} | {card}")
-        want_e = niter if cfg.fast_recip else 0
-        if (total != niter or counts["e"] != want_e
-                or spectral != {"fb_stats": niter, "tw_stats": niter}):
+        if (not _ran(total, niter, counts)
+                or (not _ran(counts["e"], niter, counts) if cfg.fast_recip
+                    else counts["e"])
+                or not all(_ran(v, niter, counts) for v in spectral.values())):
             raise RuntimeError(
                 f"phase 8 {label}: launches E-step {total} {counts}, "
                 f"spectral {spectral} in {niter} iterations (expected "
-                f"{niter} each, {want_e} of variant e)")
+                f"one each an iteration, with the replayed ones, variant e "
+                f"{'too' if cfg.fast_recip else 'never'})")
         if not np.all(sdrs > SDR_GATE):
             raise RuntimeError(f"phase 8 {label}: separation below "
                                f"{SDR_GATE} dB: {sdrs}")
@@ -2205,17 +2244,49 @@ def phase_fused(device, dur, niter, batch, card, unfused):
 
 
 def _reset_counts():
-    from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral
+    from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral, gem
     cuda_estep.LAUNCHES = 0
-    for k in cuda_estep.VARIANT_LAUNCHES:
-        cuda_estep.VARIANT_LAUNCHES[k] = 0
-    for k in cuda_spectral.LAUNCHES:
-        cuda_spectral.LAUNCHES[k] = 0
+    for d in (cuda_estep.VARIANT_LAUNCHES, cuda_spectral.LAUNCHES,
+              gem.GRAPH_STEPS):
+        for k in d:
+            d[k] = 0
 
 
 def _counts():
-    from pyfasst_tpu_torch.ops import cuda_estep
-    return cuda_estep.LAUNCHES, dict(cuda_estep.VARIANT_LAUNCHES)
+    """(E-step launches, by variant) the host made since _reset_counts,
+    with gem.GRAPH_STEPS beside the variants: the "eager" GEM iterations,
+    whose kernels the host counts as it launches them, the "replayed" ones,
+    each one launch of a captured CUDA graph, and the "captures" (a call
+    under capture records its kernel and launches nothing)."""
+    from pyfasst_tpu_torch.ops import cuda_estep, gem
+    return cuda_estep.LAUNCHES, {**cuda_estep.VARIANT_LAUNCHES,
+                                 **gem.GRAPH_STEPS}
+
+
+def _runs(xs) -> list:
+    """xs with each run of equal neighbours cut to one."""
+    return [x for i, x in enumerate(xs) if i == 0 or xs[i - 1] != x]
+
+
+def _own(prof) -> dict:
+    """The port's kernels in a profile_gem trace, events an iteration."""
+    return {k: n / prof["steps"] for k, n in prof["by_name"].items()
+            if OWN_KERNEL.fullmatch(k)}
+
+
+def _per_iteration(launches) -> dict:
+    """A rank's nonzero launch counts (parallel/dryrun.py) with its GEM
+    iterations replayed as CUDA graphs added to each kernel's."""
+    extra = launches.get("replayed", 0)
+    return {k: v + extra for k, v in launches.items() if k != "replayed"}
+
+
+def _ran(n, want, counts) -> bool:
+    """n launches of a kernel that the host counted and the replayed GEM
+    iterations in counts (_counts()) make `want`: the kernel once in each
+    iteration. profile_gem holds each replay's kernels in the device's
+    trace."""
+    return n + counts["replayed"] == want
 
 
 def phase_conv(device, case, card):
@@ -2246,7 +2317,7 @@ def phase_conv(device, case, card):
     if model.N != conv_frames():
         raise RuntimeError(f"phase {phase}: N = {model.N}, but phase 2 "
                            f"timed the path's shape at N = {conv_frames()}")
-    if total != NITER_CONV or counts[key] != NITER_CONV:
+    if not (_ran(total, NITER_CONV, counts) and counts[key] == total):
         raise RuntimeError(f"phase {phase}: {total} kernel launches "
                            f"({counts}) in {NITER_CONV} iterations")
     if not smin >= SDR_FLOOR[case]:
@@ -2274,7 +2345,7 @@ def phase_ns_inj(device):
         f"{time.perf_counter() - t0:.2f}s")
     if not np.all(np.isfinite(ll)):
         raise RuntimeError("phase 7: non-finite loglik")
-    if total != NITER_NS or counts["d"] != NITER_NS:
+    if not (_ran(total, NITER_NS, counts) and counts["d"] == total):
         raise RuntimeError(f"phase 7: {total} kernel launches ({counts}) "
                            f"in {NITER_NS} iterations")
     return counts
@@ -2413,8 +2484,8 @@ def phase_conv_batch(device, case, card):
         f"unpadded runs {b1_s:.2f}s -> xRT {B * DUR_CONV / b1_s:.2f}; set-up "
         f"{setup_s:.2f}s | {card} | {time.perf_counter() - t0:.2f}s")
     log(_profile_line(f"phase {phase} profile {case} B={B}", prof, card))
-    if total != NITER_CONV or counts[key] != NITER_CONV \
-            or widths != [B] * NITER_CONV:
+    if not (_ran(total, NITER_CONV, counts) and counts[key] == total) \
+            or set(widths) != {B}:
         raise RuntimeError(f"phase {phase}: launches {total} {counts}, "
                            f"widths {sorted(set(widths))} in {NITER_CONV} "
                            f"iterations (expected {NITER_CONV} of variant "
@@ -2607,7 +2678,7 @@ def phase_k_big(device, card):
             torch.cuda.synchronize()
             runs[fuse] = {"ll": ll.cpu().numpy(), "sdr": min_sdr(ys, y_true),
                           "spectral": dict(cuda_spectral.LAUNCHES),
-                          "estep": _counts()[0],
+                          "estep": _counts(),
                           "seconds": time.perf_counter() - t1}
         cfg = GEMConfig(niter=NITER)
         sig = annealing_endpoints(X, cfg)
@@ -2629,7 +2700,8 @@ def phase_k_big(device, card):
         witness = loglik_rel(wit, unfused["ll"])
         launches[K_] = fused["spectral"]
         log(f"phase 12 K={K_} B={BATCH} {NITER} iters fuse_spectral: "
-            f"launches {fused['spectral']}, E-step {fused['estep']}; per-clip"
+            f"launches {fused['spectral']}, E-step {fused['estep'][0]} "
+            f"({fused['estep'][1]['replayed']} replayed); per-clip"
             " min SDR " + " ".join(f"{x:.2f}" for x in fused["sdr"])
             + f" ({fused['seconds']:.2f}s) | unfused: launches "
             f"{unfused['spectral']}, min SDR "
@@ -2639,8 +2711,10 @@ def phase_k_big(device, card):
             f"{MESH_EARLY_RTOL:.0e}), the run {whole:.2e} (<= "
             f"{K_BIG_DRIFT_RTOL:.1e}); the witness, unfused in two halves of "
             f"{half} clips: {witness:.2e} | {card}")
-        if fused["spectral"] != {"fb_stats": NITER, "tw_stats": NITER} \
-                or fused["estep"] != NITER or any(
+        its = fused["estep"][1]
+        if not all(_ran(fused["spectral"][k], NITER, its)
+                   for k in ("fb_stats", "tw_stats")) \
+                or not _ran(fused["estep"][0], NITER, its) or any(
                     unfused["spectral"].values()):
             bad.append(f"K={K_}: launches fused {fused['spectral']} E-step "
                        f"{fused['estep']}, unfused {unfused['spectral']}")
@@ -2868,14 +2942,14 @@ def phase_erblet(device, card):
     if (e["F"], e["N"]) != ERB_SHAPE[2:]:
         raise RuntimeError(f"phase 13: F, N = {e['F']}, {e['N']}, but phase "
                            f"2 checked the path's shape at {ERB_SHAPE}")
-    if total != NITER_ERB or counts["a"] != NITER_ERB:
+    if not (_ran(total, NITER_ERB, counts) and counts["a"] == total):
         raise RuntimeError(f"phase 13: {total} kernel launches ({counts}) "
                            f"in {NITER_ERB} iterations")
     if not np.all(np.isfinite(e["loglik"])):
         raise RuntimeError("phase 13: non-finite loglik")
     _within_cpu(13, "erblet48", e["min_sdr"])
     if not (np.all(np.isfinite(mq["loglik"])) and mq["finite"]
-            and mq["counts"][0] == NITER_MINQT
+            and _ran(mq["counts"][0], NITER_MINQT, mq["counts"][1])
             and mq["shape"] == (J, int(FS * DUR_MINQT), 2)):
         raise RuntimeError(f"phase 13 minqt: launches {mq['counts']}, "
                            f"images {mq['shape']} finite {mq['finite']}")
@@ -2902,7 +2976,7 @@ def phase_hmm(device, card):
         parts.append(f"{name}: min SDR {r['min_sdr']:.2f} dB (CPU run "
                      f"{CPU_SDR_SLICE[name]} dB), launches {total}, "
                      f"{r['seconds']:.2f}s")
-        if total != niter[name] or counts["a"] != niter[name]:
+        if not (_ran(total, niter[name], counts) and counts["a"] == total):
             raise RuntimeError(f"phase 14 {name}: launches {total} {counts} "
                                f"(expected {niter[name]} of variant a)")
         if "loglik" in r and not np.all(np.isfinite(r["loglik"])):
@@ -3272,8 +3346,8 @@ def phase_stream(device, card):
                          + card_rows["fullrank_r1"]["pass2_blocks"])):
         total, counts = card_rows[name]["counts"]
         want = per_step * steps
-        if total != want or counts["b"] != want or any(
-                v for k, v in counts.items() if k != "b"):
+        if not (_ran(total, want, counts) and counts["b"] == total) or any(
+                counts[k] for k in "acdef"):
             bad.append(f"{name}: launches {total} {counts}, expected {want} "
                        f"of variant b")
     for name in ("fullrank", "mono"):
@@ -3417,8 +3491,8 @@ def ladder_checks(device, card):
             f"{stages}, launches {total} {counts} (expected {want}), "
             f"finite images {bool(np.all(np.isfinite(ys)))}, {secs:.2f}s | "
             f"{card}")
-        if not np.all(np.isfinite(ys)) or total != want \
-                or counts["c"] != want:
+        if not np.all(np.isfinite(ys)) or not _ran(total, want, counts) \
+                or counts["c"] != total:
             raise RuntimeError(f"phase 16 {name}: launches {total} {counts} "
                                f"(expected {want}) or non-finite images")
         out[name] = total
@@ -3617,7 +3691,8 @@ def phase_blind(device, card):
     embed_s = embed_device_check(device)
     ladder = ladder_checks(device, card)
     bad = []
-    if total != want or counts["c"] != want or widths != want_widths:
+    if not (_ran(total, want, counts) and counts["c"] == total) \
+            or _runs(widths) != _runs(want_widths):
         bad.append(f"launches {total} {counts}, widths "
                    f"{sorted(set(widths))} (expected {want} of variant c: "
                    f"{chunks} chunks {POOL_CHUNK} wide, {reseeds} reseed "
@@ -4021,8 +4096,8 @@ def cli_commands(tmp, speech):
         log(f"phase 17 {label}: `{' '.join(os.path.basename(a) for a in argv)}` -> "
             f"{json.dumps({k: v for k, v in rep.items() if k != 'results'})[:300]}"
             f" | launches {total} {counts} (expected {want}), {secs:.2f}s")
-        if total != want or (want and kinds != {kind}) \
-                or len(shapes) != want:
+        if not _ran(total, want, counts) or (want and kinds != {kind}) \
+                or len(shapes) != total + counts["captures"]:
             bad.append(f"{label}: launches {total} {counts}, kernels "
                        f"{sorted(kinds)} (expected {want} of {kind})")
         return rep, shapes
@@ -4152,7 +4227,8 @@ def phase_cli(card, shape_nums):
         log(_profile_line(f"phase 17 profile speech pool chunk "
                           f"B={POOL_CHUNK} (of {NITER_CONV})",
                           speech["profile"], card))
-        if speech["launches"] != want or speech["counts"]["c"] != want:
+        if not (_ran(speech["launches"], want, speech["counts"])
+                and speech["counts"]["c"] == speech["launches"]):
             bad.append(f"speech: launches {speech['launches']} "
                        f"{speech['counts']} (expected {want} of variant c)")
         if not abs(speech["min_sdr"] - CPU_SDR_SPEECH) <= SDR_SLACK:
@@ -4177,7 +4253,8 @@ def phase_cli(card, shape_nums):
                 f"(expected {want}), min SDR {r['min_sdr']:.2f} dB (mean "
                 f"{r['mean_sdr']:.2f}; the JAX package's draw {jax_sdr} dB)"
                 f", wall {r['wall']:.2f}s")
-            if r["launches"] != want or r["counts"]["c"] != want:
+            if not (_ran(r["launches"], want, r["counts"])
+                    and r["counts"]["c"] == r["launches"]):
                 bad.append(f"speech seed {seed}: launches {r['launches']} "
                            f"{r['counts']} (expected {want} of variant c)")
         med = statistics.median(draws)
@@ -4212,7 +4289,8 @@ def phase_cli(card, shape_nums):
             f"gated; the JAX package's TPU row at 20 s {JAX_MUSIC_MIN_SDR} "
             f"dB), wall {music['wall']:.2f}s -> xRT "
             f"{music['duration'] / music['wall']:.3f} | {card}")
-        if music["launches"] != want or music["counts"]["c"] != want \
+        if not (_ran(music["launches"], want, music["counts"])
+                and music["counts"]["c"] == music["launches"]) \
                 or set(grids) != {1025, 4097} or not music["finite"]:
             bad.append(f"music: launches {music['launches']} "
                        f"{music['counts']} by F {grids} (expected {want} "
@@ -4374,7 +4452,8 @@ def phase_five(device, card):
             f"{r['seconds']:.2f}s -> xRT "
             f"{(DUR_CONV if name == 'reverb5' else DUR) / r['seconds']:.2f}"
             f" | {card}")
-        if total != n or counts[key] != n or r["shapes"] != {shape}:
+        if not (_ran(total, n, counts) and counts[key] == total) \
+                or r["shapes"] != {shape}:
             bad.append(f"{name}: launches {total} {counts} at shapes "
                        f"{r['shapes']} (expected {n} of variant {key} at "
                        f"{shape})")
@@ -4520,7 +4599,8 @@ def mesh_state_check(ranks, states, sigs, device):
                            f" {k} iterations, {rel[cfg_s.niter]:.2e} over "
                            "the run")
             if str(device).startswith("cuda") and any(
-                    p != {"estep": cfg_s.niter} for p in per_rank):
+                    _per_iteration(p) != {"estep": cfg_s.niter}
+                    for p in per_rank):
                 bad.append(f"{label}: launches per rank {per_rank} (expected"
                            f" {cfg_s.niter} E-steps)")
         lines.append(
@@ -4622,13 +4702,15 @@ def phase_mesh(device, card, unfused, fused, bucket):
             imgs, lls = batch_separate(Xs, make_params, cfg_c, mesh=mesh)
             total, counts = _counts()
             pool = mesh_pool(device, mesh)
-            pool_total, _ = _counts()
+            pool_total, pool_counts = _counts()
         finally:
             dist.destroy_process_group()
     bucket_same = all(np.array_equal(a, b) for a, b in zip(
         imgs + lls, bucket["images"] + bucket["logliks"]))
     pool_same = same_pool(pool, pool_ref)
-    ws1 = {"bucket": total, "pool": pool_total - total}
+    ws1 = {"bucket": total, "pool": pool_total - total,
+           "replayed": [counts["replayed"], pool_counts["replayed"]
+                        - counts["replayed"]]}
     log(f"phase 18 (a) NCCL world size 1: phase 9's bucket through "
         f"batch_separate(mesh=make_mesh(1)): launches {total} {counts}, "
         f"logliks and images bit for bit {bucket_same}; phase 16's pool "
@@ -4638,7 +4720,8 @@ def phase_mesh(device, card, unfused, fused, bucket):
     if not (bucket_same and pool_same):
         bad.append(f"world size 1 differs from the unsharded runs (bucket "
                    f"{bucket_same}, pool {pool_same})")
-    if total != NITER_CONV or ws1["pool"] != NITER_LADDER:
+    if ws1["bucket"] + ws1["replayed"][0] != NITER_CONV \
+            or ws1["pool"] + ws1["replayed"][1] != NITER_LADDER:
         bad.append(f"world size 1 launches {ws1} (expected {NITER_CONV} "
                    f"and {NITER_LADDER})")
 
@@ -4753,9 +4836,9 @@ def phase_mesh(device, card, unfused, fused, bucket):
         if not (early <= MESH_EARLY_RTOL and run <= MESH_DRIFT_RTOL):
             bad.append(f"{label}: logliks rel {early:.2e} over the first "
                        f"{k} iterations, {run:.2e} over the run")
-        if any(p != want for p in per_rank):
+        if any(_per_iteration(p) != want for p in per_rank):
             bad.append(f"{label}: launches per rank {per_rank} (expected "
-                       f"{want})")
+                       f"{want}, with the replayed iterations)")
     t1 = time.perf_counter()
     lines, bad_c, launches_c = mesh_state_check(ranks, states, state_sig,
                                                 device)

@@ -148,8 +148,12 @@ def _host(params) -> Dict[str, np.ndarray]:
 # -- workers (run on every rank) ----------------------------------------------
 
 def _launches() -> Dict[str, int]:
-    from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral
-    return {"estep": cuda_estep.LAUNCHES, **cuda_spectral.LAUNCHES}
+    """The kernel launches the host made (ops/cuda_estep, ops/cuda_spectral)
+    and the GEM iterations run_gem replayed as CUDA graphs, which launch
+    their kernels without the host (ops/gem.py GRAPH_STEPS)."""
+    from pyfasst_tpu_torch.ops import cuda_estep, cuda_spectral, gem
+    return {"estep": cuda_estep.LAUNCHES, **cuda_spectral.LAUNCHES,
+            "replayed": gem.GRAPH_STEPS["replayed"]}
 
 
 def run_sharded(params_b, X_b, cfg, dp: Optional[int] = None,

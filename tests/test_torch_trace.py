@@ -211,7 +211,8 @@ def test_separate_trace_dir_writes_the_spans(tmp_path):
 @pytest.mark.cuda
 def test_spans_add_no_device_event():
     """Under CUDA activity no CUDA-type event carries a span's name (the
-    kernels' list of a trace holds kernels only)."""
+    kernels' list of a trace holds kernels only), the spans of run_gem's
+    CUDA graphs (gem.capture, gem.replay) included."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the device's trace exists only "
                     "on the card")
@@ -226,7 +227,7 @@ def test_spans_add_no_device_event():
     _, prof, recs = _profiled(run, (ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA))
     names = {s.name for s in recs}
-    assert names == {"gem.run", *STAGES}
+    assert names == {"gem.run", "gem.capture", "gem.replay", *STAGES}
     events = list(prof.events())
     assert any(e.device_type == DeviceType.CUDA for e in events)
     assert not {e.name for e in events
